@@ -1,3 +1,4 @@
 """repro_torch.core — the port of :mod:`repro.core`: the Algorithm-1 guard
-(``byzantine_sgd``), its dense and fused backends, the static attacks, the
-mean baseline and the convex driver ``run_sgd``."""
+(``byzantine_sgd``), its dense and fused backends, the key-free static
+attacks (ALIE included), the baseline aggregators and the convex driver
+``run_sgd``."""

@@ -1,4 +1,4 @@
-"""The key-free static attacks of :mod:`repro.core.attacks`.
+"""The key-free static attacks of :mod:`repro.core.attacks`, ALIE included.
 
 All share the signature ``attack(key, grads, byz_mask, ctx, **kwargs) ->
 grads'``: ``grads`` is (m, d) with honest rows everywhere, ``byz_mask`` is
@@ -39,6 +39,41 @@ def attack_constant_drift(key, grads, byz_mask, ctx, scale: float = 10.0):
     return _overwrite(grads, byz_mask, scale * ctx["V"] * direction[None, :])
 
 
+def alie_z_max(n_workers, n_byz) -> torch.Tensor:
+    """The calibrated ALIE deviation z_max (Baruch et al., blades parity):
+    z_max = Φ⁻¹((n − m − s) / (n − m)) with s = ⌊n/2 + 1⌋ − m supporters,
+    in f32 as the JAX package computes it, the cdf argument clipped to
+    [1e-6, 1 − 1e-6] so a coalition past n/2 saturates instead of
+    returning ±inf.  ``n_byz`` may be a tensor; the result lies on its
+    device."""
+    mb = torch.as_tensor(n_byz).to(torch.float32)
+    n = torch.full_like(mb, float(n_workers))
+    n_good = torch.clamp(n - mb, min=1.0)
+    s = torch.floor(n / 2.0 + 1.0) - mb
+    cdf = (n_good - s) / n_good
+    return torch.special.ndtri(torch.clamp(cdf, 1e-6, 1.0 - 1e-6))
+
+
+def _good_row_stats(grads: torch.Tensor, byz_mask: torch.Tensor):
+    """(μ, σ²) over the honest rows (population moments, coordinate-wise)."""
+    w = (~byz_mask).to(grads.dtype)[:, None]
+    n_good = torch.clamp(torch.sum(w), min=1.0)
+    mu = torch.sum(grads * w, dim=0) / n_good
+    var = torch.sum(w * (grads - mu[None, :]) ** 2, dim=0) / n_good
+    return mu, var
+
+
+def attack_alie(key, grads, byz_mask, ctx, z: float | None = None, z_scale: float = 1.0):
+    """'A little is enough' (Baruch et al.): the colluding workers send
+    μ − z·σ (coordinate-wise over the honest rows).  ``z=None`` calibrates
+    z to the supporter count with :func:`alie_z_max`; ``z_scale``
+    multiplies whichever z is in effect."""
+    zz = alie_z_max(grads.shape[0], torch.sum(byz_mask)) if z is None else z
+    mu, var = _good_row_stats(grads, byz_mask)
+    row = mu - z_scale * zz * torch.sqrt(var + 1e-12)
+    return _overwrite(grads, byz_mask, row[None, :])
+
+
 def attack_inner_product(key, grads, byz_mask, ctx, scale: float = 1.0):
     """Omniscient negative-inner-product attack: push exactly against the
     true gradient, scaled to the top of the allowed deviation V."""
@@ -52,6 +87,7 @@ ATTACKS: dict[str, Callable] = {
     "none": attack_none,
     "sign_flip": attack_sign_flip,
     "constant_drift": attack_constant_drift,
+    "alie": attack_alie,
     "inner_product": attack_inner_product,
 }
 

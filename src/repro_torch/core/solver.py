@@ -7,19 +7,24 @@ step of Fact 2.5:
     x_{k+1} = Proj_{‖y − x_1‖ ≤ D} (x_k − η ξ_k)
 
 where ξ_k comes from the Algorithm-1 guard (``aggregator="byzantine_sgd"``)
-or the plain mean.  The JAX ``lax.scan`` becomes a Python step loop over
-the same key chain: ``key, mask_key = split(key)``; per step ``rng, gkey,
-akey = split(rng, 3)`` and ``worker_keys = split(gkey, m)``.  On a
+or a baseline aggregator of :mod:`repro_torch.core.aggregators` (stateless,
+stateful, or composed with bucketing as ``bucket<s>:<base>``).  The JAX
+``lax.scan`` becomes a Python step loop over the same key chain:
+``key, mask_key = split(key)``; per step ``rng, gkey, akey = split(rng,
+3)`` and ``worker_keys = split(gkey, m)``.  On a
 generated problem the port therefore draws the reference's batches from
 the same seed.  The loop never waits for the device; results are stacked
 once at the end.
 
 Not ported yet (they raise NotImplementedError): scenario adversaries,
 telemetry, ``generate="kernel"``, ``sanitize``, staleness
-(``max_delay``), partial participation and every baseline but the mean.
+(``max_delay``) and partial participation.
 """
 from __future__ import annotations
 
+import functools
+import inspect
+import math
 from typing import Callable, NamedTuple
 
 import torch
@@ -50,6 +55,14 @@ class Problem(NamedTuple):
     sigma: float = 0.0
 
 
+def ceil_byzantine_count(alpha: float, m: int) -> int:
+    """max(⌈αm⌉, 1) — the *covering* Byzantine count that defense
+    parameters (Krum's f, the trimmed mean's count) round up to, while the
+    adversary's realized count floors; the epsilon guards f32 grid alphas
+    landing just above an integer."""
+    return max(math.ceil(alpha * m - 1e-9), 1)
+
+
 class SolverConfig(NamedTuple):
     m: int                      # number of workers
     T: int                      # iterations
@@ -61,9 +74,15 @@ class SolverConfig(NamedTuple):
     mean_over_alive: bool = False
     delta: float = 1e-3
     threshold_mode: str = "anytime"
+    krum_f: int | None = None   # override Krum's f (defaults to ⌈αm⌉)
+    trim_fraction: float | None = None  # defaults to the ceil convention
     guard_backend: str = "dense"  # 'dense' | 'fused'
     guard_opts: tuple = ()      # backend knobs as (key, value) pairs
     stats_dtype: str = "f32"    # 'f32' | 'bf16'
+    agg_opts: tuple = ()        # baseline knobs as (key, value) pairs, e.g.
+    #                             clip_tau for centered_clip, bucket_seed
+    #                             for bucket<s>:<base>; each rule receives
+    #                             only the knobs it declares
     max_delay: int = 0          # not ported: must stay 0
     partial_participation: bool = False  # not ported: must stay False
     generate: str = "off"       # not ported: must stay "off"
@@ -73,6 +92,11 @@ class SolverConfig(NamedTuple):
     def n_byzantine(self) -> int:
         # the adversary corrupts whole workers: floor
         return int(self.alpha * self.m)
+
+    @property
+    def krum_f_default(self) -> int:
+        """⌈αm⌉: Krum's f must cover the Byzantine count, so it rounds up."""
+        return ceil_byzantine_count(self.alpha, self.m)
 
 
 class SolverResult(NamedTuple):
@@ -90,14 +114,107 @@ def byz_rank(key: torch.Tensor, m: int) -> torch.Tensor:
     return torch.argsort(prng.permutation(key, m), stable=True)
 
 
+def parse_aggregator_spec(name: str) -> tuple[int | None, str]:
+    """``"bucket2:krum"`` → ``(2, "krum")``; ``"krum"`` → ``(None, "krum")``.
+    The base may be any spec, another bucketing layer included."""
+    head, sep, base = name.partition(":")
+    if sep and head.startswith("bucket"):
+        try:
+            s = int(head[len("bucket"):])
+        except ValueError:
+            raise KeyError(f"malformed bucketing spec {name!r}; "
+                           "expected 'bucket<s>:<base>'") from None
+        if s < 1:
+            raise KeyError(f"bucketing needs s >= 1, got {name!r}")
+        return s, base
+    return None, name
+
+
+def _declared_knobs(target) -> set[str]:
+    """Parameter names ``target`` accepts beyond its data arguments (and
+    the port's own ``device``, which is not a knob)."""
+    sig = inspect.signature(target)
+    return {p.name for p in sig.parameters.values()
+            if p.kind in (p.KEYWORD_ONLY, p.POSITIONAL_OR_KEYWORD)
+            and p.name not in ("grads", "d", "device")}
+
+
+def _validate_agg_opts(opts: dict) -> None:
+    """KeyError on knobs no registered aggregator declares: one tuple
+    serves a whole sweep (knobs of other rules drop silently), typos fail
+    before the first step."""
+    known = {"bucket_seed"}
+    for fn in agg_lib.AGGREGATORS.values():
+        known |= _declared_knobs(fn)
+    for factory in agg_lib.STATEFUL_AGGREGATORS.values():
+        known |= _declared_knobs(factory)
+    unknown = set(opts) - known
+    if unknown:
+        raise KeyError(f"unknown agg_opts {sorted(unknown)}; "
+                       f"known knobs: {sorted(known)}")
+
+
 def make_aggregator(problem: Problem, cfg: SolverConfig, device="cuda"):
-    """Returns (init_state, step(state, grads, x, x1) -> (state, xi, n_alive, alive))."""
-    if cfg.aggregator == "byzantine_sgd":
-        return make_guard_backend(cfg.guard_backend, problem, cfg, device)
-    fn = agg_lib.get_aggregator(cfg.aggregator)
+    """Returns (init_state, step(state, grads, x, x1) -> (state, xi, n_alive, alive)).
+
+    ``byzantine_sgd`` goes to the guard backends.  Stateless baselines
+    carry no state; stateful ones (:data:`~repro_torch.core.aggregators.
+    STATEFUL_AGGREGATORS`) carry theirs from step to step.  A
+    ``bucket<s>:<base>`` spec permutes the worker rows with a carried key,
+    averages them in groups of s and hands the m/s bucket means to the base
+    rule, built at m/s workers with its Byzantine sizing raised to the
+    min(s·α, 1/2) contaminated-bucket fraction.  Baselines and bucketing
+    report every worker alive."""
+    opts = dict(cfg.agg_opts)
+    _validate_agg_opts(opts)
+    bucket_s, name = parse_aggregator_spec(cfg.aggregator)
     dev = resolve_device(device)
     n_alive = torch.tensor(cfg.m, device=dev)
     alive = torch.ones((cfg.m,), dtype=torch.bool, device=dev)
+
+    if bucket_s is not None:
+        if cfg.m % bucket_s:
+            raise ValueError(f"bucketing needs s | m, got s={bucket_s}, m={cfg.m}")
+        inner_cfg = cfg._replace(aggregator=name, m=cfg.m // bucket_s,
+                                 alpha=min(cfg.alpha * bucket_s, 0.5))
+        inner_state0, inner_step = make_aggregator(problem, inner_cfg, dev)
+        state0 = (prng.PRNGKey(int(opts.get("bucket_seed", 0)), device=dev), inner_state0)
+
+        def bucket_step(state, grads, x, x1):
+            key, inner = state
+            key, sub = prng.split(key)
+            buckets = agg_lib.bucket_means(grads, bucket_s, sub)
+            inner, xi, _, _ = inner_step(inner, buckets, x, x1)
+            return (key, inner), xi, n_alive, alive
+
+        return state0, bucket_step
+
+    if name == "byzantine_sgd":
+        return make_guard_backend(cfg.guard_backend, problem, cfg, dev)
+
+    if name in agg_lib.STATEFUL_AGGREGATORS:
+        factory = agg_lib.STATEFUL_AGGREGATORS[name]
+        fkwargs = {k: v for k, v in opts.items() if k in _declared_knobs(factory)}
+        state0, agg_step = factory(problem.d, device=dev, **fkwargs)
+
+        def stateful_step(state, grads, x, x1):
+            state, xi = agg_step(state, grads)
+            return state, xi, n_alive, alive
+
+        return state0, stateful_step
+
+    kwargs = {}
+    if name in ("krum", "multi_krum"):
+        kwargs["n_byzantine"] = cfg.krum_f if cfg.krum_f is not None else cfg.krum_f_default
+    if name == "trimmed_mean":
+        # the ceil convention (cover ⌈αm⌉ per side), capped so that a
+        # near-1/2 α leaves at least one value
+        kwargs["trim_fraction"] = (
+            cfg.trim_fraction if cfg.trim_fraction is not None
+            else min(ceil_byzantine_count(cfg.alpha, cfg.m), (cfg.m - 1) // 2) / cfg.m)
+    fn = agg_lib.get_aggregator(name)
+    kwargs.update({k: v for k, v in opts.items() if k in _declared_knobs(fn)})
+    fn = functools.partial(fn, **kwargs) if kwargs else fn
 
     def step(state, grads, x, x1):
         return state, fn(grads), n_alive, alive

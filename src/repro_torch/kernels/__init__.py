@@ -6,7 +6,12 @@ their plain PyTorch versions.
                       ``repro.kernels.fused_guard.fused_guard_pallas``
 * ``robust_reduce`` — the filtered mean ξ (CUDA C++,
                       ``csrc/filtered_mean.cu``), replacing
-                      ``repro.kernels.robust_reduce.filtered_mean_pallas``
+                      ``repro.kernels.robust_reduce.filtered_mean_pallas``;
+                      the coordinate median and trimmed mean
+                      (``csrc/sorted_reduce.cu``), replacing
+                      ``coordinate_median_pallas``/``trimmed_mean_pallas``
+* ``pairdist``      — the worker Gram matrix (CUDA C++, ``csrc/gram.cu``),
+                      replacing ``repro.kernels.pairdist.gram_pallas``
 * ``ref``           — the plain PyTorch versions
 * ``ops``           — dispatch by the tensor's device: a CUDA tensor
                       launches the kernel (or raises), a CPU tensor runs

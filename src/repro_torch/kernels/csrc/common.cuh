@@ -1,5 +1,5 @@
-// Shared helpers of the port's guard kernels: four-wide row loads that
-// upcast to f32, and four-wide stores that round once to the storage type.
+// Shared helpers of the port's kernels: four-wide row loads that upcast to
+// f32, and four-wide stores that round once to the storage type.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -64,6 +64,40 @@ __device__ __forceinline__ void store4(T* __restrict__ row, int64_t c, int64_t d
     for (int q = 0; q < 4; ++q)
       if (c + q < d) from_f32(v[q], row[c + q]);
   }
+}
+
+// The raw words of four adjacent columns: a float4 of f32, or a uint2
+// holding four bf16.  A kernel that prefetches a tile keeps the raw words
+// and upcasts them only when it stores them (unpack4), so no instruction
+// right after the load waits for the data to arrive.
+template <typename T> struct Raw4 { using type = float4; };
+template <> struct Raw4<__nv_bfloat16> { using type = uint2; };
+
+// Columns c..c+3 of one row as raw words; columns at or past d read as 0.
+// VEC as for load4.
+template <typename T, bool VEC>
+__device__ __forceinline__ typename Raw4<T>::type load4_raw(const T* __restrict__ row,
+                                                            int64_t c, int64_t d) {
+  using R = typename Raw4<T>::type;
+  if constexpr (VEC) {
+    return c < d ? __ldg(reinterpret_cast<const R*>(row + c)) : R{};
+  } else if constexpr (sizeof(T) == 4) {
+    return make_float4(c < d ? row[c] : 0.f, c + 1 < d ? row[c + 1] : 0.f,
+                       c + 2 < d ? row[c + 2] : 0.f, c + 3 < d ? row[c + 3] : 0.f);
+  } else {
+    const uint16_t* bits = reinterpret_cast<const uint16_t*>(row);
+    uint32_t b[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) b[q] = c + q < d ? bits[c + q] : 0u;
+    return make_uint2(b[0] | (b[1] << 16), b[2] | (b[3] << 16));
+  }
+}
+
+__device__ __forceinline__ float4 unpack4(float4 r) { return r; }
+__device__ __forceinline__ float4 unpack4(uint2 r) {
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 inline bool aligned(const void* p, size_t bytes) {

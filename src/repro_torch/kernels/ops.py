@@ -1,10 +1,12 @@
-"""Dispatch of the guard kernels by the tensor's device.
+"""Dispatch of the port's kernels by the tensor's device.
 
 A CUDA tensor launches the hand-written kernel, or raises (no fallback to
 the plain version when a build or launch fails).  A CPU tensor runs the
 plain PyTorch version in :mod:`repro_torch.kernels.ref`.  The signatures
-are the JAX package's ``ops.fused_guard(grads, B, delta)`` and
-``ops.filtered_mean(x, mask, denom)``, without the TPU's ``d_block``.
+are the JAX package's ``ops.fused_guard(grads, B, delta)``,
+``ops.filtered_mean(x, mask, denom)``, ``ops.gram(x)``,
+``ops.coordinate_median(x)`` and ``ops.trimmed_mean(x, n_trim)``, without
+the TPU's ``d_block``.
 """
 from __future__ import annotations
 
@@ -12,7 +14,12 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_guard import fused_guard_cuda
-from repro_torch.kernels.robust_reduce import filtered_mean_cuda
+from repro_torch.kernels.pairdist import gram_cuda
+from repro_torch.kernels.robust_reduce import (
+    coordinate_median_cuda,
+    filtered_mean_cuda,
+    trimmed_mean_cuda,
+)
 
 
 def runs_kernel(t: torch.Tensor) -> bool:
@@ -33,3 +40,24 @@ def filtered_mean(x: torch.Tensor, mask: torch.Tensor, denom: float) -> torch.Te
     if runs_kernel(x):
         return filtered_mean_cuda(x, mask, denom)
     return ref.filtered_mean_ref(x, mask, denom)
+
+
+def gram(x: torch.Tensor) -> torch.Tensor:
+    """(m, d) → (m, m) worker Gram matrix in f32."""
+    if runs_kernel(x):
+        return gram_cuda(x)
+    return ref.gram_ref(x)
+
+
+def coordinate_median(x: torch.Tensor) -> torch.Tensor:
+    """(m, d) → (d,) coordinate-wise median in f32."""
+    if runs_kernel(x):
+        return coordinate_median_cuda(x)
+    return ref.coordinate_median_ref(x)
+
+
+def trimmed_mean(x: torch.Tensor, n_trim: int) -> torch.Tensor:
+    """(m, d) → (d,) coordinate-wise n_trim-trimmed mean in f32."""
+    if runs_kernel(x):
+        return trimmed_mean_cuda(x, n_trim)
+    return ref.trimmed_mean_ref(x, n_trim)

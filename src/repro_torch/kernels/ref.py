@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the guard kernels — the semantics the CUDA
+"""Plain PyTorch versions of the port's kernels — the semantics the CUDA
 kernels must reproduce, and what ``ops`` runs for a CPU tensor.
 
 Inputs are upcast to f32 (exact for bf16) and every product accumulates
@@ -15,6 +15,34 @@ def gram_ref(x: torch.Tensor) -> torch.Tensor:
     """(m, d) → (m, m) Gram matrix G_ij = ⟨x_i, x_j⟩ in f32."""
     x32 = x.to(torch.float32)
     return x32 @ x32.T
+
+
+def _sorted_columns(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(each column of ``x`` sorted ascending in f32, which columns hold a
+    NaN).  The Pallas kernels sort with NaN-propagating min/max, so one NaN
+    turns its whole column to NaN; the order statistics here follow them."""
+    x32 = x.to(torch.float32)
+    return torch.sort(x32, dim=0).values, torch.isnan(x32).any(dim=0)
+
+
+def coordinate_median_ref(x: torch.Tensor) -> torch.Tensor:
+    """(m, d) → (d,) coordinate-wise median in f32 (Yin et al.'s
+    Median-GD rule).  Even m averages the two middle values, as
+    ``jnp.median``; ``torch.median`` would return the lower one."""
+    s, nan = _sorted_columns(x)
+    m = x.shape[0]
+    med = s[m // 2] if m % 2 else (s[m // 2 - 1] + s[m // 2]) * 0.5
+    return torch.where(nan, torch.nan, med)
+
+
+def trimmed_mean_ref(x: torch.Tensor, n_trim: int) -> torch.Tensor:
+    """(m, d) → (d,): drop the n_trim largest and smallest entries of each
+    column and average the rest in f32."""
+    m = x.shape[0]
+    if not 0 <= 2 * n_trim < m:
+        raise ValueError(f"trimmed_mean: n_trim={n_trim} trims everything for m={m}")
+    s, nan = _sorted_columns(x)
+    return torch.where(nan, torch.nan, torch.mean(s[n_trim:m - n_trim], dim=0))
 
 
 def filtered_mean_ref(x: torch.Tensor, mask: torch.Tensor,

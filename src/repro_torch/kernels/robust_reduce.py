@@ -1,11 +1,18 @@
-"""The filtered mean ξ: the wrapper of the CUDA kernel
-``csrc/filtered_mean.cu``, which replaces the JAX package's
-``filtered_mean_pallas`` (``sanitize=False``).
+"""Coordinate-wise reductions over the worker axis: the wrappers of the CUDA
+kernels that replace the JAX package's ``robust_reduce`` Pallas kernels.
 
-``filtered_mean_cuda(x, mask, denom)`` returns Σᵢ (maskᵢ/denom)·xᵢ in f32
-for a CUDA tensor x of shape (m, d), f32 or bf16.  The plain version is
-:func:`repro_torch.kernels.ref.filtered_mean_ref`.  The coordinate median
-and trimmed mean of the JAX module are not ported yet.
+* ``filtered_mean_cuda(x, mask, denom)`` — Σᵢ (maskᵢ/denom)·xᵢ, the
+  guard's ξ (``csrc/filtered_mean.cu``, replacing ``filtered_mean_pallas``
+  with ``sanitize=False``);
+* ``coordinate_median_cuda(x)`` — each column's median, the mean of the two
+  middle values for even m (``csrc/sorted_reduce.cu``, replacing
+  ``coordinate_median_pallas``): Yin et al.'s Median-GD;
+* ``trimmed_mean_cuda(x, n_trim)`` — the mean of each column's sorted
+  values n_trim .. m−n_trim−1 (``csrc/sorted_reduce.cu``, replacing
+  ``trimmed_mean_pallas``): trimmed-mean-GD.
+
+Each maps a CUDA tensor x of shape (m, d), f32 or bf16, to a (d,) f32
+tensor.  The plain versions are in :mod:`repro_torch.kernels.ref`.
 """
 from __future__ import annotations
 
@@ -17,10 +24,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fused_guard import check_cuda_inputs
 
 MAX_WORKERS = 12288   # the weights fit in 48 KB of shared memory
+SORT_MAX_WORKERS = 32  # a column's values stay in one thread's registers
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
              ctypes.c_void_p]
+_MEDIAN_ARGTYPES = ([ctypes.c_int64] + [ctypes.c_void_p] * 2
+                    + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
+_TRIM_ARGTYPES = ([ctypes.c_int64] + [ctypes.c_void_p] * 2
+                  + [ctypes.c_int64] * 4 + [ctypes.c_void_p])
 
 
 def filtered_mean_cuda(x: torch.Tensor, mask: torch.Tensor, denom: float) -> torch.Tensor:
@@ -48,3 +60,52 @@ def filtered_mean_cuda(x: torch.Tensor, mask: torch.Tensor, denom: float) -> tor
 
 
 filtered_mean_cuda.launches = 0
+
+
+def _check_sort_input(name: str, x: torch.Tensor) -> torch.device:
+    dev = check_cuda_inputs(name, {"x": x}, tuple(_DTYPE_CODES))
+    if x.dim() != 2:
+        raise ValueError(f"{name}: expected an (m, d) tensor, got shape {tuple(x.shape)}")
+    m, d = x.shape
+    if not 1 <= m <= SORT_MAX_WORKERS or d < 1:
+        raise ValueError(f"{name}: needs 1 <= m <= {SORT_MAX_WORKERS} and d >= 1, "
+                         f"got m={m}, d={d}")
+    return dev
+
+
+def coordinate_median_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch the coordinate-median kernel; raises on anything it does not take."""
+    dev = _check_sort_input("coordinate_median", x)
+    m, d = x.shape
+    out = torch.empty((d,), dtype=torch.float32, device=dev)
+    fn = _build.load_function("sorted_reduce", "rt_coordinate_median", _MEDIAN_ARGTYPES)
+    rc = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), m, d, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"coordinate_median: kernel launch failed with CUDA error {rc}")
+    coordinate_median_cuda.launches += 1
+    return out
+
+
+coordinate_median_cuda.launches = 0
+
+
+def trimmed_mean_cuda(x: torch.Tensor, n_trim: int) -> torch.Tensor:
+    """Launch the trimmed-mean kernel; raises on anything it does not take,
+    and when ``2·n_trim >= m`` (nothing would be left)."""
+    dev = _check_sort_input("trimmed_mean", x)
+    m, d = x.shape
+    n_trim = int(n_trim)
+    if not 0 <= 2 * n_trim < m:
+        raise ValueError(f"trimmed_mean: n_trim={n_trim} trims everything for m={m}")
+    out = torch.empty((d,), dtype=torch.float32, device=dev)
+    fn = _build.load_function("sorted_reduce", "rt_trimmed_mean", _TRIM_ARGTYPES)
+    rc = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), m, d, n_trim, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"trimmed_mean: kernel launch failed with CUDA error {rc}")
+    trimmed_mean_cuda.launches += 1
+    return out
+
+
+trimmed_mean_cuda.launches = 0

@@ -13,14 +13,20 @@ Tolerance: ‖got − want‖ ≤ tol·‖want‖ + tol, tol = 1e-5 (f32) / 1e-4
 f32; only the order of the sums differs, so the bf16 limit sits about
 10× above the largest such error read on an H100 (8.1e-6 relative, gram_g
 at m=32, d=2^26+3) and well below what a sum rounded to bf16 would give.
-``B_new`` is bit-equal.
+``B_new`` is bit-equal, and so is the coordinate median: it selects one
+value or averages two, with no sum whose order could differ.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_guard import fused_guard_cuda
-from repro_torch.kernels.robust_reduce import filtered_mean_cuda
+from repro_torch.kernels.pairdist import gram_cuda
+from repro_torch.kernels.robust_reduce import (
+    coordinate_median_cuda,
+    filtered_mean_cuda,
+    trimmed_mean_cuda,
+)
 
 DTYPES = {"f32": (torch.float32, 1e-5), "bf16": (torch.bfloat16, 1e-4)}
 
@@ -69,3 +75,46 @@ def test_ops_on_cuda_launch_the_kernels(cuda_device):
         ops.fused_guard(torch.zeros(129, 4, device=cuda_device),
                         torch.zeros(129, 4, device=cuda_device),
                         torch.zeros(4, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(1, 1), (2, 9), (16, 4099), (17, 555), (32, 2048),
+                                 (33, 1000), (128, 257)])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_gram_and_order_statistics_match_plain(cuda_device, m, d, dt):
+    tdt, tol = DTYPES[dt]
+    gen = torch.Generator(device=cuda_device).manual_seed(m * 31 + d)
+    x = torch.randn(m, d, device=cuda_device, generator=gen).to(tdt)
+    _within(gram_cuda(x), ref.gram_ref(x), tol)
+    if m > 32:   # beyond the sort kernels' register budget: they refuse
+        with pytest.raises(ValueError, match="m <= 32"):
+            coordinate_median_cuda(x)
+        return
+    assert torch.equal(coordinate_median_cuda(x), ref.coordinate_median_ref(x))
+    for n_trim in {0, (m - 1) // 2, min(8, (m - 1) // 2)}:
+        _within(trimmed_mean_cuda(x, n_trim), ref.trimmed_mean_ref(x, n_trim), tol)
+
+
+@pytest.mark.cuda
+def test_order_statistics_spread_nan_and_refuse_over_trim(cuda_device):
+    x = torch.randn(9, 300, device=cuda_device)
+    x[4, 7] = float("nan")
+    for got, want in ((coordinate_median_cuda(x), ref.coordinate_median_ref(x)),
+                      (trimmed_mean_cuda(x, 3), ref.trimmed_mean_ref(x, 3))):
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert bool(torch.isnan(got[7])) and int(torch.isnan(got).sum()) == 1
+    with pytest.raises(ValueError, match="trims everything"):
+        trimmed_mean_cuda(x, 5)
+
+
+@pytest.mark.cuda
+def test_ops_on_cuda_launch_the_order_kernels(cuda_device):
+    x = torch.randn(8, 300, device=cuda_device)
+    before = (gram_cuda.launches, coordinate_median_cuda.launches, trimmed_mean_cuda.launches)
+    ops.gram(x)
+    ops.coordinate_median(x)
+    ops.trimmed_mean(x, 2)
+    assert (gram_cuda.launches, coordinate_median_cuda.launches,
+            trimmed_mean_cuda.launches) == tuple(b + 1 for b in before)
+    with pytest.raises(TypeError):
+        ops.gram(x.double())

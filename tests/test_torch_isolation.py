@@ -31,7 +31,9 @@ def _port_modules() -> list[str]:
 def test_importing_every_port_module_loads_no_jax_or_repro():
     mods = _port_modules()
     assert {"repro_torch.core.solver", "repro_torch.kernels.ops",
-            "repro_torch.data.problems", "repro_torch.convert"} <= set(mods)
+            "repro_torch.data.problems", "repro_torch.convert",
+            "repro_torch.kernels.pairdist", "repro_torch.kernels.robust_reduce",
+            "repro_torch.core.aggregators", "repro_torch.core.attacks"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

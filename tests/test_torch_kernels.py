@@ -99,7 +99,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 def test_build_names_libraries_by_source_hash():
     paths = {p.stem: _build.library_path(p) for p in _build.sources()}
-    assert set(paths) == {"fused_guard", "filtered_mean"}
+    assert set(paths) == {"fused_guard", "filtered_mean", "gram", "sorted_reduce"}
     for stem, so in paths.items():
         assert so.parent == _build.BUILD_DIR
         assert so.name.startswith(stem + "-") and so.suffix == ".so"

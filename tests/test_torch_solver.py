@@ -131,9 +131,9 @@ def test_run_sgd_rejects_unported_attack_and_aggregator():
     for kw in ({"adversary": object()}, {"telemetry": object()}):
         with pytest.raises(NotImplementedError, match="not ported"):
             run_sgd(problem, cfg, prng.PRNGKey(0), device="cpu", **kw)
-    with pytest.raises(KeyError, match="alie"):
-        run_sgd(problem, SolverConfig(m=4, T=2, eta=0.1, attack="alie"), prng.PRNGKey(0),
-                device="cpu")
-    with pytest.raises(KeyError, match="krum"):
-        run_sgd(problem, SolverConfig(m=4, T=2, eta=0.1, aggregator="krum"), prng.PRNGKey(0),
-                device="cpu")
+    with pytest.raises(KeyError, match="random_gaussian"):
+        run_sgd(problem, SolverConfig(m=4, T=2, eta=0.1, attack="random_gaussian"),
+                prng.PRNGKey(0), device="cpu")
+    with pytest.raises(KeyError, match="no_such_rule"):
+        run_sgd(problem, SolverConfig(m=4, T=2, eta=0.1, aggregator="no_such_rule"),
+                prng.PRNGKey(0), device="cpu")
