@@ -21,23 +21,42 @@ and then no result line is printed):
    so only the order of the sums differs); then ``gram``,
    ``coordinate_median`` and ``trimmed_mean`` (n_trim = min(8, (m−1)//2))
    at m=32, d=2^20; m=17, d=555; m=16, d=4099; m=32, d=2^26+3, in f32 and
-   bf16: the median bit-equal, the rest within the same tol;
+   bf16: the median bit-equal, the rest within the same tol; then the
+   sanitizing ``fused_guard`` and ``filtered_mean`` against their plain
+   versions at the guard kernels' shapes, on input holding a whole NaN
+   row, a ±Inf row and single NaN/Inf entries (one in the last column):
+   ``nf`` equal, ``B_new`` bit-equal, the rest within tol; and on finite
+   input bit-equal to the plain kernels;
 4. main path — ``run_sgd`` on ``make_generated_problem(d=2^20, seed=0)``,
    m=32, T=128, α=0.25, ``sign_flip``: ``fused@f32``, ``fused@bf16``,
    ``dense@f32`` and the ``mean`` baseline, each with the launch counts
    set to 0 just before and read just after; then the same run on the
    card and on the CPU at d=4099, m=8, T=70 (decisions equal, values
-   within 1e-5);
+   within 1e-5); then ``quarantine_main_path``: the three guard runs again
+   with ``sanitize="quarantine"``, bit-equal to the runs without it, the
+   sanitizing kernels launched T times each and the plain ones never;
 5. baselines — the same ``run_sgd`` once per baseline of the registry and
    ``bucket2:krum`` under ``sign_flip``, then krum, coordinate_median and
    the fused guard under ``alie``: every run finite, every kernel launched
    exactly as its path says (T or 0 times); then krum, coordinate_median,
    trimmed_mean and bucket2:krum on the card and on the CPU at d=4099,
    m=8, T=16 (``x_avg`` within 1e-5 relative);
-6. timing — each kernel's median time at m=32, d=2^20 beside its bound,
-   its plain version and one library call where there is one, and the
+6. quarantine — 64 steps of ``make_aggregator``'s guard step under
+   ``sanitize="quarantine"``, driven by ``run_sgd``'s loop with a fault
+   plan applied after the attack (``nan_rows``, ``inf_rows``, ``bitflip``,
+   ``garbage``; 4 victims from step 8), fused and dense at f32 and bf16:
+   ξ finite at every step, fused decisions equal to dense, the same
+   count of poisoned rows; for NaN/Inf also every victim dead from its
+   first fault step, every Byzantine worker filtered and no other honest
+   one; then one sanitized step of every baseline over a batch with 4
+   NaN rows and 1 Inf row (ξ finite, those 5 rows dead, n_alive = 27,
+   each kernel launched once); then both on the card and on the CPU at
+   d=4099, m=8, T=16 (decisions equal, ξ and ``x_avg`` within 1e-5);
+7. timing — each kernel's median time at m=32, d=2^20 beside its bound,
+   its plain version and one library call where there is one (the
+   sanitizing variants on input holding 4 non-finite rows), and the
    split of one main-path step between its parts;
-7. the kernels line, the card line and the result line.
+8. the kernels line (14 entries), the card line and the result line.
 """
 from __future__ import annotations
 
@@ -55,7 +74,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import prng  # noqa: E402
 from repro_torch.core import aggregators, attacks  # noqa: E402
 from repro_torch.core.guard_backends import make_guard_backend  # noqa: E402
-from repro_torch.core.solver import SolverConfig, run_sgd  # noqa: E402
+from repro_torch.core.solver import (  # noqa: E402
+    SolverConfig,
+    byz_rank,
+    make_aggregator,
+    run_sgd,
+)
 from repro_torch.data.problems import make_generated_problem  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels.fused_guard import fused_guard_cuda  # noqa: E402
@@ -65,6 +89,7 @@ from repro_torch.kernels.robust_reduce import (  # noqa: E402
     filtered_mean_cuda,
     trimmed_mean_cuda,
 )
+from repro_torch.scenarios import faults  # noqa: E402
 
 M, D, T = 32, 2 ** 20, 128
 # Kernel against plain version on the card: both upcast bf16 to f32 exactly
@@ -86,10 +111,22 @@ KERNELS = {
                           "src/repro/kernels/robust_reduce.py:88"),
     "trimmed_mean": ("src/repro_torch/kernels/csrc/sorted_reduce.cu",
                      "src/repro/kernels/robust_reduce.py:95"),
+    # fused_guard_pallas(sanitize=True): body _fused_guard_sanitize_kernel;
+    # filtered_mean_pallas(sanitize=True): the kernel body's sanitize branch
+    "fused_guard_sanitize": ("src/repro_torch/kernels/csrc/fused_guard.cu",
+                             "src/repro/kernels/fused_guard.py:73"),
+    "filtered_mean_sanitize": ("src/repro_torch/kernels/csrc/filtered_mean.cu",
+                               "src/repro/kernels/robust_reduce.py:60"),
 }
-WRAPPERS = {"fused_guard": fused_guard_cuda, "filtered_mean": filtered_mean_cuda,
-            "gram": gram_cuda, "coordinate_median": coordinate_median_cuda,
-            "trimmed_mean": trimmed_mean_cuda}
+# each kernel's launch count: (wrapper, attribute); a sanitizing variant is
+# counted on its wrapper apart from the plain one
+COUNTERS = {"fused_guard": (fused_guard_cuda, "launches"),
+            "filtered_mean": (filtered_mean_cuda, "launches"),
+            "gram": (gram_cuda, "launches"),
+            "coordinate_median": (coordinate_median_cuda, "launches"),
+            "trimmed_mean": (trimmed_mean_cuda, "launches"),
+            "fused_guard_sanitize": (fused_guard_cuda, "launches_sanitize"),
+            "filtered_mean_sanitize": (filtered_mean_cuda, "launches_sanitize")}
 N_TRIM = 8   # the trimmed mean's count at m = 32 (capped at (m-1)//2 below)
 # odd m with a masked tail, even m, and m·d > 2^31 (int64 offsets)
 ORDER_SHAPES = ((M, D), (17, 555), (16, 4099), (M, 2 ** 26 + 3))
@@ -124,17 +161,17 @@ def card_line() -> str:
 
 
 def reset_counts() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
 def counts(**launched) -> dict:
     """The launch counts of a run that launched only the named kernels."""
-    return {name: launched.get(name, 0) for name in WRAPPERS}
+    return {name: launched.get(name, 0) for name in COUNTERS}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -213,6 +250,72 @@ def check_order_kernels(dev, errs: dict) -> None:
             torch.cuda.empty_cache()
 
 
+def poison(x: torch.Tensor) -> torch.Tensor:
+    """x with 4 non-finite rows, in place: row 0 all NaN, row m//2 ±Inf by
+    column parity, row 1 a single +Inf and a single -Inf, row m−1 a single
+    NaN in the last column (the masked tail when d % 64 != 0)."""
+    m, d = x.shape
+    x[0] = float("nan")
+    x[m // 2, 0::2] = float("inf")
+    x[m // 2, 1::2] = float("-inf")
+    x[1, d // 2] = float("inf")
+    x[1, 0] = float("-inf")
+    x[m - 1, d - 1] = float("nan")
+    return x
+
+
+def check_sanitize_kernels(dev, errs: dict) -> None:
+    """The sanitizing fused_guard and filtered_mean: on finite input
+    bit-equal to the plain kernels, on poisoned input against their plain
+    versions; adds the errors at the main-path shape to ``errs``."""
+    cases = [(M, D, "f32"), (M, D, "bf16"), (17, 555, "f32"), (17, 555, "bf16"),
+             (M, 2 ** 26 + 3, "bf16")]
+    for m, d, dt in cases:
+        gen = torch.Generator(device=dev).manual_seed(m * 6151 + d)
+        g = torch.randn(m, d, device=dev, generator=gen, dtype=DTYPES[dt])
+        B = torch.randn(m, d, device=dev, generator=gen, dtype=DTYPES[dt]).mul_(3)
+        dlt = torch.randn(d, device=dev, generator=gen, dtype=DTYPES[dt])
+        w = (torch.rand(m, device=dev, generator=gen) > 0.3).float() / m
+        san, plain = fused_guard_cuda(g, B, dlt, sanitize=True), fused_guard_cuda(g, B, dlt)
+        clean_equal = all(torch.equal(a, b) for a, b in zip(san[:4], plain)) and bool(
+            (san[4] == 0).all())
+        del san, plain
+        clean_equal = clean_equal and torch.equal(filtered_mean_cuda(g, w, 1.0, sanitize=True),
+                                                  filtered_mean_cuda(g, w, 1.0))
+        poison(g)
+        got = fused_guard_cuda(g, B, dlt, sanitize=True)
+        torch.cuda.synchronize()
+        want = ref.fused_guard_sanitize_ref(g, B, dlt)
+        nf_equal = torch.equal(got[4], want[4])
+        b_equal = torch.equal(got[3], want[3])
+        del B
+        fg = [rel_err(a, b) for a, b in zip(got[:3], want[:3])]
+        fg_ok = all(within(a, b, TOL[dt]) for a, b in zip(got[:3], want[:3]))
+        nf = got[4].tolist()
+        del got, want
+        xi = filtered_mean_cuda(g, w, 1.0, sanitize=True)
+        torch.cuda.synchronize()
+        xi_ref = ref.filtered_mean_sanitize_ref(g, w, 1.0)
+        fm = rel_err(xi, xi_ref)
+        fm_ok = within(xi, xi_ref, TOL[dt]) and bool(torch.isfinite(xi).all())
+        emit("kernels", variant="sanitize", m=m, d=d, dtype=dt, clean_bit_equal=clean_equal,
+             nf_equal=nf_equal, nf_nonzero={i: c for i, c in enumerate(nf) if c},
+             B_new_bit_equal=b_equal,
+             fused_guard_rel_abs={"gram_g": fg[0], "cross": fg[1], "a_inc": fg[2]},
+             filtered_mean_rel_abs=fm, tol=TOL[dt])
+        where = f"at m={m} d={d} {dt}"
+        require(clean_equal, f"sanitizing kernels bit-equal to the plain ones on finite input {where}")
+        require(nf_equal, f"fused_guard_sanitize nf equal {where}")
+        require(b_equal, f"fused_guard_sanitize B_new bit-equal {where}")
+        require(fg_ok, f"fused_guard_sanitize within {TOL[dt]} {where}")
+        require(fm_ok, f"filtered_mean_sanitize finite and within {TOL[dt]} {where}")
+        if (m, d) == (M, D):
+            errs[("fused_guard_sanitize", dt)] = max(e[1] for e in fg)
+            errs[("filtered_mean_sanitize", dt)] = fm[1]
+        del g, dlt, xi, xi_ref
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- phase 4
 
 RUNS = [
@@ -224,7 +327,8 @@ RUNS = [
 BASE = dict(m=M, T=T, eta=0.05, alpha=0.25, attack="sign_flip", aggregator="byzantine_sgd")
 
 
-def main_path(dev) -> dict:
+def main_path(dev) -> tuple[dict, dict]:
+    """The four main-path runs; returns their launch counts and results."""
     problem = make_generated_problem(d=D, seed=0, device=dev)
     results, launches = {}, {}
     for name, over in RUNS:
@@ -267,6 +371,33 @@ def main_path(dev) -> dict:
             "mean's final gap far above byzantine_sgd's")
     emit("main_path", check="passed", fused_equals_dense=True, bf16_equals_f32_decisions=bool(
         torch.equal(bf16.n_alive, fused.n_alive)))
+    return launches, results
+
+
+def quarantine_main_path(dev, off: dict) -> dict:
+    """The guard runs of the main path with ``sanitize="quarantine"``: on
+    this finite input bit-equal to the runs without it (``off``), through
+    the sanitizing kernels only.  Returns the launch counts."""
+    problem = make_generated_problem(d=D, seed=0, device=dev)
+    launches = {}
+    for name, over in RUNS[:3]:
+        cfg = SolverConfig(**{**BASE, **over, "sanitize": "quarantine"})
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run_sgd(problem, cfg, prng.PRNGKey(0), device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = launches[name] = read_counts()
+        same = {f: torch.equal(getattr(res, f), getattr(off[name], f))
+                for f in ("n_alive", "final_alive", "x_avg", "x_final", "gaps")}
+        emit("quarantine_main_path", run=name, ms_per_step=1e3 * seconds / T,
+             final_gap=float(res.gaps[-1]), n_alive_last=int(res.n_alive[-1]),
+             bit_equal_to_sanitize_off=same, launches=got)
+        require(all(same.values()), f"{name}: sanitize on equals sanitize off bit for bit: {same}")
+        want = (counts(fused_guard_sanitize=T, filtered_mean_sanitize=T)
+                if name.startswith("fused") else counts())
+        require(got == want, f"{name} with sanitize: launches {got}, expected {want}")
     return launches
 
 
@@ -352,6 +483,186 @@ def baselines_reference(dev) -> None:
 
 # ---------------------------------------------------------------- phase 6
 
+QUARANTINE_STEPS = 64
+FAULT_START = 8
+FAULT_PLANS = {
+    "nan_rows": faults.fault_nan_rows(0.125, start_step=FAULT_START),
+    "inf_rows": faults.fault_inf_rows(0.125, start_step=FAULT_START, period=4),
+    "bitflip": faults.fault_bitflip(0.125, start_step=FAULT_START),
+    "garbage": faults.fault_garbage(0.125, start_step=FAULT_START),
+}
+# fused against dense at each stats dtype: the dense guard is the oracle
+GUARD_RUNS = (("fused@f32", "fused", "f32"), ("dense@f32", "dense", "f32"),
+              ("fused@bf16", "fused", "bf16"), ("dense@bf16", "dense", "bf16"))
+QUARANTINE_BASE = dict(eta=0.05, alpha=0.25, attack="sign_flip", aggregator="byzantine_sgd",
+                       sanitize="quarantine")
+
+
+def quarantine_run(problem, cfg, plan, dev) -> dict:
+    """cfg.T steps of ``make_aggregator``'s step, driven by ``run_sgd``'s
+    loop (key chain, sampler, attack, projected step) with ``plan``
+    applied after the attack under ``fold_in(akey, FAULT_KEY_TAG)``, as the
+    JAX ``run_sgd`` applies a fault plan.  Returns the per-step series."""
+    key = prng.PRNGKey(0, device=dev)
+    key, mask_key = prng.split(key)
+    rank = byz_rank(mask_key, cfg.m)
+    byz = rank < cfg.n_byzantine
+    attack_fn = attacks.get_attack(cfg.attack)
+    state, step = make_aggregator(problem, cfg, dev)
+    x1 = problem.x1
+    x, x_sum, rng = x1, torch.zeros_like(x1), key
+    alive_s, xi_finite, poisoned = [], [], []
+    for k in range(cfg.T):
+        rng, gkey, akey = prng.split(rng, 3)
+        grads = problem.stoch_grad(prng.split(gkey, cfg.m), x)
+        grads = attack_fn(akey, grads, byz, {"true_grad": problem.grad(x), "V": problem.V})
+        grads = faults.apply_fault_plan(plan, prng.fold_in(akey, faults.FAULT_KEY_TAG),
+                                        grads, rank, k)
+        # the rows the sanitizer must catch: non-finite once in the stats dtype
+        poisoned.append(~torch.isfinite(grads.to(DTYPES[cfg.stats_dtype])).all(dim=1))
+        state, xi, _, alive = step(state, grads, x, x1)
+        xi_finite.append(torch.isfinite(xi).all())
+        alive_s.append(alive)
+        delta = x - cfg.eta * xi - x1
+        nrm = torch.linalg.vector_norm(delta)
+        x_sum = x_sum + x
+        x = x1 + delta * torch.clamp(problem.D / torch.clamp(nrm, min=1e-30), max=1.0)
+    return {"alive": torch.stack(alive_s).cpu(), "xi_finite": torch.stack(xi_finite).cpu(),
+            "poisoned": torch.stack(poisoned).cpu(), "x_avg": (x_sum / cfg.T).cpu(),
+            "byz": byz.cpu(), "victims": faults.fault_rows(plan, rank, plan.start_step).cpu()}
+
+
+def quarantine_checks(fault: str, runs: dict) -> None:
+    """The gates of one fault plan over the GUARD_RUNS series."""
+    for name, r in runs.items():
+        n_alive = r["alive"].sum(dim=1).tolist()
+        honest = ~r["byz"] & ~r["victims"]
+        emit("quarantine", fault=fault, run=name, steps=len(n_alive),
+             n_alive_at={k: n_alive[k] for k in (0, FAULT_START - 1, FAULT_START,
+                                                 len(n_alive) - 1)},
+             n_poisoned_rows=int(r["poisoned"].sum()),
+             victims_alive_last=int((r["alive"][-1] & r["victims"]).sum()),
+             byzantine_alive_last=int((r["alive"][-1] & r["byz"]).sum()),
+             other_honest_filtered=int((~r["alive"][:, honest]).any(dim=0).sum()),
+             xi_finite=bool(r["xi_finite"].all()))
+        require(bool(r["xi_finite"].all()), f"{fault} {name}: ξ finite at every step")
+        require(not bool((r["alive"] & r["poisoned"]).any()),
+                f"{fault} {name}: every row holding a non-finite entry dead at that step")
+        if fault in ("nan_rows", "inf_rows"):
+            require(not bool(r["alive"][FAULT_START:, r["victims"]].any()),
+                    f"{fault} {name}: every victim dead from its first fault step on")
+            require(not bool((r["alive"][-1] & r["byz"]).any()),
+                    f"{fault} {name}: every Byzantine worker filtered")
+            require(bool(r["alive"][:, honest].all()),
+                    f"{fault} {name}: no other honest worker filtered")
+    for fused, dense in (("fused@f32", "dense@f32"), ("fused@bf16", "dense@bf16")):
+        same = torch.equal(runs[fused]["alive"], runs[dense]["alive"])
+        same_count = torch.equal(runs[fused]["poisoned"].sum(dim=1),
+                                 runs[dense]["poisoned"].sum(dim=1))
+        emit("quarantine", fault=fault, compare=f"{fused} vs {dense}",
+             decisions_equal=same, n_nonfinite_equal=same_count)
+        require(same, f"{fault}: {fused} decisions equal {dense}'s at every step")
+        require(same_count, f"{fault}: {fused} and {dense} see the same poisoned rows")
+
+
+def quarantine(dev) -> None:
+    problem = make_generated_problem(d=D, seed=0, device=dev)
+    for fault, plan in FAULT_PLANS.items():
+        runs = {}
+        for name, backend, sd in GUARD_RUNS:
+            cfg = SolverConfig(**QUARANTINE_BASE, m=M, T=QUARANTINE_STEPS,
+                               guard_backend=backend, stats_dtype=sd)
+            torch.cuda.synchronize()
+            reset_counts()
+            runs[name] = quarantine_run(problem, cfg, plan, dev)
+            got = read_counts()
+            want = (counts(fused_guard_sanitize=QUARANTINE_STEPS,
+                           filtered_mean_sanitize=QUARANTINE_STEPS)
+                    if backend == "fused" else counts())
+            require(got == want, f"{fault} {name}: launches {got}, expected {want}")
+        quarantine_checks(fault, runs)
+
+
+def poisoned_batch(problem, m: int, dev) -> tuple[torch.Tensor, list]:
+    """One honest batch at x1 with 4 NaN rows and 1 +Inf row."""
+    grads = problem.stoch_grad(prng.split(prng.PRNGKey(3, device=dev), m), problem.x1)
+    bad = [0, m // 4 + 1, m // 2 + 1, m - 2, m - 1]
+    grads[bad[:4]] = float("nan")
+    grads[bad[4]] = float("inf")
+    return grads, bad
+
+
+# every rule of the registry, bucket2:krum and the guard, one sanitized step
+QUARANTINE_RULES = ([(name, "fused") for name in aggregators.aggregator_names()]
+                    + [("bucket2:krum", "fused"), ("byzantine_sgd", "fused"),
+                       ("byzantine_sgd", "dense")])
+
+
+def sanitized_step(problem, name: str, backend: str, m: int, dev):
+    cfg = SolverConfig(m=m, T=1, eta=0.05, alpha=0.25, aggregator=name, attack="none",
+                       guard_backend=backend, sanitize="quarantine")
+    grads, bad = poisoned_batch(problem, m, dev)
+    state, step = make_aggregator(problem, cfg, dev)
+    _, xi, n_alive, alive = step(state, grads, problem.x1, problem.x1)
+    return xi, int(n_alive), alive, bad
+
+
+def quarantine_baselines(dev) -> None:
+    problem = make_generated_problem(d=D, seed=0, device=dev)
+    for name, backend in QUARANTINE_RULES:
+        torch.cuda.synchronize()
+        reset_counts()
+        xi, n_alive, alive, bad = sanitized_step(problem, name, backend, M, dev)
+        torch.cuda.synchronize()
+        got = read_counts()
+        if name == "byzantine_sgd":
+            want = counts(fused_guard_sanitize=1, filtered_mean_sanitize=1) if (
+                backend == "fused") else counts()
+        else:
+            want = expected_counts(name, 1)
+        finite = bool(torch.isfinite(xi).all())
+        dead = not bool(alive[bad].any())
+        emit("quarantine_baselines", run=f"{name}@{backend}" if name == "byzantine_sgd" else name,
+             xi_finite=finite, poisoned_rows_dead=dead, n_alive=n_alive, launches=got)
+        require(finite, f"{name}: ξ finite over a poisoned batch")
+        require(dead, f"{name}: the 5 poisoned rows reported dead")
+        require(n_alive == M - len(bad), f"{name}: n_alive {n_alive} == {M - len(bad)}")
+        require(got == want, f"{name}: launches {got}, expected {want}")
+
+
+def quarantine_reference(dev) -> None:
+    """The quarantine loop and the sanitized baseline step on the card
+    against the CPU's plain versions on a small input."""
+    m, d = 8, 4099
+    for fault, plan in FAULT_PLANS.items():
+        for name, backend, sd in GUARD_RUNS[:2]:
+            cfg = SolverConfig(**QUARANTINE_BASE, m=m, T=16, guard_backend=backend,
+                               stats_dtype=sd)
+            got = quarantine_run(make_generated_problem(d=d, seed=3, device=dev), cfg, plan, dev)
+            want = quarantine_run(make_generated_problem(d=d, seed=3, device="cpu"), cfg, plan,
+                                  "cpu")
+            same = torch.equal(got["alive"], want["alive"])
+            err = rel_err(got["x_avg"], want["x_avg"])
+            emit("quarantine_reference", fault=fault, run=name, decisions_equal=same,
+                 x_avg_rel_abs=err, n_alive_last=int(got["alive"][-1].sum()))
+            require(same, f"{fault} {name}: card and CPU decisions equal")
+            require(within(got["x_avg"], want["x_avg"], 1e-5),
+                    f"{fault} {name}: card and CPU x_avg within 1e-5")
+    problem = make_generated_problem(d=d, seed=3, device=dev)
+    problem_cpu = make_generated_problem(d=d, seed=3, device="cpu")
+    for name, backend in QUARANTINE_RULES:
+        xi, n_alive, alive, _ = sanitized_step(problem, name, backend, m, dev)
+        xi_cpu, n_alive_cpu, alive_cpu, _ = sanitized_step(problem_cpu, name, backend, m, "cpu")
+        same = n_alive == n_alive_cpu and torch.equal(alive.cpu(), alive_cpu)
+        err = rel_err(xi.cpu(), xi_cpu)
+        emit("quarantine_reference", run=name, backend=backend, decisions_equal=same,
+             xi_rel_abs=err)
+        require(same, f"{name}: card and CPU decisions equal on the poisoned batch")
+        require(within(xi.cpu(), xi_cpu, 1e-5), f"{name}: card and CPU ξ within 1e-5")
+
+
+# ---------------------------------------------------------------- phase 7
+
 def median_ms(fn, batches: int = 7, per_batch: int = 20) -> float:
     """Median over batches of the mean time of ``per_batch`` back-to-back
     calls, by CUDA events (the queue stays full, so host overhead hides)."""
@@ -379,7 +690,7 @@ def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_kernels(dev, errs, launches, base_launches) -> list:
+def time_kernels(dev, errs, launches, base_launches, q_launches) -> list:
     entries = []
     for dt in ("f32", "bf16"):
         e = torch.tensor([], dtype=DTYPES[dt]).element_size()
@@ -461,7 +772,39 @@ def time_kernels(dev, errs, launches, base_launches) -> list:
             })
             emit("bound", kernel=f"{name}[{dt}]", shape=[M, D], bytes=os_bytes,
                  min_max_ops=os_ops)
-        del g, B, dlt
+        # the sanitizing variants on input holding 4 non-finite rows; the
+        # bytes are the plain variants' (plus nf), the operations add one
+        # finiteness test per entry
+        gp = poison(g.clone())
+        sg_bytes, sg_ops = fg_bytes + M * 4, fg_flops + M * D
+        b_ms, b_by = bound(sg_bytes, sg_ops, PEAK_FLOPS[dt])
+        entries.append({
+            "name": f"fused_guard_sanitize[{dt}]", "route": "cuda",
+            "source": KERNELS["fused_guard_sanitize"][0],
+            "replaces": KERNELS["fused_guard_sanitize"][1],
+            "launches": q_launches[run]["fused_guard_sanitize"],
+            "max_abs_err": errs[("fused_guard_sanitize", dt)],
+            "ms": median_ms(lambda: fused_guard_cuda(gp, B, dlt, sanitize=True)),
+            "plain_ms": median_ms(lambda: ref.fused_guard_sanitize_ref(gp, B, dlt)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+        emit("bound", kernel=f"fused_guard_sanitize[{dt}]", shape=[M, D], bytes=sg_bytes,
+             flops=sg_ops)
+        sm_ops = fm_flops + M * D
+        b_ms, b_by = bound(fm_bytes, sm_ops, PEAK_FLOPS[dt])
+        entries.append({
+            "name": f"filtered_mean_sanitize[{dt}]", "route": "cuda",
+            "source": KERNELS["filtered_mean_sanitize"][0],
+            "replaces": KERNELS["filtered_mean_sanitize"][1],
+            "launches": q_launches[run]["filtered_mean_sanitize"],
+            "max_abs_err": errs[("filtered_mean_sanitize", dt)],
+            "ms": median_ms(lambda: filtered_mean_cuda(gp, w, 1.0, sanitize=True)),
+            "plain_ms": median_ms(lambda: ref.filtered_mean_sanitize_ref(gp, w, 1.0)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+        emit("bound", kernel=f"filtered_mean_sanitize[{dt}]", shape=[M, D], bytes=fm_bytes,
+             flops=sm_ops)
+        del g, gp, B, dlt
         torch.cuda.empty_cache()
     return entries
 
@@ -522,11 +865,17 @@ def main() -> int:
 
     errs = check_kernels(dev)
     check_order_kernels(dev, errs)
-    launches = main_path(dev)
+    check_sanitize_kernels(dev, errs)
+    launches, off = main_path(dev)
+    q_launches = quarantine_main_path(dev, off)
     small_reference(dev)
     base_launches = baselines(dev)
     baselines_reference(dev)
-    entries = time_kernels(dev, errs, launches, base_launches)
+    quarantine(dev)
+    quarantine_baselines(dev)
+    quarantine_reference(dev)
+    entries = time_kernels(dev, errs, launches, base_launches, q_launches)
+    require(len(entries) == 2 * len(KERNELS), f"{len(entries)} kernel entries")
     step_split(dev)
 
     print(json.dumps({"kernels": entries}), flush=True)

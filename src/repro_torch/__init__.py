@@ -1,7 +1,8 @@
 """repro_torch — the PyTorch/CUDA port of :mod:`repro` for NVIDIA Hopper.
 
 Subpackages mirror the JAX package by name (``core``, ``kernels``,
-``data``), so every ported module has a counterpart under the same path.
+``data``, ``scenarios``), so every ported module has a counterpart under
+the same path.
 The port imports ``torch`` and ``numpy`` only; it never imports ``jax`` or
 ``repro``.
 

@@ -16,9 +16,18 @@ step count ``k`` is a host integer, so the resync is a Python ``if`` and
 a step never waits for the device.
 
 Thresholds are computed on the host in f32 (numpy float32 scalars), which
-reproduces the JAX package's f32 threshold arithmetic bit for bit.  The
-partial-participation ``report`` mask, ``sanitize`` and on-device
-generation (``gen_step``) are not ported yet and raise.
+reproduces the JAX package's f32 threshold arithmetic bit for bit.
+
+``report`` (an (m,) bool mask of the workers that reported this step)
+zeroes the other rows on entry and restricts the medians to reporters;
+a worker that did not report keeps its status.  ``sanitize=True`` is the
+quarantine stage of DESIGN.md §15: NaN/Inf gradient entries are zeroed
+before every statistic (dense: explicitly; fused: inside the kernel's
+sweep, which also counts them per row), rows that held one are not
+scored (they enter the filter as non-reporters) and are dropped from
+good_k for good, since the alive mask is carried.  On finite input it
+changes no bit of the result.  On-device generation (``gen_step``) is not
+ported yet and raises.
 """
 from __future__ import annotations
 
@@ -100,21 +109,32 @@ def _sq_radius(radius) -> float:
     return float(np.float32(radius * radius))
 
 
-def counting_median_index(sq_dists: torch.Tensor, radius):
+def counting_median_index(sq_dists: torch.Tensor, radius, report=None):
     """The paper's counting vector-median from pairwise squared distances.
 
     Returns ``(index, found)``: among points with more than m/2 points
     within ``radius``, the one with the least total distance (first index
     on ties); if there is none, the global medoid.  Both are 0-d tensors on
-    the device."""
+    the device.  ``report`` ((m,) bool) restricts all of it to reporting
+    workers: counts over reporting columns, more than half of the
+    reporters, only reporters elected, scores summed over reporters.
+    A NaN distance (Grams overflowed by finite garbage) makes its score
+    NaN, and ``torch.argmin`` then takes the first NaN, as ``jnp.argmin``."""
     m = sq_dists.shape[0]
     within = sq_dists <= _sq_radius(radius)
-    score = torch.sum(torch.sqrt(sq_dists), dim=1)  # total distance (medoid score)
-    counts = torch.sum(within, dim=1)
-    valid = counts * 2 > m
-    masked_score = torch.where(valid, score, torch.full_like(score, math.inf))
+    dist = torch.sqrt(sq_dists)
+    if report is None:
+        score = torch.sum(dist, dim=1)  # total distance (medoid score)
+        valid = torch.sum(within, dim=1) * 2 > m
+        fallback = score
+    else:
+        counts = torch.sum(within & report[None, :], dim=1)
+        valid = (counts * 2 > torch.sum(report)) & report
+        score = torch.sum(torch.where(report[None, :], dist, 0.0), dim=1)
+        fallback = torch.where(report, score, math.inf)
+    masked_score = torch.where(valid, score, math.inf)
     found = torch.any(valid)
-    idx = torch.where(found, torch.argmin(masked_score), torch.argmin(score))
+    idx = torch.where(found, torch.argmin(masked_score), torch.argmin(fallback))
     return idx, found
 
 
@@ -126,37 +146,57 @@ def scalar_median(x: torch.Tensor) -> torch.Tensor:
     return (s[(n - 1) // 2] + s[n // 2]) * 0.5
 
 
+def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The median of ``x[mask]`` without a host sync, by the JAX package's
+    formula: masked entries sort to +inf, index = 0.5·max(n − 1, 0) in f32,
+    result low·(1 − w) + high·w.  On an all-true mask it equals
+    :func:`scalar_median` bit for bit."""
+    n = torch.sum(mask)
+    s = torch.sort(torch.where(mask, x, math.inf)).values
+    index = 0.5 * torch.clamp(n - 1, min=0).to(torch.float32)
+    low, high = torch.floor(index), torch.ceil(index)
+    w = index - low
+    low_val = torch.index_select(s, 0, low.to(torch.int64).reshape(1))[0]
+    high_val = torch.index_select(s, 0, high.to(torch.int64).reshape(1))[0]
+    return low_val * (1.0 - w) + high_val * w
+
+
 def _row(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x[idx]`` for a 0-d index tensor, without a host sync."""
     return torch.index_select(x, 0, idx.reshape(1))[0]
 
 
-def filter_update(A, gram_B, gram_g, alive, k: int, cfg: GuardConfig):
+def filter_update(A, gram_B, gram_g, alive, k: int, cfg: GuardConfig, report=None):
     """One application of the Algorithm-1 filter; returns (good_k, diag)
     with diag = {"n_alive": |good_k|} (the JAX package's telemetry keys
-    are not ported).  Medians are over all m workers; only the
-    intersection uses good_{k-1}."""
+    are not ported).  Medians are over all m workers, or over the
+    reporters when ``report`` is given; only the intersection uses
+    good_{k-1}, and a worker that did not report keeps its status."""
     t_a, t_b = cfg.thresholds(k)
 
-    # line 7: scalar median of A
-    a_med = scalar_median(A)
+    # line 7: scalar median of A (over reporters)
+    a_med = scalar_median(A) if report is None else masked_median(A, report)
     dev_a = torch.abs(A - a_med)
     ok_a = dev_a <= float(t_a)
 
     # line 8: counting median of B at radius 𝔗_B
     d2_b = pairwise_sq_dists_from_gram(gram_B)
-    idx_b, _ = counting_median_index(d2_b, t_b)
+    idx_b, _ = counting_median_index(d2_b, t_b, report)
     dist_b = torch.sqrt(_row(d2_b, idx_b))
     ok_b = dist_b <= float(t_b)
 
     # line 9: counting median of fresh gradients at radius 2V, filter at 4V
     d2_g = pairwise_sq_dists_from_gram(gram_g)
-    idx_g, _ = counting_median_index(d2_g, cfg.median_radius_mult * cfg.V)
+    idx_g, _ = counting_median_index(d2_g, cfg.median_radius_mult * cfg.V, report)
     dist_g = torch.sqrt(_row(d2_g, idx_g))
     ok_g = dist_g <= float(np.float32(cfg.grad_radius_mult * cfg.V))
 
-    # line 10: good_k = good_{k-1} ∩ {A ok} ∩ {B ok} ∩ {∇ ok}
-    good_k = alive & ok_a & ok_b & ok_g
+    # line 10: good_k = good_{k-1} ∩ {A ok} ∩ {B ok} ∩ {∇ ok}; workers that
+    # did not report are not scored
+    if report is None:
+        good_k = alive & ok_a & ok_b & ok_g
+    else:
+        good_k = alive & (ok_a | ~report) & (ok_b | ~report) & (ok_g | ~report)
     return good_k, {"n_alive": torch.sum(good_k)}
 
 
@@ -168,15 +208,15 @@ class ByzantineGuard:
     :mod:`repro_torch.kernels.ops` (on a CUDA device: the hand-written
     kernels; on the CPU: their plain versions).  ``stats_dtype`` is the
     storage dtype of the streamed statistics: gradients are rounded to it
-    once on entry and B is stored in it.
+    once on entry and B is stored in it.  ``sanitize`` arms the quarantine
+    stage (module docstring); its step adds ``n_nonfinite`` to the diag.
     """
 
     def __init__(self, cfg: GuardConfig, use_fused: bool = False,
                  gram_resync_every: int = 64, stats_dtype: str = "f32",
                  device="cuda", sanitize: bool = False):
-        if sanitize:
-            raise NotImplementedError("sanitize is not ported yet")
         self.cfg = cfg
+        self.sanitize = bool(sanitize)
         self.use_fused = use_fused
         self.gram_resync_every = gram_resync_every
         self.stats_dtype = resolve_stats_dtype(stats_dtype)
@@ -196,16 +236,31 @@ class ByzantineGuard:
     def step(self, state: GuardState, grads: torch.Tensor, x_k: torch.Tensor,
              x_1: torch.Tensor, report=None):
         """One guard step: returns ``(state', ξ, diag)``."""
-        if report is not None:
-            raise NotImplementedError("partial participation is not ported yet")
         cfg = self.cfg
-        # the single entry rounding of the stats axis (a no-op at f32)
+        # the single entry rounding of the stats axis (a no-op at f32); a
+        # finite f32 entry beyond bf16's range becomes Inf here and is then
+        # quarantined under bf16, as in the JAX package
         grads = grads.to(self.stats_dtype)
+        if report is not None:
+            # a zero row adds nothing to A, freezes B_i and keeps the
+            # incremental-Gram identity exact
+            grads = torch.where(report[:, None], grads, 0.0)
         k = state.k + 1
         delta = (x_k - x_1).to(self.stats_dtype)
 
+        finite = None
+        if self.sanitize and not self.use_fused:
+            fin = torch.isfinite(grads)
+            finite = torch.all(fin, dim=1)
+            grads = torch.where(fin, grads, 0.0)
+
         if self.use_fused:
-            gram_g, cross, a_inc, B = ops.fused_guard(grads, state.B, delta)
+            if self.sanitize:
+                gram_g, cross, a_inc, B, nf = ops.fused_guard(grads, state.B, delta,
+                                                              sanitize=True)
+                finite = nf == 0
+            else:
+                gram_g, cross, a_inc, B = ops.fused_guard(grads, state.B, delta)
             A = state.A + a_inc
             gram_b = state.gram_B + cross + cross.T + gram_g
             if self.gram_resync_every > 0 and k % self.gram_resync_every == 0:
@@ -218,16 +273,30 @@ class ByzantineGuard:
             gram_b = _gram32(B)
             gram_g = g32 @ g32.T
 
-        good_k, diag = filter_update(A, gram_b, gram_g, state.alive, k, cfg)
+        # a non-finite row is not scored (its zeroed statistics are not the
+        # worker's report) and does not survive: it enters the filter as a
+        # non-reporter, and the & below takes away the status a
+        # non-reporter would keep
+        report_eff = report
+        if self.sanitize:
+            report_eff = finite if report is None else report & finite
+        good_k, diag = filter_update(A, gram_b, gram_g, state.alive, k, cfg, report_eff)
+        if self.sanitize:
+            good_k = good_k & finite
+            diag["n_alive"] = torch.sum(good_k)
+            diag["n_nonfinite"] = torch.sum(~finite)
 
+        # ξ averages the rows that arrived: good ∩ reporting
+        contrib = good_k if report is None else good_k & report
         if cfg.mean_over_alive:
-            denom = torch.clamp(torch.sum(good_k), min=1).to(torch.float32)
+            denom = torch.clamp(torch.sum(contrib), min=1).to(torch.float32)
         else:
             denom = float(cfg.m)
         if self.use_fused:
-            xi = ops.filtered_mean(grads, good_k.to(torch.float32) / denom, 1.0)
+            xi = ops.filtered_mean(grads, contrib.to(torch.float32) / denom, 1.0,
+                                   sanitize=self.sanitize)
         else:
-            xi = (good_k.to(torch.float32) @ grads.to(torch.float32)) / denom
+            xi = (contrib.to(torch.float32) @ grads.to(torch.float32)) / denom
 
         return GuardState(A=A, B=B, alive=good_k, k=k, gram_B=gram_b), xi, diag
 

@@ -3,11 +3,12 @@ Algorithm 1's filter behind one factory protocol (the counterpart of
 :mod:`repro.core.guard_backends`).
 
 A backend is a factory ``factory(problem, cfg, device, **opts) -> (state0,
-step)`` with ``step(state, grads, x, x1) -> (state', ξ, n_alive, alive)``
-over the stacked (m, d) worker gradients.  The one knob, the fused
-backend's ``gram_resync_every``, rides ``SolverConfig.guard_opts`` as a
-(key, value) pair; any other key raises KeyError, and the dense backend
-ignores it.  The ``dp_exact``/``dp_sketch`` backends and telemetry are not
+step)`` with ``step(state, grads, x, x1, report=None) -> (state', ξ,
+n_alive, alive)`` over the stacked (m, d) worker gradients.  The one knob,
+the fused backend's ``gram_resync_every``, rides ``SolverConfig.guard_opts``
+as a (key, value) pair; any other key raises KeyError, and the dense
+backend ignores it.  ``cfg.sanitize == "quarantine"`` builds a sanitizing
+guard.  The ``dp_exact``/``dp_sketch`` backends and telemetry are not
 ported yet.
 """
 from __future__ import annotations
@@ -40,8 +41,8 @@ def _guard_config(problem, cfg) -> GuardConfig:
 def _wrap_byzantine_guard(guard: ByzantineGuard, d: int):
     state0 = guard.init(d)
 
-    def step(state, grads, x, x1):
-        state, xi, diag = guard.step(state, grads, x, x1)
+    def step(state, grads, x, x1, report=None):
+        state, xi, diag = guard.step(state, grads, x, x1, report)
         return state, xi, diag["n_alive"], state.alive
 
     return state0, step
@@ -51,7 +52,7 @@ def _dense_backend(problem, cfg, device="cuda", gram_resync_every: int = 64):
     # gram_B is re-derived from the stored B every step (the drift oracle),
     # so the fused backend's resync knob is accepted and ignored
     guard = ByzantineGuard(_guard_config(problem, cfg), stats_dtype=cfg.stats_dtype,
-                           device=device)
+                           device=device, sanitize=cfg.sanitize == "quarantine")
     return _wrap_byzantine_guard(guard, problem.d)
 
 
@@ -62,7 +63,8 @@ def _fused_backend(problem, cfg, device="cuda", gram_resync_every: int = 64):
                          f"got {gram_resync_every!r}")
     guard = ByzantineGuard(_guard_config(problem, cfg), use_fused=True,
                            gram_resync_every=gram_resync_every,
-                           stats_dtype=cfg.stats_dtype, device=device)
+                           stats_dtype=cfg.stats_dtype, device=device,
+                           sanitize=cfg.sanitize == "quarantine")
     return _wrap_byzantine_guard(guard, problem.d)
 
 

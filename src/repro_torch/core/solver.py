@@ -16,9 +16,16 @@ generated problem the port therefore draws the reference's batches from
 the same seed.  The loop never waits for the device; results are stacked
 once at the end.
 
-Not ported yet (they raise NotImplementedError): scenario adversaries,
-telemetry, ``generate="kernel"``, ``sanitize``, staleness
-(``max_delay``) and partial participation.
+``sanitize="quarantine"`` (DESIGN.md §15) puts the quarantine stage in
+front of every aggregator: the guard backends zero non-finite entries in
+their sweeps and drop the rows that held them for good; every baseline
+(and ``bucket<s>:<base>``) sees those entries zeroed and reports the rows
+dead for the step.  On finite input it changes no bit of the result.
+
+Not ported yet (they raise NotImplementedError): scenario adversaries
+(and with them fault plans in ``run_sgd``), telemetry,
+``generate="kernel"``, staleness (``max_delay``) and partial
+participation.
 """
 from __future__ import annotations
 
@@ -86,7 +93,9 @@ class SolverConfig(NamedTuple):
     max_delay: int = 0          # not ported: must stay 0
     partial_participation: bool = False  # not ported: must stay False
     generate: str = "off"       # not ported: must stay "off"
-    sanitize: str = "off"       # not ported: must stay "off"
+    sanitize: str = "off"       # "off" | "quarantine": zero non-finite
+    #                             gradient entries before the aggregator and
+    #                             report their rows dead (DESIGN.md §15)
 
     @property
     def n_byzantine(self) -> int:
@@ -154,8 +163,24 @@ def _validate_agg_opts(opts: dict) -> None:
                        f"known knobs: {sorted(known)}")
 
 
+def _sanitized(step4):
+    """The quarantine stage in front of a baseline step: non-finite entries
+    are zeroed before the rule sees them and their rows are reported dead
+    for the step (baselines keep no membership; the guards carry theirs)."""
+
+    def step(state, grads, x, x1, report=None):
+        fin = torch.isfinite(grads)
+        finite = torch.all(fin, dim=1)
+        state, xi, _, alive = step4(state, torch.where(fin, grads, 0.0), x, x1, report)
+        alive = alive & finite
+        return state, xi, torch.sum(alive, dtype=torch.int32), alive
+
+    return step
+
+
 def make_aggregator(problem: Problem, cfg: SolverConfig, device="cuda"):
-    """Returns (init_state, step(state, grads, x, x1) -> (state, xi, n_alive, alive)).
+    """Returns (init_state, step(state, grads, x, x1, report=None) -> (state,
+    xi, n_alive, alive)).
 
     ``byzantine_sgd`` goes to the guard backends.  Stateless baselines
     carry no state; stateful ones (:data:`~repro_torch.core.aggregators.
@@ -164,9 +189,14 @@ def make_aggregator(problem: Problem, cfg: SolverConfig, device="cuda"):
     averages them in groups of s and hands the m/s bucket means to the base
     rule, built at m/s workers with its Byzantine sizing raised to the
     min(s·α, 1/2) contaminated-bucket fraction.  Baselines and bucketing
-    report every worker alive."""
+    report every worker alive, but for the rows the quarantine stage drops
+    under ``sanitize="quarantine"``; the bucket rule's inner aggregator is
+    built with the same ``sanitize``.  Baselines ignore ``report``."""
     opts = dict(cfg.agg_opts)
     _validate_agg_opts(opts)
+    if cfg.sanitize not in ("off", "quarantine"):
+        raise ValueError(f"sanitize must be 'off' or 'quarantine', got {cfg.sanitize!r}")
+    wrap = _sanitized if cfg.sanitize == "quarantine" else (lambda step4: step4)
     bucket_s, name = parse_aggregator_spec(cfg.aggregator)
     dev = resolve_device(device)
     n_alive = torch.tensor(cfg.m, device=dev)
@@ -180,14 +210,14 @@ def make_aggregator(problem: Problem, cfg: SolverConfig, device="cuda"):
         inner_state0, inner_step = make_aggregator(problem, inner_cfg, dev)
         state0 = (prng.PRNGKey(int(opts.get("bucket_seed", 0)), device=dev), inner_state0)
 
-        def bucket_step(state, grads, x, x1):
+        def bucket_step(state, grads, x, x1, report=None):
             key, inner = state
             key, sub = prng.split(key)
             buckets = agg_lib.bucket_means(grads, bucket_s, sub)
             inner, xi, _, _ = inner_step(inner, buckets, x, x1)
             return (key, inner), xi, n_alive, alive
 
-        return state0, bucket_step
+        return state0, wrap(bucket_step)
 
     if name == "byzantine_sgd":
         return make_guard_backend(cfg.guard_backend, problem, cfg, dev)
@@ -197,11 +227,11 @@ def make_aggregator(problem: Problem, cfg: SolverConfig, device="cuda"):
         fkwargs = {k: v for k, v in opts.items() if k in _declared_knobs(factory)}
         state0, agg_step = factory(problem.d, device=dev, **fkwargs)
 
-        def stateful_step(state, grads, x, x1):
+        def stateful_step(state, grads, x, x1, report=None):
             state, xi = agg_step(state, grads)
             return state, xi, n_alive, alive
 
-        return state0, stateful_step
+        return state0, wrap(stateful_step)
 
     kwargs = {}
     if name in ("krum", "multi_krum"):
@@ -216,10 +246,10 @@ def make_aggregator(problem: Problem, cfg: SolverConfig, device="cuda"):
     kwargs.update({k: v for k, v in opts.items() if k in _declared_knobs(fn)})
     fn = functools.partial(fn, **kwargs) if kwargs else fn
 
-    def step(state, grads, x, x1):
+    def step(state, grads, x, x1, report=None):
         return state, fn(grads), n_alive, alive
 
-    return None, step
+    return None, wrap(step)
 
 
 def _check_supported(cfg: SolverConfig, adversary, telemetry) -> None:
@@ -227,7 +257,6 @@ def _check_supported(cfg: SolverConfig, adversary, telemetry) -> None:
         "a scenario adversary": adversary is not None,
         "telemetry": telemetry is not None,
         "generate='kernel'": cfg.generate != "off",
-        "sanitize": cfg.sanitize != "off",
         "max_delay": cfg.max_delay != 0,
         "partial_participation": cfg.partial_participation,
     }

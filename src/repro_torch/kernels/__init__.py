@@ -3,10 +3,12 @@ their plain PyTorch versions.
 
 * ``fused_guard``   — one-pass guard statistics (CUDA C++,
                       ``csrc/fused_guard.cu``), replacing
-                      ``repro.kernels.fused_guard.fused_guard_pallas``
+                      ``repro.kernels.fused_guard.fused_guard_pallas``,
+                      its sanitizing variant included
 * ``robust_reduce`` — the filtered mean ξ (CUDA C++,
                       ``csrc/filtered_mean.cu``), replacing
-                      ``repro.kernels.robust_reduce.filtered_mean_pallas``;
+                      ``repro.kernels.robust_reduce.filtered_mean_pallas``
+                      with and without ``sanitize``;
                       the coordinate median and trimmed mean
                       (``csrc/sorted_reduce.cu``), replacing
                       ``coordinate_median_pallas``/``trimmed_mean_pallas``

@@ -100,6 +100,13 @@ __device__ __forceinline__ float4 unpack4(uint2 r) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
+// True for NaN and ±Inf: the f32 exponent field is all ones.  A bit test
+// rather than isfinite(), so no compiler flag can fold it away; exact for
+// bf16 inputs too, since their upcast to f32 is a 16-bit shift.
+__device__ __forceinline__ bool nonfinite(float v) {
+  return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u;
+}
+
 inline bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }

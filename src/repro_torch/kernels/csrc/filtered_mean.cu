@@ -1,10 +1,14 @@
 // The filtered mean ξ = Σᵢ (wᵢ / denom)·xᵢ on Hopper.
 //
 // Replaces: repro/kernels/robust_reduce.py, filtered_mean_pallas (body
-// _filtered_mean_kernel), sanitize=False.  x is (m, d) f32 or bf16, w is
-// (m,) f32, ξ is (d,) f32.  The division wᵢ / denom happens in the kernel,
-// as in the Pallas body; the guard passes weights already divided and
-// denom = 1.
+// _filtered_mean_kernel, sanitize=False and sanitize=True).  x is (m, d)
+// f32 or bf16, w is (m,) f32, ξ is (d,) f32.  The division wᵢ / denom
+// happens in the kernel, as in the Pallas body; the guard passes weights
+// already divided and denom = 1.  The sanitizing variant (template flag
+// SAN, entry rt_filtered_mean_sanitize) zeroes each NaN/Inf entry of x
+// after the upcast and before the multiply: a zero weight alone would not
+// do, since 0·Inf = NaN.  On finite input it equals the plain variant bit
+// for bit.
 //
 // What bounds it on an H100 (m = 32, d = 2^20, f32): one read of x plus the
 // write of ξ, m·d·4 + d·4 B ≈ 138 MB, ~41 µs at 3.35 TB/s; the 2·m·d FLOPs
@@ -23,7 +27,7 @@ namespace {
 
 constexpr int NT = 256;
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool SAN>
 __global__ void __launch_bounds__(NT)
 filtered_mean_kernel(const T* __restrict__ x, const float* __restrict__ w, float denom,
                      float* __restrict__ out, int64_t m, int64_t d) {
@@ -39,6 +43,10 @@ filtered_mean_kernel(const T* __restrict__ x, const float* __restrict__ w, float
     for (int64_t i = 0; i < m; ++i) {
       float v[4];
       rt::load4<T, VEC>(x + i * d, c, d, v);
+      if constexpr (SAN) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = rt::nonfinite(v[k]) ? 0.f : v[k];
+      }
       const float wi = sw[i];
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc[k] = fmaf(wi, v[k], acc[k]);
@@ -47,7 +55,7 @@ filtered_mean_kernel(const T* __restrict__ x, const float* __restrict__ w, float
   }
 }
 
-template <typename T>
+template <typename T, bool SAN>
 cudaError_t launch(const void* x, const float* w, float denom, float* out, int64_t m,
                    int64_t d, cudaStream_t stream) {
   const int64_t n4 = (d + 3) / 4;
@@ -56,10 +64,26 @@ cudaError_t launch(const void* x, const float* w, float denom, float* out, int64
   const size_t smem = (size_t)m * sizeof(float);
   const T* xt = static_cast<const T*>(x);
   if (vec)
-    filtered_mean_kernel<T, true><<<(unsigned)blocks, NT, smem, stream>>>(xt, w, denom, out, m, d);
+    filtered_mean_kernel<T, true, SAN><<<(unsigned)blocks, NT, smem, stream>>>(
+        xt, w, denom, out, m, d);
   else
-    filtered_mean_kernel<T, false><<<(unsigned)blocks, NT, smem, stream>>>(xt, w, denom, out, m, d);
+    filtered_mean_kernel<T, false, SAN><<<(unsigned)blocks, NT, smem, stream>>>(
+        xt, w, denom, out, m, d);
   return cudaGetLastError();
+}
+
+template <bool SAN>
+int run(int64_t dtype, const void* x, const void* w, float denom, void* out, int64_t m,
+        int64_t d, int64_t device, void* stream) {
+  if (m < 1 || m > 12288 || d < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice((int)device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* wf = static_cast<const float*>(w);
+  float* of = static_cast<float*>(out);
+  if (dtype == 0) return (int)launch<float, SAN>(x, wf, denom, of, m, d, s);
+  if (dtype == 1) return (int)launch<__nv_bfloat16, SAN>(x, wf, denom, of, m, d, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -70,13 +94,12 @@ cudaError_t launch(const void* x, const float* w, float denom, float* out, int64
 extern "C" int rt_filtered_mean(int64_t dtype, const void* x, const void* w, float denom,
                                 void* out, int64_t m, int64_t d, int64_t device,
                                 void* stream) {
-  if (m < 1 || m > 12288 || d < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice((int)device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* wf = static_cast<const float*>(w);
-  float* of = static_cast<float*>(out);
-  if (dtype == 0) return (int)launch<float>(x, wf, denom, of, m, d, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(x, wf, denom, of, m, d, s);
-  return (int)cudaErrorInvalidValue;
+  return run<false>(dtype, x, w, denom, out, m, d, device, stream);
+}
+
+// The sanitizing variant, with the same arguments.
+extern "C" int rt_filtered_mean_sanitize(int64_t dtype, const void* x, const void* w,
+                                         float denom, void* out, int64_t m, int64_t d,
+                                         int64_t device, void* stream) {
+  return run<true>(dtype, x, w, denom, out, m, d, device, stream);
 }

@@ -1,10 +1,17 @@
 // One-pass guard statistics on Hopper.
 //
 // Replaces: repro/kernels/fused_guard.py, fused_guard_pallas (body
-// _fused_guard_kernel), sanitize=False.  One sweep over the (m, d) worker
-// gradients g and the martingale matrix B gives
+// _fused_guard_kernel, and _fused_guard_sanitize_kernel for sanitize=True).
+// One sweep over the (m, d) worker gradients g and the martingale matrix B
+// gives
 //   gram_g = g gᵀ (m, m) f32,  cross = B gᵀ (m, m) f32 (pre-update B),
 //   a_inc  = g·δ  (m,)   f32,  B_new = B + g (m, d), rounded once to B's type.
+// The sanitizing variant (template flag SAN, entry rt_fused_guard_sanitize)
+// zeroes every NaN/Inf entry of g after the upcast, before any product and
+// before the B_new store, and adds a fifth output nf (m,) int32: each row's
+// count of non-finite entries.  B and δ are not tested (finite by
+// construction).  On finite input its four shared outputs equal the plain
+// variant's bit for bit: the same sums in the same order.
 // g, B and δ are f32 or bf16; every product is upcast to f32 (exact for
 // bf16) and accumulated in f32 with CUDA-core FMAs (no TF32 tensor cores,
 // which would break the 1e-5 tolerance against the plain version).
@@ -29,6 +36,13 @@
 // taken in tiles of 32 (grid y, z); any m from 1 to 128 and any d are
 // handled with masked tails and no padded copy, and all offsets are int64
 // (m·d may pass 2^31).
+//
+// The sanitizing variant zeroes g where it is used, after the prefetch has
+// landed, so no extra instruction waits on a load.  Each entry of g is
+// counted once: in the diagonal blocks (ti == tj), which load every row of
+// their tile exactly once over the sweep; off-diagonal blocks zero their
+// second row tile without counting.  Per-block counts go to scratch and a
+// third small kernel sums them per row (integers, no atomics).
 
 #include "common.cuh"
 
@@ -44,12 +58,13 @@ constexpr int SMEM_TILE = 3 * MT * LDS;
 constexpr int SMEM_RED = KG * 2 * MT * MT;
 constexpr int SMEM = SMEM_TILE > SMEM_RED ? SMEM_TILE : SMEM_RED;
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool SAN>
 __global__ void __launch_bounds__(NT, 2)
 fused_guard_kernel(const T* __restrict__ g, const T* __restrict__ B,
                    const T* __restrict__ delta, T* __restrict__ B_new,
                    float* __restrict__ gram_part, float* __restrict__ cross_part,
-                   float* __restrict__ a_part, int64_t m, int64_t d, int64_t mp) {
+                   float* __restrict__ a_part, int* __restrict__ nf_part, int64_t m,
+                   int64_t d, int64_t mp) {
   __shared__ __align__(16) float smem[SMEM];
   const int ti = blockIdx.y, tj = blockIdx.z;
   const bool diag = ti == tj;  // this block also writes B_new and a_inc of tile ti
@@ -109,11 +124,23 @@ fused_guard_kernel(const T* __restrict__ g, const T* __restrict__ B,
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) acc_g[ii][jj] = acc_c[ii][jj] = 0.f;
   float a_acc[2] = {0.f, 0.f};
+  int nf_acc[2] = {0, 0};  // SAN: this thread's non-finite entries of rows I
 
   const int64_t n_tiles = (d + TK - 1) / TK;
   int64_t tile = blockIdx.x;
   if (tile < n_tiles) fetch(tile);
   for (; tile < n_tiles; tile += gridDim.x) {
+    if constexpr (SAN) {
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const bool bad = rt::nonfinite(pg[p][q]);
+          if (diag) nf_acc[p] += bad;
+          pg[p][q] = bad ? 0.f : pg[p][q];
+          if (!diag) pj[p][q] = rt::nonfinite(pj[p][q]) ? 0.f : pj[p][q];
+        }
+    }
     if (diag) {
       const int64_t c = tile * TK + lc;
 #pragma unroll
@@ -197,6 +224,13 @@ fused_guard_kernel(const T* __restrict__ g, const T* __restrict__ B,
       for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
       if ((tid & 15) == 0)
         a_part[(int64_t)blockIdx.x * mp + (int64_t)ti * MT + lr + 16 * p] = v;
+      if constexpr (SAN) {
+        int c = nf_acc[p];
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) c += __shfl_xor_sync(0xffffffffu, c, off);
+        if ((tid & 15) == 0)
+          nf_part[(int64_t)blockIdx.x * mp + (int64_t)ti * MT + lr + 16 * p] = c;
+      }
     }
   }
 }
@@ -236,10 +270,21 @@ fused_guard_reduce_kernel(const float* __restrict__ gram_part,
   if (o < total && l == 0) dst[out] = s;
 }
 
-template <typename T>
+// Sums each row's nb per-block non-finite counts (sanitizing variant only).
+__global__ void __launch_bounds__(128)
+nf_reduce_kernel(const int* __restrict__ nf_part, int* __restrict__ nf, int64_t m,
+                 int64_t mp, int64_t nb) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  int s = 0;
+  for (int64_t b = 0; b < nb; ++b) s += nf_part[b * mp + i];
+  nf[i] = s;
+}
+
+template <typename T, bool SAN>
 cudaError_t launch(const void* g, const void* B, const void* delta, void* B_new,
-                   float* gram_part, float* cross_part, float* a_part, int64_t m,
-                   int64_t d, int64_t nb, cudaStream_t stream) {
+                   float* gram_part, float* cross_part, float* a_part, int* nf_part,
+                   int64_t m, int64_t d, int64_t nb, cudaStream_t stream) {
   const int64_t nt = (m + MT - 1) / MT, mp = nt * MT;
   const dim3 grid((unsigned)nb, (unsigned)nt, (unsigned)nt);
   const bool vec = d % 4 == 0 && rt::aligned(g, 4 * sizeof(T)) &&
@@ -250,12 +295,47 @@ cudaError_t launch(const void* g, const void* B, const void* delta, void* B_new,
   const T* dt = static_cast<const T*>(delta);
   T* bn = static_cast<T*>(B_new);
   if (vec)
-    fused_guard_kernel<T, true><<<grid, NT, 0, stream>>>(gt, bt, dt, bn, gram_part,
-                                                         cross_part, a_part, m, d, mp);
+    fused_guard_kernel<T, true, SAN><<<grid, NT, 0, stream>>>(
+        gt, bt, dt, bn, gram_part, cross_part, a_part, nf_part, m, d, mp);
   else
-    fused_guard_kernel<T, false><<<grid, NT, 0, stream>>>(gt, bt, dt, bn, gram_part,
-                                                          cross_part, a_part, m, d, mp);
+    fused_guard_kernel<T, false, SAN><<<grid, NT, 0, stream>>>(
+        gt, bt, dt, bn, gram_part, cross_part, a_part, nf_part, m, d, mp);
   return cudaGetLastError();
+}
+
+template <bool SAN>
+int run(int64_t dtype, const void* g, const void* B, const void* delta, void* B_new,
+        void* gram_part, void* cross_part, void* a_part, void* nf_part, void* gram,
+        void* cross, void* a_inc, void* nf, int64_t m, int64_t d, int64_t nb,
+        int64_t device, void* stream) {
+  if (m < 1 || m > 4 * MT || d < 1 || nb < 1 || nb > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice((int)device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* gp = static_cast<float*>(gram_part);
+  float* cp = static_cast<float*>(cross_part);
+  float* ap = static_cast<float*>(a_part);
+  int* np = static_cast<int*>(nf_part);
+  if (dtype == 0)
+    err = launch<float, SAN>(g, B, delta, B_new, gp, cp, ap, np, m, d, nb, s);
+  else if (dtype == 1)
+    err = launch<__nv_bfloat16, SAN>(g, B, delta, B_new, gp, cp, ap, np, m, d, nb, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  const int64_t mp = ((m + MT - 1) / MT) * MT;
+  const int64_t threads = 8 * (2 * m * m + m);
+  fused_guard_reduce_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
+      gp, cp, ap, static_cast<float*>(gram), static_cast<float*>(cross),
+      static_cast<float*>(a_inc), m, mp, nb);
+  if constexpr (SAN) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    nf_reduce_kernel<<<(unsigned)((m + 127) / 128), 128, 0, s>>>(np, static_cast<int*>(nf),
+                                                                 m, mp, nb);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -267,25 +347,18 @@ extern "C" int rt_fused_guard(int64_t dtype, const void* g, const void* B, const
                               void* B_new, void* gram_part, void* cross_part, void* a_part,
                               void* gram, void* cross, void* a_inc, int64_t m, int64_t d,
                               int64_t nb, int64_t device, void* stream) {
-  if (m < 1 || m > 4 * MT || d < 1 || nb < 1 || nb > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice((int)device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* gp = static_cast<float*>(gram_part);
-  float* cp = static_cast<float*>(cross_part);
-  float* ap = static_cast<float*>(a_part);
-  if (dtype == 0)
-    err = launch<float>(g, B, delta, B_new, gp, cp, ap, m, d, nb, s);
-  else if (dtype == 1)
-    err = launch<__nv_bfloat16>(g, B, delta, B_new, gp, cp, ap, m, d, nb, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  if (err != cudaSuccess) return (int)err;
-  const int64_t mp = ((m + MT - 1) / MT) * MT;
-  const int64_t threads = 8 * (2 * m * m + m);
-  fused_guard_reduce_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
-      gp, cp, ap, static_cast<float*>(gram), static_cast<float*>(cross),
-      static_cast<float*>(a_inc), m, mp, nb);
-  return (int)cudaGetLastError();
+  return run<false>(dtype, g, B, delta, B_new, gram_part, cross_part, a_part, nullptr, gram,
+                    cross, a_inc, nullptr, m, d, nb, device, stream);
+}
+
+// The sanitizing variant: as rt_fused_guard, plus nb·mp int32 of scratch
+// (nf_part) and the (m,) int32 output nf.
+extern "C" int rt_fused_guard_sanitize(int64_t dtype, const void* g, const void* B,
+                                       const void* delta, void* B_new, void* gram_part,
+                                       void* cross_part, void* a_part, void* nf_part,
+                                       void* gram, void* cross, void* a_inc, void* nf,
+                                       int64_t m, int64_t d, int64_t nb, int64_t device,
+                                       void* stream) {
+  return run<true>(dtype, g, B, delta, B_new, gram_part, cross_part, a_part, nf_part, gram,
+                   cross, a_inc, nf, m, d, nb, device, stream);
 }

@@ -1,13 +1,20 @@
 """One-pass guard statistics: the wrapper of the CUDA kernel
 ``csrc/fused_guard.cu``, which replaces the JAX package's
-``fused_guard_pallas`` (``sanitize=False``).
+``fused_guard_pallas`` (``sanitize=False`` and ``sanitize=True``).
 
 ``fused_guard_cuda(grads, B, delta)`` returns ``(gram_g, cross, a_inc,
 B_new)`` = (g gᵀ, B gᵀ, g·δ, B + g) for CUDA tensors, with f32 Grams and
-A-increments and ``B_new`` in ``B.dtype`` (f32 or bf16).  The plain version
-is :func:`repro_torch.kernels.ref.fused_guard_ref`; :mod:`ops` chooses
-between the two by the tensor's device.  The TPU's ``d_block`` strip
-width has no counterpart here: the kernel takes any d without padding.
+A-increments and ``B_new`` in ``B.dtype`` (f32 or bf16).  With
+``sanitize=True`` it launches the sanitizing variant, which zeroes NaN/Inf
+entries of g before every product and the B store, and returns a fifth
+output ``nf``, each row's (m,) int32 count of non-finite entries.  The
+plain versions are :func:`repro_torch.kernels.ref.fused_guard_ref` and
+``fused_guard_sanitize_ref``; :mod:`ops` chooses between kernel and plain
+version by the tensor's device.  The TPU's ``d_block`` strip width has no
+counterpart here: the kernel takes any d without padding.
+
+``fused_guard_cuda.launches`` counts launches of the plain variant,
+``fused_guard_cuda.launches_sanitize`` those of the sanitizing one.
 """
 from __future__ import annotations
 
@@ -22,6 +29,8 @@ _TILE = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_int64] + [ctypes.c_void_p] * 10
              + [ctypes.c_int64] * 4 + [ctypes.c_void_p])
+_SANITIZE_ARGTYPES = ([ctypes.c_int64] + [ctypes.c_void_p] * 12
+                      + [ctypes.c_int64] * 4 + [ctypes.c_void_p])
 
 
 def check_cuda_inputs(name: str, tensors: dict, dtypes) -> torch.device:
@@ -39,8 +48,10 @@ def check_cuda_inputs(name: str, tensors: dict, dtypes) -> torch.device:
     return next(iter(devices))
 
 
-def fused_guard_cuda(grads: torch.Tensor, B: torch.Tensor, delta: torch.Tensor):
-    """Launch the fused guard kernel; raises on anything it does not take."""
+def fused_guard_cuda(grads: torch.Tensor, B: torch.Tensor, delta: torch.Tensor,
+                     sanitize: bool = False):
+    """Launch the fused guard kernel (its sanitizing variant when
+    ``sanitize``); raises on anything it does not take."""
     dev = check_cuda_inputs("fused_guard", {"grads": grads, "B": B, "delta": delta},
                             tuple(_DTYPE_CODES))
     if grads.dim() != 2 or B.shape != grads.shape or delta.shape != grads.shape[1:]:
@@ -63,16 +74,26 @@ def fused_guard_cuda(grads: torch.Tensor, B: torch.Tensor, delta: torch.Tensor):
     cross = torch.empty((m, m), **f32)
     a_inc = torch.empty((m,), **f32)
     B_new = torch.empty_like(B)
-    fn = _build.load_function("fused_guard", "rt_fused_guard", _ARGTYPES)
-    rc = fn(_DTYPE_CODES[grads.dtype], grads.data_ptr(), B.data_ptr(),
-            delta.data_ptr(), B_new.data_ptr(), parts[0].data_ptr(),
-            parts[1].data_ptr(), a_part.data_ptr(), gram_g.data_ptr(),
-            cross.data_ptr(), a_inc.data_ptr(), m, d, nb, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
+    inputs = [grads, B, delta, B_new, parts[0], parts[1], a_part]
+    outputs = [gram_g, cross, a_inc]
+    if sanitize:
+        # per-block counts, then the (m,) int32 output nf
+        inputs.append(torch.empty((nb, mp), dtype=torch.int32, device=dev))
+        outputs.append(torch.empty((m,), dtype=torch.int32, device=dev))
+        fn = _build.load_function("fused_guard", "rt_fused_guard_sanitize",
+                                  _SANITIZE_ARGTYPES)
+    else:
+        fn = _build.load_function("fused_guard", "rt_fused_guard", _ARGTYPES)
+    rc = fn(_DTYPE_CODES[grads.dtype], *(t.data_ptr() for t in inputs + outputs),
+            m, d, nb, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_guard: kernel launch failed with CUDA error {rc}")
+    if sanitize:
+        fused_guard_cuda.launches_sanitize += 1
+        return gram_g, cross, a_inc, B_new, outputs[3]
     fused_guard_cuda.launches += 1
     return gram_g, cross, a_inc, B_new
 
 
 fused_guard_cuda.launches = 0
+fused_guard_cuda.launches_sanitize = 0

@@ -3,8 +3,8 @@
 A CUDA tensor launches the hand-written kernel, or raises (no fallback to
 the plain version when a build or launch fails).  A CPU tensor runs the
 plain PyTorch version in :mod:`repro_torch.kernels.ref`.  The signatures
-are the JAX package's ``ops.fused_guard(grads, B, delta)``,
-``ops.filtered_mean(x, mask, denom)``, ``ops.gram(x)``,
+are the JAX package's ``ops.fused_guard(grads, B, delta, sanitize=False)``,
+``ops.filtered_mean(x, mask, denom, sanitize=False)``, ``ops.gram(x)``,
 ``ops.coordinate_median(x)`` and ``ops.trimmed_mean(x, n_trim)``, without
 the TPU's ``d_block``.
 """
@@ -28,17 +28,26 @@ def runs_kernel(t: torch.Tensor) -> bool:
     return t.device.type != "cpu"
 
 
-def fused_guard(grads: torch.Tensor, B: torch.Tensor, delta: torch.Tensor):
-    """(m, d), (m, d), (d,) → (gram_g, cross, a_inc, B_new) in one sweep."""
+def fused_guard(grads: torch.Tensor, B: torch.Tensor, delta: torch.Tensor,
+                sanitize: bool = False):
+    """(m, d), (m, d), (d,) → (gram_g, cross, a_inc, B_new) in one sweep;
+    ``sanitize=True`` zeroes non-finite gradient entries in the sweep and
+    appends ``nf``, the per-row (m,) int32 count of them."""
     if runs_kernel(grads):
-        return fused_guard_cuda(grads, B, delta)
+        return fused_guard_cuda(grads, B, delta, sanitize=sanitize)
+    if sanitize:
+        return ref.fused_guard_sanitize_ref(grads, B, delta)
     return ref.fused_guard_ref(grads, B, delta)
 
 
-def filtered_mean(x: torch.Tensor, mask: torch.Tensor, denom: float) -> torch.Tensor:
-    """(m, d), (m,) → (d,): Σᵢ (maskᵢ/denom)·xᵢ in f32."""
+def filtered_mean(x: torch.Tensor, mask: torch.Tensor, denom: float,
+                  sanitize: bool = False) -> torch.Tensor:
+    """(m, d), (m,) → (d,): Σᵢ (maskᵢ/denom)·xᵢ in f32; ``sanitize=True``
+    takes non-finite entries of x as 0."""
     if runs_kernel(x):
-        return filtered_mean_cuda(x, mask, denom)
+        return filtered_mean_cuda(x, mask, denom, sanitize=sanitize)
+    if sanitize:
+        return ref.filtered_mean_sanitize_ref(x, mask, denom)
     return ref.filtered_mean_ref(x, mask, denom)
 
 

@@ -52,6 +52,16 @@ def filtered_mean_ref(x: torch.Tensor, mask: torch.Tensor,
     return w @ x.to(torch.float32)
 
 
+def filtered_mean_sanitize_ref(x: torch.Tensor, mask: torch.Tensor,
+                               denom: float) -> torch.Tensor:
+    """:func:`filtered_mean_ref` with non-finite entries of x taken as 0,
+    so a zero-weight NaN/Inf row adds nothing (0·Inf would be NaN)."""
+    x32 = x.to(torch.float32)
+    x32 = torch.where(torch.isfinite(x32), x32, 0.0)
+    w = mask.to(torch.float32) / denom
+    return w @ x32
+
+
 def fused_guard_ref(grads: torch.Tensor, B: torch.Tensor, delta: torch.Tensor):
     """``(gram_g, cross, a_inc, B_new)`` = (g gᵀ, B gᵀ, g·δ, B + g); all
     accumulators f32, ``B_new`` rounded once (round-to-nearest-even) to
@@ -60,3 +70,17 @@ def fused_guard_ref(grads: torch.Tensor, B: torch.Tensor, delta: torch.Tensor):
     b = B.to(torch.float32)
     dlt = delta.to(torch.float32)
     return g @ g.T, b @ g.T, g @ dlt, (b + g).to(B.dtype)
+
+
+def fused_guard_sanitize_ref(grads: torch.Tensor, B: torch.Tensor, delta: torch.Tensor):
+    """:func:`fused_guard_ref` with the non-finite entries of the
+    gradients zeroed before every product and the B update, plus a fifth
+    output ``nf``: each row's (m,) int32 count of them.  B and δ are not
+    tested (finite by construction)."""
+    g = grads.to(torch.float32)
+    fin = torch.isfinite(g)
+    nf = torch.sum(~fin, dim=1, dtype=torch.int32)
+    g = torch.where(fin, g, 0.0)
+    b = B.to(torch.float32)
+    dlt = delta.to(torch.float32)
+    return g @ g.T, b @ g.T, g @ dlt, (b + g).to(B.dtype), nf

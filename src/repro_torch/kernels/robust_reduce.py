@@ -1,9 +1,11 @@
 """Coordinate-wise reductions over the worker axis: the wrappers of the CUDA
 kernels that replace the JAX package's ``robust_reduce`` Pallas kernels.
 
-* ``filtered_mean_cuda(x, mask, denom)`` — Σᵢ (maskᵢ/denom)·xᵢ, the
-  guard's ξ (``csrc/filtered_mean.cu``, replacing ``filtered_mean_pallas``
-  with ``sanitize=False``);
+* ``filtered_mean_cuda(x, mask, denom, sanitize=False)`` — Σᵢ
+  (maskᵢ/denom)·xᵢ, the guard's ξ (``csrc/filtered_mean.cu``, replacing
+  ``filtered_mean_pallas``); ``sanitize=True`` launches the variant that
+  zeroes NaN/Inf entries of x first, since a zero weight alone leaves
+  0·Inf = NaN (counted apart, in ``filtered_mean_cuda.launches_sanitize``);
 * ``coordinate_median_cuda(x)`` — each column's median, the mean of the two
   middle values for even m (``csrc/sorted_reduce.cu``, replacing
   ``coordinate_median_pallas``): Yin et al.'s Median-GD;
@@ -35,8 +37,10 @@ _TRIM_ARGTYPES = ([ctypes.c_int64] + [ctypes.c_void_p] * 2
                   + [ctypes.c_int64] * 4 + [ctypes.c_void_p])
 
 
-def filtered_mean_cuda(x: torch.Tensor, mask: torch.Tensor, denom: float) -> torch.Tensor:
-    """Launch the filtered-mean kernel; raises on anything it does not take."""
+def filtered_mean_cuda(x: torch.Tensor, mask: torch.Tensor, denom: float,
+                       sanitize: bool = False) -> torch.Tensor:
+    """Launch the filtered-mean kernel (its sanitizing variant when
+    ``sanitize``); raises on anything it does not take."""
     dev = check_cuda_inputs("filtered_mean", {"x": x}, tuple(_DTYPE_CODES))
     if x.dim() != 2 or mask.shape != x.shape[:1]:
         raise ValueError(f"filtered_mean: shapes x {tuple(x.shape)}, "
@@ -49,17 +53,22 @@ def filtered_mean_cuda(x: torch.Tensor, mask: torch.Tensor, denom: float) -> tor
         raise ValueError(f"filtered_mean: mask on {mask.device}, x on {dev}")
     w = mask.to(torch.float32).contiguous()
     out = torch.empty((d,), dtype=torch.float32, device=dev)
-    fn = _build.load_function("filtered_mean", "rt_filtered_mean", _ARGTYPES)
+    symbol = "rt_filtered_mean_sanitize" if sanitize else "rt_filtered_mean"
+    fn = _build.load_function("filtered_mean", symbol, _ARGTYPES)
     rc = fn(_DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), float(denom),
             out.data_ptr(), m, d, dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"filtered_mean: kernel launch failed with CUDA error {rc}")
-    filtered_mean_cuda.launches += 1
+    if sanitize:
+        filtered_mean_cuda.launches_sanitize += 1
+    else:
+        filtered_mean_cuda.launches += 1
     return out
 
 
 filtered_mean_cuda.launches = 0
+filtered_mean_cuda.launches_sanitize = 0
 
 
 def _check_sort_input(name: str, x: torch.Tensor) -> torch.device:

@@ -14,11 +14,14 @@ f32; only the order of the sums differs, so the bf16 limit sits about
 10× above the largest such error read on an H100 (8.1e-6 relative, gram_g
 at m=32, d=2^26+3) and well below what a sum rounded to bf16 would give.
 ``B_new`` is bit-equal, and so is the coordinate median: it selects one
-value or averages two, with no sum whose order could differ.
+value or averages two, with no sum whose order could differ.  The
+sanitizing variants' ``nf`` counts are equal exactly, and on finite input
+their shared outputs equal the plain kernels' bit for bit.
 """
 import pytest
 import torch
 
+from repro_torch.core import byzantine_sgd as tbs
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_guard import fused_guard_cuda
 from repro_torch.kernels.pairdist import gram_cuda
@@ -118,3 +121,99 @@ def test_ops_on_cuda_launch_the_order_kernels(cuda_device):
             trimmed_mean_cuda.launches) == tuple(b + 1 for b in before)
     with pytest.raises(TypeError):
         ops.gram(x.double())
+
+
+def poison(x: torch.Tensor) -> torch.Tensor:
+    """A copy of x with a whole NaN row, a row of ±Inf by column parity,
+    a single NaN in the last column (the masked tail when d % 64 != 0)
+    and a single -Inf."""
+    m, d = x.shape
+    x = x.clone()
+    x[0] = float("nan")
+    sign = torch.where(torch.arange(d, device=x.device) % 2 == 0, 1.0, -1.0)
+    x[m // 2] = (sign * float("inf")).to(x.dtype)
+    x[m - 1, d - 1] = float("nan")
+    x[min(1, m - 1), 0] = float("-inf")
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(1, 1), (17, 555), (32, 2048), (33, 1000), (128, 4099)])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_sanitizing_kernels_match_plain(cuda_device, m, d, dt):
+    tdt, tol = DTYPES[dt]
+    gen = torch.Generator(device=cuda_device).manual_seed(m * 977 + d)
+    clean = torch.randn(m, d, device=cuda_device, generator=gen).to(tdt)
+    B = (3 * torch.randn(m, d, device=cuda_device, generator=gen)).to(tdt)
+    dlt = torch.randn(d, device=cuda_device, generator=gen).to(tdt)
+    w = (torch.rand(m, device=cuda_device, generator=gen) > 0.3).float()
+    g = poison(clean)
+    got = fused_guard_cuda(g, B, dlt, sanitize=True)
+    want = ref.fused_guard_sanitize_ref(g, B, dlt)
+    assert got[4].dtype == torch.int32 and torch.equal(got[4], want[4])
+    assert torch.equal(got[3], want[3])
+    for a, b in zip(got[:3], want[:3]):
+        assert bool(torch.isfinite(a).all())
+        _within(a, b, tol)
+    xi = filtered_mean_cuda(g, w, 3.0, sanitize=True)
+    assert bool(torch.isfinite(xi).all())
+    _within(xi, ref.filtered_mean_sanitize_ref(g, w, 3.0), tol)
+    # on finite input the sanitizing variants are the plain kernels, bit for bit
+    san, plain = fused_guard_cuda(clean, B, dlt, sanitize=True), fused_guard_cuda(clean, B, dlt)
+    assert int(san[4].abs().sum()) == 0
+    for a, b in zip(san[:4], plain):
+        assert torch.equal(a, b)
+    assert torch.equal(filtered_mean_cuda(clean, w, 3.0, sanitize=True),
+                       filtered_mean_cuda(clean, w, 3.0))
+
+
+@pytest.mark.cuda
+def test_ops_sanitize_launch_the_sanitizing_kernels(cuda_device):
+    g = poison(torch.randn(8, 300, device=cuda_device))
+    plain = (fused_guard_cuda.launches, filtered_mean_cuda.launches)
+    san = (fused_guard_cuda.launches_sanitize, filtered_mean_cuda.launches_sanitize)
+    out = ops.fused_guard(g, torch.zeros_like(g), torch.zeros_like(g[0]), sanitize=True)
+    xi = ops.filtered_mean(g, torch.ones(8, device=cuda_device), 8.0, sanitize=True)
+    assert len(out) == 5 and bool(torch.isfinite(xi).all())
+    assert (fused_guard_cuda.launches, filtered_mean_cuda.launches) == plain
+    assert (fused_guard_cuda.launches_sanitize, filtered_mean_cuda.launches_sanitize) == (
+        san[0] + 1, san[1] + 1)
+
+
+@pytest.mark.cuda
+def test_argmin_takes_the_first_nan_on_the_card(cuda_device):
+    """``jnp.argmin`` returns the first NaN; the counting median's argmins
+    rely on torch doing the same on the card (finite garbage overflows
+    the Grams to Inf, and their distances to NaN)."""
+    nan, inf = float("nan"), float("inf")
+    for row, first_nan in (([3.0, nan, 1.0, nan], 1), ([inf, 2.0, nan, 0.5], 2),
+                           ([nan, nan, nan, nan], 0)):
+        t = torch.tensor(row)
+        assert int(torch.argmin(t.to(cuda_device))) == int(torch.argmin(t)) == first_nan
+    rows = torch.ones(4, 40)
+    rows[2, 5], rows[3, 1], rows[3, 7] = nan, nan, nan
+    assert torch.argmin(rows.to(cuda_device), dim=1).tolist() == [0, 0, 5, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sd", ["f32", "bf16"])
+def test_quarantine_guard_on_the_card_matches_the_cpu(cuda_device, sd):
+    """Both guard forms on the card, fed a poisoned batch, count the same
+    non-finite rows, drop them and keep ξ finite, as on the CPU."""
+    gen = torch.Generator().manual_seed(11)
+    g = poison((0.1 + 0.05 * torch.randn(16, 700, generator=gen)))
+    z = torch.zeros(700)
+    results = []
+    for fused in (False, True):
+        for dev in ("cpu", cuda_device):
+            guard = tbs.ByzantineGuard(tbs.GuardConfig(m=16, T=10, V=1.0, D=5.0),
+                                       use_fused=fused, stats_dtype=sd, sanitize=True,
+                                       device=dev)
+            state, xi, diag = guard.step(guard.init(700), g.to(dev), z.to(dev), z.to(dev))
+            assert bool(torch.isfinite(xi).all())
+            results.append((int(diag["n_nonfinite"]), int(diag["n_alive"]),
+                            state.alive.cpu().tolist(), xi.cpu()))
+    for r in results[1:]:
+        assert r[:3] == results[0][:3]
+        _within(r[3], results[0][3], DTYPES[sd][1])
+    assert results[0][0] == 4 and results[0][1] == 12

@@ -33,7 +33,8 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
     assert {"repro_torch.core.solver", "repro_torch.kernels.ops",
             "repro_torch.data.problems", "repro_torch.convert",
             "repro_torch.kernels.pairdist", "repro_torch.kernels.robust_reduce",
-            "repro_torch.core.aggregators", "repro_torch.core.attacks"} <= set(mods)
+            "repro_torch.core.aggregators", "repro_torch.core.attacks",
+            "repro_torch.scenarios.faults"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

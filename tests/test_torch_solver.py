@@ -117,11 +117,16 @@ def test_run_sgd_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("generate", "kernel"), ("sanitize", "quarantine"), ("max_delay", 2),
-    ("partial_participation", True)])
+    ("generate", "kernel"), ("max_delay", 2), ("partial_participation", True)])
 def test_run_sgd_rejects_unported_options(field, value):
     cfg = SolverConfig(m=4, T=2, eta=0.1)._replace(**{field: value})
     with pytest.raises(NotImplementedError, match="not ported"):
+        run_sgd(make_generated_problem(d=8, device="cpu"), cfg, prng.PRNGKey(0), device="cpu")
+
+
+def test_run_sgd_rejects_an_unknown_sanitize_mode():
+    cfg = SolverConfig(m=4, T=2, eta=0.1, sanitize="drop")
+    with pytest.raises(ValueError, match="sanitize"):
         run_sgd(make_generated_problem(d=8, device="cpu"), cfg, prng.PRNGKey(0), device="cpu")
 
 
