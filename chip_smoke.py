@@ -52,11 +52,27 @@ and then no result line is printed):
    NaN rows and 1 Inf row (ξ finite, those 5 rows dead, n_alive = 27,
    each kernel launched once); then both on the card and on the CPU at
    d=4099, m=8, T=16 (decisions equal, ξ and ``x_avg`` within 1e-5);
-7. timing — each kernel's median time at m=32, d=2^20 beside its bound,
+7. dp — ``countsketch`` against its plain version at m=32, d=2^20, k=4096
+   (f32, bf16), m=17, d=555, k=8; m=16, d=16, k=4096 (k > d); m=8, d=4099,
+   k=64 and m=32, d=2^26+3, k=4096 (bf16, m·d > 2^31), salts 0 and 7,
+   within the same tol, and its signs bit-equal to ``ref.sketch_sign``;
+   then ``run_sgd`` at the main path's shape with ``dp_exact@f32``,
+   ``dp_exact@bf16``, ``dp_sketch@f32``, ``dp_sketch@bf16`` (sketch_dim
+   4096) and ``dp_exact@f32`` with ``auto_v=False``: every run finite,
+   ``countsketch`` launched T times on dp_sketch and never on dp_exact,
+   ``filtered_mean`` T times on each, no other kernel; then
+   ``dp_exact(auto_v=False)`` against ``dense@f32`` step by step (alive
+   equal at every step); then ``dp_exact@f32`` and ``dp_sketch@f32`` with
+   ``sanitize="quarantine"`` under ``nan_rows`` (64 steps, 4 victims from
+   step 8): ξ finite, every victim dead from step 8; then both backends on
+   the card and on the CPU at d=4099, m=8, T=70 (decisions equal,
+   ``x_avg`` within 1e-5);
+8. timing — each kernel's median time at m=32, d=2^20 beside its bound,
    its plain version and one library call where there is one (the
-   sanitizing variants on input holding 4 non-finite rows), and the
-   split of one main-path step between its parts;
-8. the kernels line (14 entries), the card line and the result line.
+   sanitizing variants on input holding 4 non-finite rows), the bounds
+   of the two generating kernels still to port (nothing launched), and
+   the split of one main-path step between its parts;
+9. the kernels line (16 entries), the card line and the result line.
 """
 from __future__ import annotations
 
@@ -82,6 +98,7 @@ from repro_torch.core.solver import (  # noqa: E402
 )
 from repro_torch.data.problems import make_generated_problem  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels.countsketch import countsketch_cuda  # noqa: E402
 from repro_torch.kernels.fused_guard import fused_guard_cuda  # noqa: E402
 from repro_torch.kernels.pairdist import gram_cuda  # noqa: E402
 from repro_torch.kernels.robust_reduce import (  # noqa: E402
@@ -117,6 +134,8 @@ KERNELS = {
                              "src/repro/kernels/fused_guard.py:73"),
     "filtered_mean_sanitize": ("src/repro_torch/kernels/csrc/filtered_mean.cu",
                                "src/repro/kernels/robust_reduce.py:60"),
+    "countsketch": ("src/repro_torch/kernels/csrc/countsketch.cu",
+                    "src/repro/kernels/countsketch.py:49"),
 }
 # each kernel's launch count: (wrapper, attribute); a sanitizing variant is
 # counted on its wrapper apart from the plain one
@@ -126,7 +145,8 @@ COUNTERS = {"fused_guard": (fused_guard_cuda, "launches"),
             "coordinate_median": (coordinate_median_cuda, "launches"),
             "trimmed_mean": (trimmed_mean_cuda, "launches"),
             "fused_guard_sanitize": (fused_guard_cuda, "launches_sanitize"),
-            "filtered_mean_sanitize": (filtered_mean_cuda, "launches_sanitize")}
+            "filtered_mean_sanitize": (filtered_mean_cuda, "launches_sanitize"),
+            "countsketch": (countsketch_cuda, "launches")}
 N_TRIM = 8   # the trimmed mean's count at m = 32 (capped at (m-1)//2 below)
 # odd m with a masked tail, even m, and m·d > 2^31 (int64 offsets)
 ORDER_SHAPES = ((M, D), (17, 555), (16, 4099), (M, 2 ** 26 + 3))
@@ -498,11 +518,12 @@ QUARANTINE_BASE = dict(eta=0.05, alpha=0.25, attack="sign_flip", aggregator="byz
                        sanitize="quarantine")
 
 
-def quarantine_run(problem, cfg, plan, dev) -> dict:
+def guard_loop(problem, cfg, plan, dev) -> dict:
     """cfg.T steps of ``make_aggregator``'s step, driven by ``run_sgd``'s
-    loop (key chain, sampler, attack, projected step) with ``plan``
-    applied after the attack under ``fold_in(akey, FAULT_KEY_TAG)``, as the
-    JAX ``run_sgd`` applies a fault plan.  Returns the per-step series."""
+    loop (key chain, sampler, attack, projected step) with ``plan`` (or no
+    fault when None) applied after the attack under ``fold_in(akey,
+    FAULT_KEY_TAG)``, as the JAX ``run_sgd`` applies a fault plan.  Returns
+    the per-step series."""
     key = prng.PRNGKey(0, device=dev)
     key, mask_key = prng.split(key)
     rank = byz_rank(mask_key, cfg.m)
@@ -516,8 +537,9 @@ def quarantine_run(problem, cfg, plan, dev) -> dict:
         rng, gkey, akey = prng.split(rng, 3)
         grads = problem.stoch_grad(prng.split(gkey, cfg.m), x)
         grads = attack_fn(akey, grads, byz, {"true_grad": problem.grad(x), "V": problem.V})
-        grads = faults.apply_fault_plan(plan, prng.fold_in(akey, faults.FAULT_KEY_TAG),
-                                        grads, rank, k)
+        if plan is not None:
+            grads = faults.apply_fault_plan(plan, prng.fold_in(akey, faults.FAULT_KEY_TAG),
+                                            grads, rank, k)
         # the rows the sanitizer must catch: non-finite once in the stats dtype
         poisoned.append(~torch.isfinite(grads.to(DTYPES[cfg.stats_dtype])).all(dim=1))
         state, xi, _, alive = step(state, grads, x, x1)
@@ -529,7 +551,9 @@ def quarantine_run(problem, cfg, plan, dev) -> dict:
         x = x1 + delta * torch.clamp(problem.D / torch.clamp(nrm, min=1e-30), max=1.0)
     return {"alive": torch.stack(alive_s).cpu(), "xi_finite": torch.stack(xi_finite).cpu(),
             "poisoned": torch.stack(poisoned).cpu(), "x_avg": (x_sum / cfg.T).cpu(),
-            "byz": byz.cpu(), "victims": faults.fault_rows(plan, rank, plan.start_step).cpu()}
+            "byz": byz.cpu(),
+            "victims": (torch.zeros_like(byz) if plan is None
+                        else faults.fault_rows(plan, rank, plan.start_step)).cpu()}
 
 
 def quarantine_checks(fault: str, runs: dict) -> None:
@@ -574,7 +598,7 @@ def quarantine(dev) -> None:
                                guard_backend=backend, stats_dtype=sd)
             torch.cuda.synchronize()
             reset_counts()
-            runs[name] = quarantine_run(problem, cfg, plan, dev)
+            runs[name] = guard_loop(problem, cfg, plan, dev)
             got = read_counts()
             want = (counts(fused_guard_sanitize=QUARANTINE_STEPS,
                            filtered_mean_sanitize=QUARANTINE_STEPS)
@@ -638,8 +662,8 @@ def quarantine_reference(dev) -> None:
         for name, backend, sd in GUARD_RUNS[:2]:
             cfg = SolverConfig(**QUARANTINE_BASE, m=m, T=16, guard_backend=backend,
                                stats_dtype=sd)
-            got = quarantine_run(make_generated_problem(d=d, seed=3, device=dev), cfg, plan, dev)
-            want = quarantine_run(make_generated_problem(d=d, seed=3, device="cpu"), cfg, plan,
+            got = guard_loop(make_generated_problem(d=d, seed=3, device=dev), cfg, plan, dev)
+            want = guard_loop(make_generated_problem(d=d, seed=3, device="cpu"), cfg, plan,
                                   "cpu")
             same = torch.equal(got["alive"], want["alive"])
             err = rel_err(got["x_avg"], want["x_avg"])
@@ -662,6 +686,156 @@ def quarantine_reference(dev) -> None:
 
 
 # ---------------------------------------------------------------- phase 7
+
+SKETCH_K = 4096   # the dp guards' default sketch_dim
+# (m, d, k, dtype, salt): the main path's shape, k not dividing d, k > d (the
+# reference's default at tiny d), a small strided fold, m·d > 2^31
+SKETCH_CASES = [(M, D, SKETCH_K, "f32", 0), (M, D, SKETCH_K, "bf16", 0),
+                (M, D, SKETCH_K, "f32", 7), (17, 555, 8, "f32", 0), (17, 555, 8, "bf16", 7),
+                (16, 16, SKETCH_K, "f32", 7), (16, 16, SKETCH_K, "bf16", 0),
+                (8, 4099, 64, "f32", 7), (8, 4099, 64, "bf16", 0),
+                (M, 2 ** 26 + 3, SKETCH_K, "bf16", 7)]
+DP_RUNS = [
+    ("dp_exact@f32", dict(guard_backend="dp_exact", stats_dtype="f32")),
+    ("dp_exact@bf16", dict(guard_backend="dp_exact", stats_dtype="bf16")),
+    ("dp_sketch@f32", dict(guard_backend="dp_sketch", stats_dtype="f32")),
+    ("dp_sketch@bf16", dict(guard_backend="dp_sketch", stats_dtype="bf16")),
+    ("dp_exact@f32,auto_v=False", dict(guard_backend="dp_exact", stats_dtype="f32",
+                                       guard_opts=(("auto_v", False),))),
+]
+
+
+def dp_counts(backend: str, steps: int) -> dict:
+    """The launch counts of a ``steps``-step run of a dp guard backend."""
+    if backend == "dp_sketch":
+        return counts(countsketch=steps, filtered_mean=steps)
+    return counts(filtered_mean=steps)
+
+
+def check_countsketch(dev, errs: dict) -> None:
+    """countsketch against its plain version, and its signs against
+    ``sketch_sign``; adds the errors at the main-path shape to ``errs``."""
+    for m, d, k, dt, salt in SKETCH_CASES:
+        gen = torch.Generator(device=dev).manual_seed(m * 7411 + d + k + salt)
+        x = torch.randn(m, d, device=dev, generator=gen, dtype=DTYPES[dt])
+        got = countsketch_cuda(x, k, salt)
+        torch.cuda.synchronize()
+        want = ref.countsketch_ref(x, k, salt)
+        err = rel_err(got, want)
+        emit("dp", check="countsketch", m=m, d=d, k=k, dtype=dt, salt=salt, rel_abs=err,
+             tol=TOL[dt])
+        require(got.shape == (m, k) and within(got, want, TOL[dt]),
+                f"countsketch within {TOL[dt]} at m={m} d={d} k={k} {dt} salt={salt}")
+        if (m, d, k, salt) == (M, D, SKETCH_K, 0):
+            errs[("countsketch", dt)] = err[1]
+        del x, got, want
+        torch.cuda.empty_cache()
+    n = D + 3
+    for salt in (0, 7):
+        signs = countsketch_cuda(torch.ones(1, n, device=dev), n, salt)[0]
+        same = torch.equal(signs, ref.sketch_sign(n, salt, dev))
+        emit("dp", check="countsketch_signs", n=n, salt=salt, bit_equal=same)
+        require(same, f"countsketch signs bit-equal to sketch_sign, salt={salt}")
+
+
+def dp_main_path(dev) -> dict:
+    """The dp backends through ``run_sgd`` at the main path's shape; returns
+    their launch counts."""
+    problem = make_generated_problem(d=D, seed=0, device=dev)
+    launches = {}
+    for name, over in DP_RUNS:
+        cfg = SolverConfig(**{**BASE, **over})
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run_sgd(problem, cfg, prng.PRNGKey(0), device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = launches[name] = read_counts()
+        finite = bool(torch.isfinite(res.x_avg).all() and torch.isfinite(res.gaps).all())
+        emit("dp", run=name, ms_per_step=1e3 * seconds / T, final_gap=float(res.gaps[-1]),
+             gap_at_x_avg=float(problem.f(res.x_avg)), n_alive_first=int(res.n_alive[0]),
+             n_alive_last=int(res.n_alive[-1]),
+             byzantine_alive=int((res.final_alive & res.byz_mask).sum()),
+             ever_filtered_good=bool(res.ever_filtered_good), launches=got, finite=finite)
+        require(finite, f"{name}: finite x_avg and gaps")
+        require(res.x_avg.shape == (D,) and res.gaps.shape == (T,), f"{name}: shapes")
+        want = dp_counts(over["guard_backend"], T)
+        require(got == want, f"{name}: launches {got}, expected {want}")
+    return launches
+
+
+def dp_oracle(dev) -> None:
+    """dp_exact with auto_v=False against the dense oracle, step by step."""
+    problem = make_generated_problem(d=D, seed=0, device=dev)
+    cfg = SolverConfig(**{**BASE, "guard_backend": "dense"})
+    series = {}
+    for name, over in (("dense@f32", {}),
+                       ("dp_exact@f32,auto_v=False", dict(guard_backend="dp_exact",
+                                                          guard_opts=(("auto_v", False),)))):
+        torch.cuda.synchronize()
+        reset_counts()
+        series[name] = guard_loop(problem, cfg._replace(**over), None, dev)
+        got = read_counts()
+        want = counts() if name == "dense@f32" else dp_counts("dp_exact", T)
+        require(got == want, f"{name} step loop: launches {got}, expected {want}")
+    dense, dp = series["dense@f32"]["alive"], series["dp_exact@f32,auto_v=False"]["alive"]
+    same = torch.equal(dense, dp)
+    emit("dp", check="oracle", steps=T, decisions_equal_at_every_step=same,
+         n_alive_last=int(dp[-1].sum()), x_avg_rel_abs=rel_err(
+             series["dp_exact@f32,auto_v=False"]["x_avg"], series["dense@f32"]["x_avg"]))
+    require(same, "dp_exact(auto_v=False) decisions equal dense@f32's at every step")
+
+
+def dp_quarantine(dev) -> None:
+    """Both dp backends with sanitize="quarantine" under nan_rows."""
+    problem = make_generated_problem(d=D, seed=0, device=dev)
+    plan = FAULT_PLANS["nan_rows"]
+    for backend in ("dp_exact", "dp_sketch"):
+        cfg = SolverConfig(**QUARANTINE_BASE, m=M, T=QUARANTINE_STEPS, guard_backend=backend)
+        torch.cuda.synchronize()
+        reset_counts()
+        r = guard_loop(problem, cfg, plan, dev)
+        got = read_counts()
+        n_alive = r["alive"].sum(dim=1).tolist()
+        honest = ~r["byz"] & ~r["victims"]
+        emit("dp", check="quarantine", fault="nan_rows", run=f"{backend}@f32",
+             n_alive_at={k: n_alive[k] for k in (0, FAULT_START - 1, FAULT_START,
+                                                 len(n_alive) - 1)},
+             n_poisoned_rows=int(r["poisoned"].sum()),
+             victims_alive_after_start=int(r["alive"][FAULT_START:, r["victims"]].sum()),
+             byzantine_alive_last=int((r["alive"][-1] & r["byz"]).sum()),
+             other_honest_filtered=int((~r["alive"][:, honest]).any(dim=0).sum()),
+             xi_finite=bool(r["xi_finite"].all()), launches=got)
+        require(bool(r["xi_finite"].all()), f"nan_rows {backend}: ξ finite at every step")
+        require(not bool(r["alive"][FAULT_START:, r["victims"]].any()),
+                f"nan_rows {backend}: every victim dead from step {FAULT_START} on")
+        require(not bool((r["alive"] & r["poisoned"]).any()),
+                f"nan_rows {backend}: every poisoned row dead at that step")
+        want = dp_counts(backend, QUARANTINE_STEPS)
+        require(got == want, f"nan_rows {backend}: launches {got}, expected {want}")
+
+
+def dp_reference(dev) -> None:
+    """Both dp backends on the card against the CPU's plain versions."""
+    for backend in ("dp_exact", "dp_sketch"):
+        kw = dict(m=8, T=70, eta=0.05, alpha=0.25, attack="sign_flip",
+                  aggregator="byzantine_sgd", guard_backend=backend)
+        got = run_sgd(make_generated_problem(d=4099, seed=1, device=dev), SolverConfig(**kw),
+                      prng.PRNGKey(1), device=dev)
+        want = run_sgd(make_generated_problem(d=4099, seed=1, device="cpu"),
+                       SolverConfig(**kw), prng.PRNGKey(1), device="cpu")
+        same = torch.equal(got.n_alive.cpu(), want.n_alive) and torch.equal(
+            got.final_alive.cpu(), want.final_alive)
+        err = rel_err(got.x_avg.cpu(), want.x_avg)
+        emit("dp", check="reference", run=f"{backend}@f32", decisions_equal=same,
+             x_avg_rel_abs=err, n_alive_last=int(got.n_alive[-1]))
+        require(same, f"{backend}: card and CPU decisions equal on the small input")
+        require(within(got.x_avg.cpu(), want.x_avg, 1e-5),
+                f"{backend}: card and CPU x_avg within 1e-5")
+
+
+# ---------------------------------------------------------------- phase 8
 
 def median_ms(fn, batches: int = 7, per_batch: int = 20) -> float:
     """Median over batches of the mean time of ``per_batch`` back-to-back
@@ -690,7 +864,7 @@ def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_kernels(dev, errs, launches, base_launches, q_launches) -> list:
+def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches) -> list:
     entries = []
     for dt in ("f32", "bf16"):
         e = torch.tensor([], dtype=DTYPES[dt]).element_size()
@@ -804,9 +978,61 @@ def time_kernels(dev, errs, launches, base_launches, q_launches) -> list:
         })
         emit("bound", kernel=f"filtered_mean_sanitize[{dt}]", shape=[M, D], bytes=fm_bytes,
              flops=sm_ops)
+        # one read of x, one write of the (m, k) f32 sketch; a sign and an add
+        # per entry on f32 CUDA cores whatever the input type
+        cs_bytes = M * D * e + M * SKETCH_K * 4
+        cs_ops = 2 * M * D
+        b_ms, b_by = bound(cs_bytes, cs_ops, PEAK_FLOPS["f32"])
+        entries.append({
+            "name": f"countsketch[{dt}]", "route": "cuda",
+            "source": KERNELS["countsketch"][0], "replaces": KERNELS["countsketch"][1],
+            "launches": dp_launches[f"dp_sketch@{dt}"]["countsketch"],
+            "max_abs_err": errs[("countsketch", dt)],
+            "ms": median_ms(lambda: countsketch_cuda(g, SKETCH_K)),
+            "plain_ms": median_ms(lambda: ref.countsketch_ref(g, SKETCH_K)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            # no single PyTorch call computes a hashed-sign stride fold
+            "library_ms": None,
+        })
+        emit("bound", kernel=f"countsketch[{dt}]", shape=[M, D, SKETCH_K], bytes=cs_bytes,
+             flops=cs_ops)
         del g, gp, B, dlt
         torch.cuda.empty_cache()
     return entries
+
+
+# Threefry-2x32 per generated element: two key adds, then five groups of
+# four rounds (add, rotate as shift-shift-or, xor) and a key injection of
+# three adds.  Counted at the f32 CUDA-core rate for want of an int32 rate
+# in the data sheet's table; integer and float work run on separate units,
+# so the least time is the larger of the two, not their sum.
+THREEFRY_OPS = 2 + 5 * (4 * 5 + 3)
+
+
+def gen_bounds() -> None:
+    """The bounds of the two generating kernels still to port
+    (``fused_guard_gen_pallas``, ``gen_xi_pallas``) at the main path's
+    shape, from their operands: nothing is launched."""
+    vec_bytes = 4 * D * 4 + M * (2 + 1 + 1) * 4   # x, h, x*, het_dir; keys, skew, slot
+    for dt in ("f32", "bf16"):
+        e = torch.tensor([], dtype=DTYPES[dt]).element_size()
+        # B read and B_new written in the stats dtype, δ, the vectors, both Grams
+        # and A; the Grams, A and B + g as in fused_guard, plus the generation
+        fg_bytes = 2 * M * D * e + D * e + vec_bytes + (2 * M * M + M) * 4
+        gen_ops = THREEFRY_OPS * M * D
+        t_ops = max((4 * M * M * D + 3 * M * D) / PEAK_FLOPS[dt], gen_ops / PEAK_FLOPS["f32"])
+        t_bytes = fg_bytes / HBM_BYTES_PER_S
+        emit("bound", kernel=f"fused_guard_gen[{dt}]", status="to port", shape=[M, D],
+             bytes=fg_bytes, threefry_ops=gen_ops, bound_ms=1e3 * max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    # gen_xi: the two weight vectors in, ξ and the Byzantine row sum out; the
+    # rows are generated once and each summed twice
+    gx_bytes = vec_bytes + 2 * M * 4 + 2 * D * 4
+    t_ops = max(THREEFRY_OPS * M * D, 4 * M * D) / PEAK_FLOPS["f32"]
+    t_bytes = gx_bytes / HBM_BYTES_PER_S
+    emit("bound", kernel="gen_xi", status="to port", shape=[M, D], bytes=gx_bytes,
+         threefry_ops=THREEFRY_OPS * M * D, bound_ms=1e3 * max(t_bytes, t_ops),
+         bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def step_split(dev) -> None:
@@ -874,8 +1100,14 @@ def main() -> int:
     quarantine(dev)
     quarantine_baselines(dev)
     quarantine_reference(dev)
-    entries = time_kernels(dev, errs, launches, base_launches, q_launches)
+    check_countsketch(dev, errs)
+    dp_launches = dp_main_path(dev)
+    dp_oracle(dev)
+    dp_quarantine(dev)
+    dp_reference(dev)
+    entries = time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches)
     require(len(entries) == 2 * len(KERNELS), f"{len(entries)} kernel entries")
+    gen_bounds()
     step_split(dev)
 
     print(json.dumps({"kernels": entries}), flush=True)

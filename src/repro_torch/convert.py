@@ -1,8 +1,8 @@
 """Carry state between the JAX package and the port as numpy arrays.
 
 The port never imports JAX; a caller holding the JAX package's
-``Problem`` or ``GuardState`` passes its arrays through ``numpy.asarray``
-and hands them here.  bf16 arrays arrive with numpy's ``bfloat16`` extension
+``Problem``, ``GuardState`` or ``DPGuardState`` passes its arrays through
+``numpy.asarray`` and hands them here.  bf16 arrays arrive with numpy's ``bfloat16`` extension
 dtype (two bytes per element) and are reinterpreted bit for bit.
 """
 from __future__ import annotations
@@ -14,6 +14,7 @@ from repro_torch import resolve_device
 from repro_torch.core.byzantine_sgd import GuardState
 from repro_torch.core.solver import Problem
 from repro_torch.data.problems import generated_problem
+from repro_torch.distributed.byzantine_dp import DPGuardState
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -47,4 +48,36 @@ def guard_state_to_numpy(state: GuardState) -> dict:
         B = B.to(torch.float32)
     return {"A": state.A.cpu().numpy(), "B": B.cpu().numpy(),
             "alive": state.alive.cpu().numpy(), "k": state.k,
+            "gram_B": state.gram_B.cpu().numpy()}
+
+
+def _tree_from_numpy(tree, device):
+    if isinstance(tree, (list, tuple)):
+        return [tensor_from_numpy(a, device) for a in tree]
+    return tensor_from_numpy(tree, device)
+
+
+def _f32_numpy(t: torch.Tensor) -> np.ndarray:
+    return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def dp_guard_state_from_numpy(A, B, alive, k, v_est, gram_B, device="cuda") -> DPGuardState:
+    """The port's ``DPGuardState`` from the JAX package's: ``B`` is one
+    array (the sketch, or the flat harness's one-leaf exact B) or a list of
+    leaves, each kept in its dtype (bf16 bit for bit); k becomes a host
+    int."""
+    return DPGuardState(A=tensor_from_numpy(A, device), B=_tree_from_numpy(B, device),
+                        alive=tensor_from_numpy(alive, device).to(torch.bool), k=int(k),
+                        v_est=tensor_from_numpy(v_est, device),
+                        gram_B=tensor_from_numpy(gram_B, device))
+
+
+def dp_guard_state_to_numpy(state: DPGuardState) -> dict:
+    """The state's arrays as numpy, ``B`` in its structure; a bf16 leaf comes
+    back upcast to f32 (exact, so it equals the JAX package's
+    ``B.astype(float32)`` bit for bit)."""
+    B = ([_f32_numpy(b) for b in state.B] if isinstance(state.B, list)
+         else _f32_numpy(state.B))
+    return {"A": state.A.cpu().numpy(), "B": B, "alive": state.alive.cpu().numpy(),
+            "k": state.k, "v_est": state.v_est.cpu().numpy(),
             "gram_B": state.gram_B.cpu().numpy()}

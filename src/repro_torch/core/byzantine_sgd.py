@@ -16,7 +16,12 @@ step count ``k`` is a host integer, so the resync is a Python ``if`` and
 a step never waits for the device.
 
 Thresholds are computed on the host in f32 (numpy float32 scalars), which
-reproduces the JAX package's f32 threshold arithmetic bit for bit.
+reproduces the JAX package's f32 threshold arithmetic bit for bit.  The
+dp guards (:mod:`repro_torch.distributed.byzantine_dp`) calibrate V on the
+device and pass it as a 0-d f32 tensor: ``GuardConfig.thresholds``,
+:func:`counting_median_index` and :func:`filter_update` then compute the
+radii on the device in the JAX package's f32 order for a traced V, with no
+host sync.
 
 ``report`` (an (m,) bool mask of the workers that reported this step)
 zeroes the other rows on entry and restricts the medians to reporters;
@@ -72,14 +77,21 @@ class GuardConfig(NamedTuple):
     def C(self) -> float:
         return math.log(16.0 * self.m * max(self.T, 1) / self.delta)
 
-    def thresholds(self, k: int) -> tuple[np.float32, np.float32]:
+    def thresholds(self, k: int):
         """(𝔗_A, 𝔗_B) at iteration k (1-based), in f32 as in the JAX
-        package: 𝔗_A = 4DV·√(t·C), 𝔗_B = 4V·√(t·C), t = max(k, 1) or T."""
+        package: 𝔗_A = 4DV·√(t·C), 𝔗_B = 4V·√(t·C), t = max(k, 1) or T.
+        A Python-float V gives numpy float32 scalars (4DV and 4V rounded
+        once from double); a 0-d f32 tensor V gives 0-d tensors on its
+        device, (f32(4D)·V)·root and (4·V)·root with each product in f32,
+        as the JAX package rounds a traced V."""
         if self.threshold_mode == "fixed":
             t = np.float32(self.T)
         else:
             t = np.float32(max(k, 1))
         root = np.sqrt(t * np.float32(self.C))
+        if isinstance(self.V, torch.Tensor):
+            return ((self.V * float(np.float32(4.0 * self.D))) * float(root),
+                    (self.V * 4.0) * float(root))
         return (np.float32(4.0 * self.D * self.V) * root,
                 np.float32(4.0 * self.V) * root)
 
@@ -101,12 +113,21 @@ def pairwise_sq_dists_from_gram(gram: torch.Tensor) -> torch.Tensor:
     return torch.clamp(d2, min=0.0)  # clamp numerical negatives
 
 
-def _sq_radius(radius) -> float:
-    """radius² as the JAX package rounds it: an f32 radius squares in f32,
-    a Python float squares in double and rounds once to f32."""
+def _sq_radius(radius):
+    """radius² as the JAX package rounds it: an f32 radius (numpy scalar or
+    0-d tensor) squares in f32, a Python float squares in double and
+    rounds once to f32."""
+    if isinstance(radius, torch.Tensor):
+        return radius * radius
     if isinstance(radius, np.float32):
         return float(radius * radius)
     return float(np.float32(radius * radius))
+
+
+def _bound(t):
+    """A threshold as the right-hand side of a comparison: a 0-d tensor
+    stays on its device, an f32 scalar becomes the Python float it is."""
+    return t if isinstance(t, torch.Tensor) else float(t)
 
 
 def counting_median_index(sq_dists: torch.Tensor, radius, report=None):
@@ -146,19 +167,28 @@ def scalar_median(x: torch.Tensor) -> torch.Tensor:
     return (s[(n - 1) // 2] + s[n // 2]) * 0.5
 
 
-def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """The median of ``x[mask]`` without a host sync, by the JAX package's
-    formula: masked entries sort to +inf, index = 0.5·max(n − 1, 0) in f32,
-    result low·(1 − w) + high·w.  On an all-true mask it equals
-    :func:`scalar_median` bit for bit."""
+def masked_quantile(x: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
+    """The q-quantile of ``x[mask]`` without a host sync, by the JAX
+    package's linear-interpolation formula (``masked_median`` and the dp
+    guard's ``_masked_quantile``): masked entries sort to +inf, index =
+    q·max(n − 1, 0) in f32, result low·(1 − w) + high·w.  On an all-true
+    mask it equals ``jnp.quantile(x, q)`` run op by op bit for bit; under
+    ``jit`` XLA on the CPU may fuse the last product and sum into an FMA,
+    one rounding fewer."""
     n = torch.sum(mask)
     s = torch.sort(torch.where(mask, x, math.inf)).values
-    index = 0.5 * torch.clamp(n - 1, min=0).to(torch.float32)
+    index = q * torch.clamp(n - 1, min=0).to(torch.float32)
     low, high = torch.floor(index), torch.ceil(index)
     w = index - low
     low_val = torch.index_select(s, 0, low.to(torch.int64).reshape(1))[0]
     high_val = torch.index_select(s, 0, high.to(torch.int64).reshape(1))[0]
     return low_val * (1.0 - w) + high_val * w
+
+
+def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The median of ``x[mask]`` (:func:`masked_quantile` at 0.5).  On an
+    all-true mask it equals :func:`scalar_median` bit for bit."""
+    return masked_quantile(x, mask, 0.5)
 
 
 def _row(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -171,25 +201,28 @@ def filter_update(A, gram_B, gram_g, alive, k: int, cfg: GuardConfig, report=Non
     with diag = {"n_alive": |good_k|} (the JAX package's telemetry keys
     are not ported).  Medians are over all m workers, or over the
     reporters when ``report`` is given; only the intersection uses
-    good_{k-1}, and a worker that did not report keeps its status."""
+    good_{k-1}, and a worker that did not report keeps its status.
+    ``cfg.V`` may be a Python float or a 0-d f32 tensor (module docstring)."""
     t_a, t_b = cfg.thresholds(k)
 
     # line 7: scalar median of A (over reporters)
     a_med = scalar_median(A) if report is None else masked_median(A, report)
     dev_a = torch.abs(A - a_med)
-    ok_a = dev_a <= float(t_a)
+    ok_a = dev_a <= _bound(t_a)
 
     # line 8: counting median of B at radius 𝔗_B
     d2_b = pairwise_sq_dists_from_gram(gram_B)
     idx_b, _ = counting_median_index(d2_b, t_b, report)
     dist_b = torch.sqrt(_row(d2_b, idx_b))
-    ok_b = dist_b <= float(t_b)
+    ok_b = dist_b <= _bound(t_b)
 
     # line 9: counting median of fresh gradients at radius 2V, filter at 4V
+    # (a tensor V multiplies in f32, a Python one in double)
     d2_g = pairwise_sq_dists_from_gram(gram_g)
     idx_g, _ = counting_median_index(d2_g, cfg.median_radius_mult * cfg.V, report)
     dist_g = torch.sqrt(_row(d2_g, idx_g))
-    ok_g = dist_g <= float(np.float32(cfg.grad_radius_mult * cfg.V))
+    t_g = cfg.grad_radius_mult * cfg.V
+    ok_g = dist_g <= (t_g if isinstance(t_g, torch.Tensor) else float(np.float32(t_g)))
 
     # line 10: good_k = good_{k-1} ∩ {A ok} ∩ {B ok} ∩ {∇ ok}; workers that
     # did not report are not scored

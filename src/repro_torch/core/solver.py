@@ -23,9 +23,10 @@ their sweeps and drop the rows that held them for good; every baseline
 dead for the step.  On finite input it changes no bit of the result.
 
 Not ported yet (they raise NotImplementedError): scenario adversaries
-(and with them fault plans in ``run_sgd``), telemetry,
-``generate="kernel"``, staleness (``max_delay``) and partial
-participation.
+(and with them fault plans in ``run_sgd``), telemetry and
+``generate="kernel"``.  Staleness (``max_delay``) and partial participation
+act only through an adversary's worker profile, so without one they are
+ignored, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -83,16 +84,16 @@ class SolverConfig(NamedTuple):
     threshold_mode: str = "anytime"
     krum_f: int | None = None   # override Krum's f (defaults to ⌈αm⌉)
     trim_fraction: float | None = None  # defaults to the ceil convention
-    guard_backend: str = "dense"  # 'dense' | 'fused'
+    guard_backend: str = "dense"  # 'dense' | 'fused' | 'dp_exact' | 'dp_sketch'
     guard_opts: tuple = ()      # backend knobs as (key, value) pairs
     stats_dtype: str = "f32"    # 'f32' | 'bf16'
     agg_opts: tuple = ()        # baseline knobs as (key, value) pairs, e.g.
     #                             clip_tau for centered_clip, bucket_seed
     #                             for bucket<s>:<base>; each rule receives
     #                             only the knobs it declares
-    max_delay: int = 0          # not ported: must stay 0
-    partial_participation: bool = False  # not ported: must stay False
-    generate: str = "off"       # not ported: must stay "off"
+    max_delay: int = 0          # ignored without a scenario adversary
+    partial_participation: bool = False  # ignored without a scenario adversary
+    generate: str = "off"       # "off"; "kernel" is not ported yet
     sanitize: str = "off"       # "off" | "quarantine": zero non-finite
     #                             gradient entries before the aggregator and
     #                             report their rows dead (DESIGN.md §15)
@@ -253,12 +254,12 @@ def make_aggregator(problem: Problem, cfg: SolverConfig, device="cuda"):
 
 
 def _check_supported(cfg: SolverConfig, adversary, telemetry) -> None:
+    if cfg.generate not in ("off", "kernel"):
+        raise ValueError(f"generate must be 'off' or 'kernel', got {cfg.generate!r}")
     unported = {
         "a scenario adversary": adversary is not None,
         "telemetry": telemetry is not None,
-        "generate='kernel'": cfg.generate != "off",
-        "max_delay": cfg.max_delay != 0,
-        "partial_participation": cfg.partial_participation,
+        "generate='kernel'": cfg.generate == "kernel",
     }
     missing = [name for name, on in unported.items() if on]
     if missing:
@@ -318,5 +319,9 @@ def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
         n_alive=torch.stack(n_alive_series),
         byz_mask=byz_mask,
         ever_filtered_good=any_good_filtered,
-        final_alive=alive,
+        # the aggregator's carried membership where it keeps one (the
+        # guards), else everyone: a baseline's per-step quarantine drop is
+        # not a membership
+        final_alive=(agg_state.alive if hasattr(agg_state, "alive")
+                     else torch.ones((cfg.m,), dtype=torch.bool, device=dev)),
     )

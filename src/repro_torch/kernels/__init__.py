@@ -14,6 +14,9 @@ their plain PyTorch versions.
                       ``coordinate_median_pallas``/``trimmed_mean_pallas``
 * ``pairdist``      — the worker Gram matrix (CUDA C++, ``csrc/gram.cu``),
                       replacing ``repro.kernels.pairdist.gram_pallas``
+* ``countsketch``   — the dp_sketch guard's CountSketch (CUDA C++,
+                      ``csrc/countsketch.cu``), replacing
+                      ``repro.kernels.countsketch.countsketch_pallas``
 * ``ref``           — the plain PyTorch versions
 * ``ops``           — dispatch by the tensor's device: a CUDA tensor
                       launches the kernel (or raises), a CPU tensor runs

@@ -5,14 +5,15 @@ the plain version when a build or launch fails).  A CPU tensor runs the
 plain PyTorch version in :mod:`repro_torch.kernels.ref`.  The signatures
 are the JAX package's ``ops.fused_guard(grads, B, delta, sanitize=False)``,
 ``ops.filtered_mean(x, mask, denom, sanitize=False)``, ``ops.gram(x)``,
-``ops.coordinate_median(x)`` and ``ops.trimmed_mean(x, n_trim)``, without
-the TPU's ``d_block``.
+``ops.coordinate_median(x)``, ``ops.trimmed_mean(x, n_trim)`` and
+``ops.countsketch(x, k, salt=0)``, without the TPU's ``d_block``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.countsketch import countsketch_cuda
 from repro_torch.kernels.fused_guard import fused_guard_cuda
 from repro_torch.kernels.pairdist import gram_cuda
 from repro_torch.kernels.robust_reduce import (
@@ -70,3 +71,10 @@ def trimmed_mean(x: torch.Tensor, n_trim: int) -> torch.Tensor:
     if runs_kernel(x):
         return trimmed_mean_cuda(x, n_trim)
     return ref.trimmed_mean_ref(x, n_trim)
+
+
+def countsketch(x: torch.Tensor, k: int, salt: int = 0) -> torch.Tensor:
+    """(m, d) → (m, k) f32 strided-fold CountSketch with hashed signs."""
+    if runs_kernel(x):
+        return countsketch_cuda(x, k, salt)
+    return ref.countsketch_ref(x, k, salt)

@@ -9,6 +9,9 @@ TF32 would break the 1e-5 tolerance the kernels are held to.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.gradgen import MASK32
 
 
 def gram_ref(x: torch.Tensor) -> torch.Tensor:
@@ -84,3 +87,38 @@ def fused_guard_sanitize_ref(grads: torch.Tensor, B: torch.Tensor, delta: torch.
     b = B.to(torch.float32)
     dlt = delta.to(torch.float32)
     return g @ g.T, b @ g.T, g @ dlt, (b + g).to(B.dtype), nf
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a · c) mod 2³² for int64 ``a`` holding uint32 values and a uint32
+    constant ``c``, in two 16-bit halves of c so that no product leaves
+    int64."""
+    lo = a * (c & 0xFFFF)
+    hi = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK32
+
+
+def sketch_sign(n: int, salt: int, device="cpu") -> torch.Tensor:
+    """(n,) f32 ±1 per flat coordinate i, from the uint32 hash shared with
+    the JAX package's ``sketch_sign``: h = (i + s)·2654435761 with
+    s = (salt·0x9E3779B9 + 1) mod 2³², h ^= h >> 15, h *= 0x85EBCA6B,
+    h ^= h >> 13, σ = 1 − 2·(h & 1).  The uint32 words live in int64."""
+    s = (salt * 0x9E3779B9 + 1) & MASK32
+    h = _mul32((torch.arange(n, dtype=torch.int64, device=device) + s) & MASK32, 2654435761)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    return 1.0 - 2.0 * (h & 1).to(torch.float32)
+
+
+def countsketch_ref(x: torch.Tensor, k: int, salt: int = 0) -> torch.Tensor:
+    """(m, d) → (m, k) f32 strided-fold CountSketch: out[w, c] = Σ over
+    i ≡ c (mod k) of σ(i)·x[w, i], signs from :func:`sketch_sign`; x is
+    upcast to f32 (exact for bf16).  k need not divide d, and buckets at or
+    past d (k > d) are 0."""
+    m, d = x.shape
+    signed = x.to(torch.float32) * sketch_sign(d, salt, x.device)
+    pad = (-d) % k
+    if pad:
+        signed = F.pad(signed, (0, pad))
+    return torch.sum(signed.reshape(m, -1, k), dim=1)

@@ -16,13 +16,19 @@ at m=32, d=2^26+3) and well below what a sum rounded to bf16 would give.
 ``B_new`` is bit-equal, and so is the coordinate median: it selects one
 value or averages two, with no sum whose order could differ.  The
 sanitizing variants' ``nf`` counts are equal exactly, and on finite input
-their shared outputs equal the plain kernels' bit for bit.
+their shared outputs equal the plain kernels' bit for bit.  The
+CountSketch's signs are bit-equal to ``ref.sketch_sign``, and its sums are
+held to the same tolerance.
 """
 import pytest
 import torch
 
+from repro_torch import prng
 from repro_torch.core import byzantine_sgd as tbs
+from repro_torch.core.solver import SolverConfig, run_sgd
+from repro_torch.data.problems import make_generated_problem
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.countsketch import countsketch_cuda
 from repro_torch.kernels.fused_guard import fused_guard_cuda
 from repro_torch.kernels.pairdist import gram_cuda
 from repro_torch.kernels.robust_reduce import (
@@ -217,3 +223,60 @@ def test_quarantine_guard_on_the_card_matches_the_cpu(cuda_device, sd):
         assert r[:3] == results[0][:3]
         _within(r[3], results[0][3], DTYPES[sd][1])
     assert results[0][0] == 4 and results[0][1] == 12
+
+
+# chip_smoke.py's shapes: the main path's, k not dividing d, k > d, a small
+# strided fold, and m·d > 2^31
+SKETCH_SHAPES = [(32, 2 ** 20, 4096), (17, 555, 8), (16, 16, 4096), (8, 4099, 64),
+                 (32, 2 ** 26 + 3, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,k", SKETCH_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("salt", [0, 7])
+def test_countsketch_matches_plain(cuda_device, m, d, k, dt, salt):
+    tdt, tol = DTYPES[dt]
+    gen = torch.Generator(device=cuda_device).manual_seed(m * 31 + d + k)
+    x = torch.randn(m, d, device=cuda_device, generator=gen).to(tdt)
+    got = countsketch_cuda(x, k, salt)
+    torch.cuda.synchronize()
+    assert got.shape == (m, k) and got.dtype == torch.float32
+    _within(got, ref.countsketch_ref(x, k, salt), tol)
+    assert torch.equal(got, countsketch_cuda(x, k, salt))   # fixed-order sums
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("salt", [0, 7])
+def test_countsketch_signs_are_bit_equal(cuda_device, salt):
+    n = 2 ** 20 + 3
+    signs = countsketch_cuda(torch.ones(1, n, device=cuda_device), n, salt)[0]
+    assert torch.equal(signs, ref.sketch_sign(n, salt, cuda_device))
+
+
+@pytest.mark.cuda
+def test_ops_countsketch_on_cuda_launches_the_kernel(cuda_device):
+    x = torch.randn(8, 300, device=cuda_device)
+    before = countsketch_cuda.launches
+    ops.countsketch(x, 64, 1)
+    assert countsketch_cuda.launches == before + 1
+    with pytest.raises(TypeError):
+        ops.countsketch(x.double(), 64)
+    with pytest.raises(ValueError, match="k >= 1"):
+        ops.countsketch(x, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["dp_exact", "dp_sketch"])
+def test_dp_run_on_the_card_matches_the_cpu(cuda_device, backend):
+    kw = dict(m=8, T=70, eta=0.05, alpha=0.25, attack="sign_flip",
+              aggregator="byzantine_sgd", guard_backend=backend)
+    before = countsketch_cuda.launches
+    got = run_sgd(make_generated_problem(d=4099, seed=1, device=cuda_device),
+                  SolverConfig(**kw), prng.PRNGKey(1), device=cuda_device)
+    assert countsketch_cuda.launches - before == (70 if backend == "dp_sketch" else 0)
+    want = run_sgd(make_generated_problem(d=4099, seed=1, device="cpu"), SolverConfig(**kw),
+                   prng.PRNGKey(1), device="cpu")
+    assert torch.equal(got.n_alive.cpu(), want.n_alive)
+    assert torch.equal(got.final_alive.cpu(), want.final_alive)
+    _within(got.x_avg.cpu(), want.x_avg, 1e-5)

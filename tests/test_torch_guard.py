@@ -154,7 +154,7 @@ def test_guard_opts_validation():
         make_guard_backend("fused", _Prob, cfg._replace(guard_opts=(("gram_resync_every", -1),)),
                            "cpu")
     with pytest.raises(KeyError, match="unknown guard backend"):
-        make_guard_backend("dp_exact", _Prob, cfg, "cpu")
+        make_guard_backend("dp_exactly", _Prob, cfg, "cpu")
     # a knob the fused backend declares is dropped for dense
     state0, _ = make_guard_backend("dense", _Prob,
                                    cfg._replace(guard_opts=(("gram_resync_every", 8),)), "cpu")

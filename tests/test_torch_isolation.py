@@ -34,7 +34,8 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
             "repro_torch.data.problems", "repro_torch.convert",
             "repro_torch.kernels.pairdist", "repro_torch.kernels.robust_reduce",
             "repro_torch.core.aggregators", "repro_torch.core.attacks",
-            "repro_torch.scenarios.faults"} <= set(mods)
+            "repro_torch.scenarios.faults", "repro_torch.distributed.byzantine_dp",
+            "repro_torch.kernels.countsketch"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

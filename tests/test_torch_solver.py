@@ -117,11 +117,49 @@ def test_run_sgd_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("generate", "kernel"), ("max_delay", 2), ("partial_participation", True)])
+    ("generate", "kernel"), ("max_delay", 2), ("partial_participation", True),
+    ("generate", "fast")])
 def test_run_sgd_rejects_unported_options(field, value):
-    cfg = SolverConfig(m=4, T=2, eta=0.1)._replace(**{field: value})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        run_sgd(make_generated_problem(d=8, device="cpu"), cfg, prng.PRNGKey(0), device="cpu")
+    """``generate="kernel"`` is not ported and raises; any other value than
+    "off"/"kernel" is a ValueError, as in the JAX package.  ``max_delay``
+    and ``partial_participation`` act only through a scenario adversary's
+    profile, so without one the run equals the run without them, as the
+    JAX package's does."""
+    cfg = SolverConfig(m=4, T=3, eta=0.1, alpha=0.25)
+    problem = make_generated_problem(d=8, device="cpu")
+    if field == "generate":
+        with pytest.raises(NotImplementedError if value == "kernel" else ValueError,
+                           match="not ported" if value == "kernel" else "generate must be"):
+            run_sgd(problem, cfg._replace(generate=value), prng.PRNGKey(0), device="cpu")
+        with pytest.raises(ValueError, match="generate must be"):
+            jax_run_sgd(jax_problem(d=8), JaxConfig(m=4, T=3, eta=0.1, generate="fast"),
+                        jax.random.PRNGKey(0))
+        return
+    got = run_sgd(problem, cfg._replace(**{field: value}), prng.PRNGKey(0), device="cpu")
+    want = run_sgd(problem, cfg, prng.PRNGKey(0), device="cpu")
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("aggregator", ["coordinate_median", "bucket2:krum", "byzantine_sgd"])
+def test_final_alive_is_the_carried_membership(aggregator):
+    """``final_alive`` is the aggregator state's ``alive`` where it keeps
+    one (the guards) and all-true otherwise, as in the JAX package.  With a
+    sampler that returns NaN rows at every step, quarantine drops every row
+    at the last step: a baseline still reports everyone at the end, the
+    guard no one."""
+    kw = dict(m=8, T=3, eta=0.05, alpha=0.25, attack="sign_flip", aggregator=aggregator,
+              sanitize="quarantine")
+    jp = jax_problem(d=16, seed=5)
+    jp = jp._replace(stoch_grad=lambda k, x: jnp.full_like(x, jnp.nan))
+    tp = make_generated_problem(d=16, seed=5, device="cpu")
+    tp = tp._replace(stoch_grad=lambda keys, x: torch.full((keys.shape[0], x.shape[0]),
+                                                            float("nan")))
+    want = jax_run_sgd(jp, JaxConfig(**kw), jax.random.PRNGKey(0))
+    got = run_sgd(tp, SolverConfig(**kw), prng.PRNGKey(0), device="cpu")
+    np.testing.assert_array_equal(got.final_alive.numpy(), np.asarray(want.final_alive))
+    np.testing.assert_array_equal(got.n_alive.numpy(), np.asarray(want.n_alive))
+    assert bool(got.final_alive.all()) == (aggregator != "byzantine_sgd")
 
 
 def test_run_sgd_rejects_an_unknown_sanitize_mode():
