@@ -67,12 +67,29 @@ and then no result line is printed):
    step 8): ξ finite, every victim dead from step 8; then both backends on
    the card and on the CPU at d=4099, m=8, T=70 (decisions equal,
    ``x_avg`` within 1e-5);
-8. timing — each kernel's median time at m=32, d=2^20 beside its bound,
+8. gen — ``fused_guard_gen`` and ``gen_xi`` against their plain versions
+   at m=32, d=2^20 (f32, bf16) for every attack id the generator takes
+   and at m=32, d=2^26+3 (bf16, sign_flip; m·d > 2^31, the plain version
+   by column chunks): ``B_new`` bit-equal but for ALIE's ids 4 and 8, the
+   rest within tol, and on their own rows materialised ``fused_guard`` and
+   ``filtered_mean`` give the same bits; then ``run_sgd`` at the main
+   path's shape under ``scenario_static("sign_flip")`` and
+   ``scenario_static("alie")``, f32 and bf16, ``generate="kernel"``
+   against ``"off"``: ms/step, peak memory, final gap, n_alive, launches
+   (``fused_guard_gen`` and ``gen_xi`` T times on the generating runs and
+   nothing else), decisions equal at every step, gaps bit-equal (required
+   under sign_flip, reported under ALIE, whose moments sum in another
+   order), the generating run's peak memory below the materialising
+   run's by at least the (m, d) f32 batch;
+   then both attacks' generating runs on the card and on the CPU at
+   d=4099, m=8, T=40 (decisions equal, ``x_avg`` within 1e-5);
+9. timing — each kernel's median time at m=32, d=2^20 beside its bound,
    its plain version and one library call where there is one (the
-   sanitizing variants on input holding 4 non-finite rows), the bounds
-   of the two generating kernels still to port (nothing launched), and
-   the split of one main-path step between its parts;
-9. the kernels line (16 entries), the card line and the result line.
+   sanitizing variants on input holding 4 non-finite rows, the generating
+   ones on the main path's step-0 operands under sign_flip, and under
+   ALIE apart), and the split of one materialising and one generating
+   step between their parts;
+10. the kernels line (20 entries), the card line and the result line.
 """
 from __future__ import annotations
 
@@ -89,6 +106,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import prng  # noqa: E402
 from repro_torch.core import aggregators, attacks  # noqa: E402
+from repro_torch.core.attacks import alie_z_max  # noqa: E402
 from repro_torch.core.guard_backends import make_guard_backend  # noqa: E402
 from repro_torch.core.solver import (  # noqa: E402
     SolverConfig,
@@ -97,16 +115,20 @@ from repro_torch.core.solver import (  # noqa: E402
     run_sgd,
 )
 from repro_torch.data.problems import make_generated_problem  # noqa: E402
-from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import _build, gradgen, ref  # noqa: E402
 from repro_torch.kernels.countsketch import countsketch_cuda  # noqa: E402
-from repro_torch.kernels.fused_guard import fused_guard_cuda  # noqa: E402
+from repro_torch.kernels.fused_guard import (  # noqa: E402
+    fused_guard_cuda,
+    fused_guard_gen_cuda,
+    gen_xi_cuda,
+)
 from repro_torch.kernels.pairdist import gram_cuda  # noqa: E402
 from repro_torch.kernels.robust_reduce import (  # noqa: E402
     coordinate_median_cuda,
     filtered_mean_cuda,
     trimmed_mean_cuda,
 )
-from repro_torch.scenarios import faults  # noqa: E402
+from repro_torch.scenarios import ScenarioAdversary, faults, scenario_static  # noqa: E402
 
 M, D, T = 32, 2 ** 20, 128
 # Kernel against plain version on the card: both upcast bf16 to f32 exactly
@@ -136,6 +158,11 @@ KERNELS = {
                                "src/repro/kernels/robust_reduce.py:60"),
     "countsketch": ("src/repro_torch/kernels/csrc/countsketch.cu",
                     "src/repro/kernels/countsketch.py:49"),
+    # the generator of both is csrc/gen_rows.cuh
+    "fused_guard_gen": ("src/repro_torch/kernels/csrc/fused_guard.cu",
+                        "src/repro/kernels/fused_guard.py:256"),
+    "gen_xi": ("src/repro_torch/kernels/csrc/filtered_mean.cu",
+               "src/repro/kernels/fused_guard.py:349"),
 }
 # each kernel's launch count: (wrapper, attribute); a sanitizing variant is
 # counted on its wrapper apart from the plain one
@@ -146,7 +173,9 @@ COUNTERS = {"fused_guard": (fused_guard_cuda, "launches"),
             "trimmed_mean": (trimmed_mean_cuda, "launches"),
             "fused_guard_sanitize": (fused_guard_cuda, "launches_sanitize"),
             "filtered_mean_sanitize": (filtered_mean_cuda, "launches_sanitize"),
-            "countsketch": (countsketch_cuda, "launches")}
+            "countsketch": (countsketch_cuda, "launches"),
+            "fused_guard_gen": (fused_guard_gen_cuda, "launches"),
+            "gen_xi": (gen_xi_cuda, "launches")}
 N_TRIM = 8   # the trimmed mean's count at m = 32 (capped at (m-1)//2 below)
 # odd m with a masked tail, even m, and m·d > 2^31 (int64 offsets)
 ORDER_SHAPES = ((M, D), (17, 555), (16, 4099), (M, 2 ** 26 + 3))
@@ -837,6 +866,233 @@ def dp_reference(dev) -> None:
 
 # ---------------------------------------------------------------- phase 8
 
+MOMENT_IDS = (4, 8)   # ALIE and alie_update: rows read the honest column moments
+GEN_BIG_D = 2 ** 26 + 3   # m·d > 2^31 at m = 32: int64 offsets
+GEN_CHUNK = 1 << 22       # columns per chunk of the plain version at GEN_BIG_D
+
+
+def gen_operands(m: int, d: int, aid: int, dev, seed: int = 0) -> list:
+    """The generator's operands for a kernel check: a quarter of the fleet
+    plays ``aid`` (phase a), two rows sign_flip (phase b), the last row is
+    padding (slot −1); every third worker carries a ±0.3 skew along a unit
+    ``het_dir``."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 31 * m + d)
+    h = torch.logspace(0.0, 3.0, d, base=2.0, device=dev)
+    x_star = torch.randn(d, device=dev, generator=gen) / d ** 0.5
+    x = 0.1 * torch.randn(d, device=dev, generator=gen)
+    het_dir = torch.randn(d, device=dev, generator=gen)
+    het_dir /= het_dir.norm()
+    keys = prng.split(prng.PRNGKey(seed + m, device=dev), m)
+    w = torch.arange(m, device=dev)
+    skewsign = 0.3 * (1.0 - 2.0 * (w % 2).float()) * (w % 3 == 0).float()
+    n_a = max(m // 4, 1)
+    slot = torch.zeros(m, dtype=torch.int32, device=dev)
+    slot[:n_a] = 1
+    slot[n_a:n_a + 2] = 2
+    slot[-1] = -1
+    params = torch.zeros(gradgen.GEN_NPARAMS, device=dev)
+    params[gradgen.P_ID_A], params[gradgen.P_SF_A] = float(aid), -3.0
+    params[gradgen.P_CONST_A], params[gradgen.P_IPC_A] = 10.0 / d ** 0.5, 2.0
+    params[gradgen.P_ID_B], params[gradgen.P_SF_B] = 1.0, -1.5
+    params[gradgen.P_Z_A] = alie_z_max(m, torch.sum(slot > 0))
+    params[gradgen.P_TGNRM] = torch.clamp(torch.linalg.vector_norm(h * (x - x_star)), min=1e-12)
+    params[gradgen.P_NSCALE] = 1.0 / d ** 0.5
+    return [x, h, x_star, het_dir, keys, skewsign, slot, params]
+
+
+def main_gen_operands(attack: str, dev) -> list:
+    """The operands the main path hands the generating kernels at step 0
+    under ``scenario_static(attack)``, α = 0.25."""
+    problem = make_generated_problem(d=D, seed=0, device=dev)
+    adv = ScenarioAdversary(scenario_static(attack), 0.25)
+    key, mask_key = prng.split(prng.PRNGKey(0, device=dev))
+    mask = adv.mask_at(byz_rank(mask_key, M), 0)
+    gkey = prng.split(key, 3)[1]
+    x = problem.x1
+    ctx = {"true_grad": problem.grad(x), "V": problem.V, "step": 0,
+           "alive": torch.ones(M, dtype=torch.bool, device=dev),
+           "n_alive": torch.tensor(M, device=dev), "prev_xi": torch.zeros_like(x)}
+    slot, params, w_byz = adv.gen_attack_ctx(mask, ctx, adv.init_state(M, D, device=dev),
+                                             problem.gen.noise_scale)
+    return [x, problem.gen.h, problem.gen.x_star, problem.gen.het_dir,
+            prng.split(gkey, M), torch.zeros(M, device=dev), slot, params], w_byz
+
+
+def plain_gen_chunked(B, dlt, operands, stats_dtype):
+    """The plain versions of both generating kernels over column chunks
+    (the rows are column-local): (gram_g, cross, a_inc, B_new, ξ, byz)."""
+    x, h, xs, hd, keys, skew, slot, params = operands
+    m, d = B.shape
+    w_xi = (slot == 0).float() / m
+    w_byz = (slot > 0).float()
+    acc = [torch.zeros((m, m), dtype=torch.float64, device=B.device) for _ in range(2)]
+    a_inc = torch.zeros(m, dtype=torch.float64, device=B.device)
+    b_new, xi, byz = [], [], []
+    for lo in range(0, d, GEN_CHUNK):
+        hi = min(lo + GEN_CHUNK, d)
+        j = torch.arange(lo, hi, device=B.device)
+        rows = gradgen.gen_worker_rows(x[lo:hi], h[lo:hi], xs[lo:hi], hd[lo:hi], keys, skew,
+                                       slot, params, j, d)
+        g, bn = rows.to(B.dtype).float(), B[:, lo:hi].float()
+        acc[0] += (g @ g.T).double()
+        acc[1] += (bn @ g.T).double()
+        a_inc += (g @ dlt[lo:hi].float()).double()
+        b_new.append((bn + g).to(B.dtype))
+        xi.append(w_xi @ rows.to(stats_dtype).float())
+        byz.append(torch.sum(rows * w_byz[:, None], dim=0))
+        del rows, g, bn
+    return (acc[0].float(), acc[1].float(), a_inc.float(), torch.cat(b_new, dim=1),
+            torch.cat(xi), torch.cat(byz))
+
+
+def check_gen_kernels(dev, errs: dict) -> None:
+    """Both generating kernels against their plain versions on the card, at
+    the main path's shape (f32, bf16) for every supported attack id and at
+    m·d > 2^31 (bf16, sign_flip): ``B_new`` bit-equal but for ALIE's ids,
+    the rest within tol; given their own rows materialised, ``fused_guard``
+    gives the same four outputs and ``filtered_mean`` the same ξ, bit for
+    bit.  Adds the largest errors at the main shape to ``errs``."""
+    for m, d, dt in ((M, D, "f32"), (M, D, "bf16"), (M, GEN_BIG_D, "bf16")):
+        tdt, tol = DTYPES[dt], TOL[dt]
+        gen = torch.Generator(device=dev).manual_seed(m * 7 + d)
+        B = torch.randn(m, d, device=dev, generator=gen, dtype=tdt).mul_(3)
+        dlt = torch.randn(d, device=dev, generator=gen, dtype=tdt)
+        for aid in (gradgen.GEN_SUPPORTED_IDS if d == D else (1,)):
+            operands = gen_operands(m, d, aid, dev)
+            slot = operands[6]
+            w_xi, w_byz = (slot == 0).float() / m, (slot > 0).float()
+            got = fused_guard_gen_cuda(B, dlt, *operands)
+            xi, byz = gen_xi_cuda(w_xi, w_byz, *operands, stats_dtype=tdt)
+            torch.cuda.synchronize()
+            if d == D:
+                want = ref.fused_guard_gen_ref(B, dlt, *operands)
+                want_xi = ref.gen_xi_ref(w_xi, w_byz, *operands, stats_dtype=tdt)
+            else:
+                *want, xw, bw = plain_gen_chunked(B, dlt, operands, tdt)
+                want_xi = (xw, bw)
+            b_equal = torch.equal(got[3], want[3])
+            b_ok = b_equal if aid not in MOMENT_IDS else within(got[3].float(), want[3].float(),
+                                                                tol)
+            fg = [rel_err(a, b) for a, b in zip(got[:3], want[:3])]
+            fg_ok = all(within(a, b, tol) for a, b in zip(got[:3], want[:3]))
+            del want
+            gx = [rel_err(a, b) for a, b in zip((xi, byz), want_xi)]
+            gx_ok = all(within(a, b, tol) for a, b in zip((xi, byz), want_xi))
+            del want_xi
+            rows = fused_guard_gen_cuda(torch.zeros_like(B), dlt, *operands)[3]
+            same_fg = all(torch.equal(a, b) for a, b in zip(got, fused_guard_cuda(rows, B, dlt)))
+            same_xi = torch.equal(xi, filtered_mean_cuda(rows, w_xi, 1.0))
+            del rows, got
+            emit("gen_kernels", m=m, d=d, dtype=dt, attack_id=aid, B_new_bit_equal=b_equal,
+                 fused_guard_gen_rel_abs={"gram_g": fg[0], "cross": fg[1], "a_inc": fg[2]},
+                 gen_xi_rel_abs={"xi": gx[0], "byz": gx[1]},
+                 equals_fused_guard_on_its_rows=same_fg,
+                 xi_equals_filtered_mean_on_its_rows=same_xi, tol=tol)
+            where = f"at m={m} d={d} {dt} id {aid}"
+            require(b_ok, f"fused_guard_gen B_new {'within tol' if aid in MOMENT_IDS else 'bit-equal'} {where}")
+            require(fg_ok, f"fused_guard_gen within {tol} {where}")
+            require(gx_ok, f"gen_xi within {tol} {where}")
+            require(same_fg, f"fused_guard_gen equals fused_guard on its own rows {where}")
+            require(same_xi, f"gen_xi's xi equals filtered_mean on its own rows {where}")
+            if d == D:
+                for name, e in (("fused_guard_gen", max(x[1] for x in fg)),
+                                ("gen_xi", max(x[1] for x in gx))):
+                    errs[(name, dt)] = max(errs.get((name, dt), 0.0), e)
+            del operands, xi, byz
+            torch.cuda.empty_cache()
+        del B, dlt
+        torch.cuda.empty_cache()
+
+
+GEN_RUNS = [(f"{attack}@{sd}", attack, sd) for attack in ("sign_flip", "alie")
+            for sd in ("f32", "bf16")]
+
+
+def gen_main_path(dev) -> dict:
+    """``run_sgd`` with ``scenario_static`` adversaries at the main path's
+    shape, ``generate="kernel"`` against ``"off"``: ms/step, peak memory,
+    launches, and decisions at every step.  Returns the generating runs'
+    launch counts."""
+    problem = make_generated_problem(d=D, seed=0, device=dev)
+    gen_launches = {}
+    n_byz = int(BASE["alpha"] * M)
+    for name, attack, sd in GEN_RUNS:
+        adv = ScenarioAdversary(scenario_static(attack), BASE["alpha"])
+        out = {}
+        for generate in ("off", "kernel"):
+            cfg = SolverConfig(**{**BASE, "guard_backend": "fused", "stats_dtype": sd,
+                                  "generate": generate})
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            res = run_sgd(problem, cfg, prng.PRNGKey(0), adversary=adv, device=dev)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            out[generate] = (res, 1e3 * seconds / T, read_counts(),
+                             torch.cuda.max_memory_allocated(dev))
+        (off, off_ms, off_n, off_mem), (gen, gen_ms, gen_n, gen_mem) = out["off"], out["kernel"]
+        gen_launches[name] = gen_n
+        decisions = all(torch.equal(getattr(off, f), getattr(gen, f))
+                        for f in ("n_alive", "final_alive", "byz_mask"))
+        gaps_equal = torch.equal(off.gaps, gen.gaps)
+        finite = all(bool(torch.isfinite(r.x_avg).all() and torch.isfinite(r.gaps).all())
+                     for r in (off, gen))
+        emit("gen_main_path", run=name, ms_per_step={"off": off_ms, "kernel": gen_ms},
+             max_memory_allocated_bytes={"off": off_mem, "kernel": gen_mem},
+             final_gap={"off": float(off.gaps[-1]), "kernel": float(gen.gaps[-1])},
+             n_alive_first_last={"off": [int(off.n_alive[0]), int(off.n_alive[-1])],
+                                 "kernel": [int(gen.n_alive[0]), int(gen.n_alive[-1])]},
+             byzantine_alive=int((gen.final_alive & gen.byz_mask).sum()),
+             ever_filtered_good=bool(gen.ever_filtered_good),
+             launches={"off": off_n, "kernel": gen_n},
+             decisions_equal_at_every_step=decisions, gaps_bit_equal=gaps_equal,
+             x_avg_rel_abs=rel_err(gen.x_avg, off.x_avg), finite=finite)
+        require(finite, f"{name}: finite x_avg and gaps on both paths")
+        require(gen_n == counts(fused_guard_gen=T, gen_xi=T),
+                f"{name} generate='kernel': launches {gen_n}")
+        require(off_n == counts(fused_guard=T, filtered_mean=T),
+                f"{name} generate='off': launches {off_n}")
+        require(decisions, f"{name}: generating run decides as the materialising run at every step")
+        require(gen_mem + M * D * 4 <= off_mem,
+                f"{name}: generating peak {gen_mem} B not below the materialising "
+                f"{off_mem} B by the (m, d) f32 batch")
+        if attack == "sign_flip":
+            require(int(gen.byz_mask.sum()) == n_byz and
+                    not bool((gen.final_alive & gen.byz_mask).any()),
+                    f"{name}: all {n_byz} sign-flippers filtered")
+            require(not bool(gen.ever_filtered_good) and int(gen.n_alive[-1]) == M - n_byz,
+                    f"{name}: no honest worker filtered")
+            # no row reads a sum over rows, so the generated rows equal the
+            # sampled ones and every later sum runs in the same order
+            require(gaps_equal, f"{name}: gaps bit-equal to the materialising run's")
+        del off, gen, out
+    return gen_launches
+
+
+def gen_reference(dev) -> None:
+    """The generating run on the card against the CPU's plain-version run
+    on a small input."""
+    for attack in ("sign_flip", "alie"):
+        kw = dict(m=8, T=40, eta=0.05, alpha=0.25, aggregator="byzantine_sgd",
+                  guard_backend="fused", generate="kernel")
+        adv = ScenarioAdversary(scenario_static(attack), 0.25)
+        got = run_sgd(make_generated_problem(d=4099, seed=1, device=dev), SolverConfig(**kw),
+                      prng.PRNGKey(1), adversary=adv, device=dev)
+        want = run_sgd(make_generated_problem(d=4099, seed=1, device="cpu"),
+                       SolverConfig(**kw), prng.PRNGKey(1), adversary=adv, device="cpu")
+        same = all(torch.equal(getattr(got, f).cpu(), getattr(want, f))
+                   for f in ("n_alive", "final_alive", "byz_mask"))
+        err = rel_err(got.x_avg.cpu(), want.x_avg)
+        emit("gen_reference", attack=attack, decisions_equal=same, x_avg_rel_abs=err)
+        require(same, f"{attack}: card and CPU decisions equal on the small input")
+        require(within(got.x_avg.cpu(), want.x_avg, 1e-5),
+                f"{attack}: card and CPU x_avg within 1e-5")
+
+
+# ---------------------------------------------------------------- phase 9
+
 def median_ms(fn, batches: int = 7, per_batch: int = 20) -> float:
     """Median over batches of the mean time of ``per_batch`` back-to-back
     calls, by CUDA events (the queue stays full, so host overhead hides)."""
@@ -864,7 +1120,8 @@ def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches) -> list:
+def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
+                 gen_launches, gen_bound) -> list:
     entries = []
     for dt in ("f32", "bf16"):
         e = torch.tensor([], dtype=DTYPES[dt]).element_size()
@@ -996,43 +1253,104 @@ def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches) ->
         })
         emit("bound", kernel=f"countsketch[{dt}]", shape=[M, D, SKETCH_K], bytes=cs_bytes,
              flops=cs_ops)
-        del g, gp, B, dlt
+        del g, gp
+        # the generating kernels on the main path's step-0 operands under
+        # sign_flip; their plain versions run threefry in int64 torch (~40
+        # ms a call), so they are timed over fewer calls
+        operands, w_byz = main_gen_operands("sign_flip", dev)
+        w_xi = (operands[6] == 0).float() / M
+        run = f"sign_flip@{dt}"
+        gen_calls = {
+            "fused_guard_gen": (lambda: fused_guard_gen_cuda(B, dlt, *operands),
+                                lambda: ref.fused_guard_gen_ref(B, dlt, *operands)),
+            "gen_xi": (lambda: gen_xi_cuda(w_xi, w_byz, *operands, stats_dtype=DTYPES[dt]),
+                       lambda: ref.gen_xi_ref(w_xi, w_byz, *operands,
+                                              stats_dtype=DTYPES[dt])),
+        }
+        for name, (kernel, plain) in gen_calls.items():
+            b_ms, b_by = gen_bound[(name, dt)]
+            entries.append({
+                "name": f"{name}[{dt}]", "route": "cuda",
+                "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+                "launches": gen_launches[run][name],
+                "max_abs_err": errs[(name, dt)],
+                "ms": median_ms(kernel),
+                "plain_ms": median_ms(plain, batches=5, per_batch=3),
+                "bound_ms": b_ms, "bound_by": b_by,
+                # no single PyTorch call generates the batch in place
+                "library_ms": None,
+            })
+        # ALIE's rows add the moments pass (twice per step: once per kernel)
+        alie, _ = main_gen_operands("alie", dev)
+        emit("gen_timing", attack="alie", dtype=dt,
+             fused_guard_gen_ms=median_ms(lambda: fused_guard_gen_cuda(B, dlt, *alie)),
+             gen_xi_ms=median_ms(lambda: gen_xi_cuda(w_xi, w_byz, *alie,
+                                                      stats_dtype=DTYPES[dt])))
+        del B, dlt, operands, alie
         torch.cuda.empty_cache()
     return entries
 
 
-# Threefry-2x32 per generated element: two key adds, then five groups of
-# four rounds (add, rotate as shift-shift-or, xor) and a key injection of
-# three adds.  Counted at the f32 CUDA-core rate for want of an int32 rate
-# in the data sheet's table; integer and float work run on separate units,
-# so the least time is the larger of the two, not their sum.
-THREEFRY_OPS = 2 + 5 * (4 * 5 + 3)
+# Integer operations the generator issues per generated element, counted
+# from csrc/gen_rows.cuh (and matched against cuobjdump -sass of gen_xi's
+# loop): threefry2x32 is one three-way XOR for the key parity, one add for
+# the counter word, 20 rounds of add, funnel-shift rotate and XOR, four key
+# injections of two adds (the constant folds into a three-input add) and a
+# last add, 71 in all; the >> 9 of the mantissa ladder makes 72.  The
+# float work per element (t = h·(x − x*), the ladder, ns·u + t: 8 flops) is
+# counted at the f32 rate on its own pipe.
+GEN_INT_OPS = 1 + 1 + 20 * 3 + 4 * 2 + 1 + 1
+GEN_FLOPS = 8
+# integer ALU issue rate per SM and clock on Hopper (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0)
+INT_OPS_PER_CLOCK_PER_SM = 64
 
 
-def gen_bounds() -> None:
-    """The bounds of the two generating kernels still to port
-    (``fused_guard_gen_pallas``, ``gen_xi_pallas``) at the main path's
-    shape, from their operands: nothing is launched."""
-    vec_bytes = 4 * D * 4 + M * (2 + 1 + 1) * 4   # x, h, x*, het_dir; keys, skew, slot
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
+
+
+def gen_bounds(dev) -> dict:
+    """The bounds of the two generating kernels at the main path's shape
+    under sign_flip (no moments pass: this run's data needs none): the
+    larger of the bytes over the HBM rate and the operations over their
+    rate, the integer operations at 64 a clock per SM (SM count from
+    ``torch.cuda.get_device_properties``, maximum SM clock from
+    ``nvidia-smi``), the float operations at their type's peak."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = max_sm_clock_hz()
+    int_rate = sms * INT_OPS_PER_CLOCK_PER_SM * clock
+    vec_bytes = 4 * D * 4 + M * (2 + 1 + 1) * 4 + gradgen.GEN_NPARAMS * 4
+    int_ops = GEN_INT_OPS * M * D
+    out = {}
     for dt in ("f32", "bf16"):
         e = torch.tensor([], dtype=DTYPES[dt]).element_size()
-        # B read and B_new written in the stats dtype, δ, the vectors, both Grams
-        # and A; the Grams, A and B + g as in fused_guard, plus the generation
+        # B read and B_new written in the stats dtype, δ, the generator's
+        # operands, both Grams and A; the Grams, A and B + g as in
+        # fused_guard, plus the generator's float work
         fg_bytes = 2 * M * D * e + D * e + vec_bytes + (2 * M * M + M) * 4
-        gen_ops = THREEFRY_OPS * M * D
-        t_ops = max((4 * M * M * D + 3 * M * D) / PEAK_FLOPS[dt], gen_ops / PEAK_FLOPS["f32"])
+        fg_flops = 4 * M * M * D + 2 * M * D + M * D
+        t_ops = max(fg_flops / PEAK_FLOPS[dt] + GEN_FLOPS * M * D / PEAK_FLOPS["f32"],
+                    int_ops / int_rate)
         t_bytes = fg_bytes / HBM_BYTES_PER_S
-        emit("bound", kernel=f"fused_guard_gen[{dt}]", status="to port", shape=[M, D],
-             bytes=fg_bytes, threefry_ops=gen_ops, bound_ms=1e3 * max(t_bytes, t_ops),
-             bound_by="bytes" if t_bytes >= t_ops else "operations")
-    # gen_xi: the two weight vectors in, ξ and the Byzantine row sum out; the
-    # rows are generated once and each summed twice
-    gx_bytes = vec_bytes + 2 * M * 4 + 2 * D * 4
-    t_ops = max(THREEFRY_OPS * M * D, 4 * M * D) / PEAK_FLOPS["f32"]
-    t_bytes = gx_bytes / HBM_BYTES_PER_S
-    emit("bound", kernel="gen_xi", status="to port", shape=[M, D], bytes=gx_bytes,
-         threefry_ops=THREEFRY_OPS * M * D, bound_ms=1e3 * max(t_bytes, t_ops),
-         bound_by="bytes" if t_bytes >= t_ops else "operations")
+        out[("fused_guard_gen", dt)] = (1e3 * max(t_bytes, t_ops),
+                                        "bytes" if t_bytes >= t_ops else "operations")
+        # gen_xi: the weights in, ξ and the Byzantine row sum out; two FMAs
+        # per element besides the generator
+        gx_bytes = vec_bytes + 2 * M * 4 + 2 * D * 4
+        t_ops = max((GEN_FLOPS + 4) * M * D / PEAK_FLOPS["f32"], int_ops / int_rate)
+        t_bytes = gx_bytes / HBM_BYTES_PER_S
+        out[("gen_xi", dt)] = (1e3 * max(t_bytes, t_ops),
+                               "bytes" if t_bytes >= t_ops else "operations")
+        for name, nbytes in (("fused_guard_gen", fg_bytes), ("gen_xi", gx_bytes)):
+            emit("bound", kernel=f"{name}[{dt}]", shape=[M, D], bytes=nbytes,
+                 int_ops=int_ops, int_ops_per_element=GEN_INT_OPS, sm_count=sms,
+                 max_sm_clock_hz=clock, int_ops_per_s=int_rate,
+                 bound_ms=out[(name, dt)][0], bound_by=out[(name, dt)][1])
+    return out
 
 
 def step_split(dev) -> None:
@@ -1070,6 +1388,52 @@ def step_split(dev) -> None:
     ms = {name: statistics.median(v[2:]) for name, v in parts.items()}
     emit("step_split", run="fused@f32", ms=ms, total_ms=sum(ms.values()))
 
+    # the generating step (generate="kernel", fused@f32) under each
+    # scenario_static adversary of gen_main_path: no sampler and no attack
+    # on the batch; the adversary's O(m) parameters, then the guard's two
+    # generating kernels and the filter, then the adversary's feedback
+    cfg = cfg._replace(generate="kernel")
+    for attack in ("sign_flip", "alie"):
+        state, step = make_guard_backend("fused", problem, cfg, dev)
+        adv = ScenarioAdversary(scenario_static(attack), BASE["alpha"])
+        adv_state = adv.init_state(M, D, device=dev)
+        rank = byz_rank(prng.split(prng.PRNGKey(0, device=dev))[1], M)
+        x, xi = x1, torch.zeros_like(x1)
+        alive, n_alive = torch.ones(M, dtype=torch.bool, device=dev), torch.tensor(M, device=dev)
+        rng = prng.PRNGKey(0, device=dev)
+        parts = {"keys": [], "adversary": [], "guard": [], "feedback": [], "update": []}
+        for k in range(12):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            ev[0].record()
+            rng, gkey, akey = prng.split(rng, 3)
+            keys = prng.split(gkey, M)
+            ev[1].record()
+            mask = adv.mask_at(rank, k)
+            ctx = {"true_grad": problem.grad(x), "V": problem.V, "step": k, "alive": alive,
+                   "n_alive": n_alive, "prev_xi": xi}
+            slot, params, w_byz = adv.gen_attack_ctx(mask, ctx, adv_state,
+                                                     problem.gen.noise_scale)
+            genctx = gradgen.GenStepCtx(worker_keys=keys, skewsign=torch.zeros(M, device=dev),
+                                        slot=slot, params=params, w_byz=w_byz)
+            ev[2].record()
+            state, xi, n_alive, alive, byz_sum = step(state, genctx, x, x1)
+            ev[3].record()
+            byz_row = byz_sum / torch.clamp(torch.sum(mask), min=1)
+            adv_state = adv.update_state_from_byz_row(adv_state, mask, byz_row, xi, alive,
+                                                      n_alive, ctx)
+            ev[4].record()
+            x_new = x - cfg.eta * xi
+            dx = x_new - x1
+            x = x1 + dx * torch.clamp(problem.D / torch.clamp(torch.linalg.vector_norm(dx),
+                                                              min=1e-30), max=1.0)
+            ev[5].record()
+            ev[5].synchronize()
+            for i, name in enumerate(parts):
+                parts[name].append(ev[i].elapsed_time(ev[i + 1]))
+        ms = {name: statistics.median(v[2:]) for name, v in parts.items()}
+        emit("step_split", run=f"{attack}@f32, generate='kernel'", ms=ms,
+             total_ms=sum(ms.values()))
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1105,9 +1469,12 @@ def main() -> int:
     dp_oracle(dev)
     dp_quarantine(dev)
     dp_reference(dev)
-    entries = time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches)
+    check_gen_kernels(dev, errs)
+    gen_launches = gen_main_path(dev)
+    gen_reference(dev)
+    entries = time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
+                           gen_launches, gen_bounds(dev))
     require(len(entries) == 2 * len(KERNELS), f"{len(entries)} kernel entries")
-    gen_bounds()
     step_split(dev)
 
     print(json.dumps({"kernels": entries}), flush=True)

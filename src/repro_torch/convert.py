@@ -1,7 +1,8 @@
 """Carry state between the JAX package and the port as numpy arrays.
 
 The port never imports JAX; a caller holding the JAX package's
-``Problem``, ``GuardState`` or ``DPGuardState`` passes its arrays through
+``Problem``, ``GuardState``, ``DPGuardState``, ``Scenario`` or
+``AdvState`` passes its arrays through
 ``numpy.asarray`` and hands them here.  bf16 arrays arrive with numpy's ``bfloat16`` extension
 dtype (two bytes per element) and are reinterpreted bit for bit.
 """
@@ -15,6 +16,8 @@ from repro_torch.core.byzantine_sgd import GuardState
 from repro_torch.core.solver import Problem
 from repro_torch.data.problems import generated_problem
 from repro_torch.distributed.byzantine_dp import DPGuardState
+from repro_torch.scenarios.adversary import AdvState
+from repro_torch.scenarios.spec import Scenario
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -29,7 +32,9 @@ def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
 def problem_from_numpy(h, x_star, x1, D, V, L, sigma, noise_scale,
                        device="cuda") -> Problem:
     """The port's generated problem from the arrays of the JAX package's
-    ``make_generated_problem`` (``problem.gen.h``, ``problem.x_star``, …)."""
+    ``make_generated_problem`` (``problem.gen.h``, ``problem.x_star``, …);
+    ``noise_scale`` (``problem.gen.noise_scale``) is both the sampler's
+    and the ``GenSpec``'s."""
     return generated_problem(h, x_star, x1, D, V, L, sigma, noise_scale, device)
 
 
@@ -81,3 +86,20 @@ def dp_guard_state_to_numpy(state: DPGuardState) -> dict:
     return {"A": state.A.cpu().numpy(), "B": B, "alive": state.alive.cpu().numpy(),
             "k": state.k, "v_est": state.v_est.cpu().numpy(),
             "gram_B": state.gram_B.cpu().numpy()}
+
+
+def scenario_from_numpy(attack_a, attack_b, switch_step, coalition_frac, churn_period,
+                        churn_stride, join_step, attack_scale, adapt_rate) -> Scenario:
+    """The port's ``Scenario`` from the JAX package's 0-d leaves, in its
+    field order (``scenario_from_numpy(*map(np.asarray, jax_scenario))``):
+    ints as Python ints, fractions and magnitudes as numpy f32."""
+    i, f = (lambda a: int(np.asarray(a))), (lambda a: np.float32(np.asarray(a)))
+    return Scenario(attack_a=i(attack_a), attack_b=i(attack_b), switch_step=i(switch_step),
+                    coalition_frac=f(coalition_frac), churn_period=i(churn_period),
+                    churn_stride=i(churn_stride), join_step=i(join_step),
+                    attack_scale=f(attack_scale), adapt_rate=f(adapt_rate))
+
+
+def adv_state_from_numpy(adapt_scale, device="cuda") -> AdvState:
+    """The port's ``AdvState`` from the JAX package's ``adapt_scale``."""
+    return AdvState(adapt_scale=tensor_from_numpy(np.float32(adapt_scale), device))

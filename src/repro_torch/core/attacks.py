@@ -1,11 +1,16 @@
-"""The key-free static attacks of :mod:`repro.core.attacks`, ALIE included.
+"""The key-free attacks of :mod:`repro.core.attacks`, ALIE and the
+filter-feedback ``retreat_on_filter`` included.
 
 All share the signature ``attack(key, grads, byz_mask, ctx, **kwargs) ->
 grads'``: ``grads`` is (m, d) with honest rows everywhere, ``byz_mask`` is
 (m,) bool, and the attack overwrites the Byzantine rows; honest rows pass
-through bit for bit.  ``ctx`` holds ``true_grad`` (d,) and ``V``.  The
-attacks that draw random numbers or read filter feedback are not ported
-yet.
+through bit for bit.  ``ctx`` holds ``true_grad`` (d,) and ``V``, and the
+solver adds the previous step's feedback: ``step``, ``alive`` (m,) bool,
+``n_alive`` and ``prev_xi`` (d,).  A magnitude knob may be a Python float,
+a numpy f32 scalar or a 0-d f32 tensor (the scenario adversary's scaled
+knob); each expression rounds in f32 in the JAX package's order.
+``random_gaussian`` (it draws ``jax.random.normal``) and ``mirror`` (it
+needs a second problem) are not ported yet.
 """
 from __future__ import annotations
 
@@ -20,6 +25,13 @@ def _overwrite(grads: torch.Tensor, byz_mask: torch.Tensor, rows: torch.Tensor) 
     return torch.where(byz_mask[:, None], rows, grads)
 
 
+def _inv_sqrt_d_ones(d: int, like: torch.Tensor) -> torch.Tensor:
+    """ones(d)/√d in f32 as jnp computes it: √d rounded to f32, then the
+    quotient."""
+    return (torch.ones((d,), dtype=like.dtype, device=like.device)
+            / float(np.sqrt(np.float32(d))))
+
+
 def attack_none(key, grads, byz_mask, ctx):
     """Byzantine workers behave honestly (sanity baseline)."""
     return grads
@@ -32,10 +44,7 @@ def attack_sign_flip(key, grads, byz_mask, ctx, scale: float = 3.0):
 
 def attack_constant_drift(key, grads, byz_mask, ctx, scale: float = 10.0):
     """All Byzantine workers send the same constant vector scale·V·1/√d."""
-    d = grads.shape[1]
-    # 1/√d in f32 as jnp computes it: √d rounded to f32, then the quotient
-    direction = (torch.ones((d,), dtype=grads.dtype, device=grads.device)
-                 / float(np.sqrt(np.float32(d))))
+    direction = _inv_sqrt_d_ones(grads.shape[1], grads)
     return _overwrite(grads, byz_mask, scale * ctx["V"] * direction[None, :])
 
 
@@ -74,6 +83,16 @@ def attack_alie(key, grads, byz_mask, ctx, z: float | None = None, z_scale: floa
     return _overwrite(grads, byz_mask, row[None, :])
 
 
+def attack_alie_update(key, grads, byz_mask, ctx, z: float | None = None,
+                       z_scale: float = 1.0):
+    """ALIE on the workers' updates (blades ``is_fedavg=True``): the same
+    lie on u = −η·g, which in gradient space is μ + z·σ."""
+    zz = alie_z_max(grads.shape[0], torch.sum(byz_mask)) if z is None else z
+    mu, var = _good_row_stats(grads, byz_mask)
+    row = mu + z_scale * zz * torch.sqrt(var + 1e-12)
+    return _overwrite(grads, byz_mask, row[None, :])
+
+
 def attack_inner_product(key, grads, byz_mask, ctx, scale: float = 1.0):
     """Omniscient negative-inner-product attack: push exactly against the
     true gradient, scaled to the top of the allowed deviation V."""
@@ -83,12 +102,33 @@ def attack_inner_product(key, grads, byz_mask, ctx, scale: float = 1.0):
     return _overwrite(grads, byz_mask, row[None, :])
 
 
+def attack_hidden_shift(key, grads, byz_mask, ctx, c: float = 0.9):
+    """The paper's 'hide inside the thresholds' adversary (Section 1.3):
+    true gradient + c·V·u for the colluding unit direction u = 1/√d."""
+    u = _inv_sqrt_d_ones(grads.shape[1], grads)
+    row = ctx["true_grad"] + c * ctx["V"] * u
+    return _overwrite(grads, byz_mask, row[None, :])
+
+
+def attack_retreat_on_filter(key, grads, byz_mask, ctx, scale: float = 1.0):
+    """Strike with the inner-product row while the whole coalition is alive
+    per the previous filter decision (``ctx["alive"]``), else send honest
+    rows.  The condition stays on the device: no host sync."""
+    n_byz = torch.clamp(torch.sum(byz_mask), min=1)
+    coalition_intact = torch.sum(ctx["alive"] & byz_mask) >= n_byz
+    struck = attack_inner_product(key, grads, byz_mask, ctx, scale=scale)
+    return torch.where(coalition_intact, struck, grads)
+
+
 ATTACKS: dict[str, Callable] = {
     "none": attack_none,
     "sign_flip": attack_sign_flip,
     "constant_drift": attack_constant_drift,
     "alie": attack_alie,
+    "alie_update": attack_alie_update,
     "inner_product": attack_inner_product,
+    "hidden_shift": attack_hidden_shift,
+    "retreat_on_filter": attack_retreat_on_filter,
 }
 
 

@@ -31,8 +31,13 @@ before every statistic (dense: explicitly; fused: inside the kernel's
 sweep, which also counts them per row), rows that held one are not
 scored (they enter the filter as non-reporters) and are dropped from
 good_k for good, since the alive mask is carried.  On finite input it
-changes no bit of the result.  On-device generation (``gen_step``) is not
-ported yet and raises.
+changes no bit of the result.
+
+``gen_step`` is the fused step with the batch generated in the kernels
+(DESIGN.md §14): ``ops.fused_guard_gen`` and ``ops.gen_xi`` rebuild the
+worker rows from the guard's ``GenSpec`` and the step's ``GenStepCtx``,
+so no (m, d) gradient tensor exists; it also returns the Byzantine row
+sum that the scenario adversary's feedback reads.
 """
 from __future__ import annotations
 
@@ -247,8 +252,9 @@ class ByzantineGuard:
 
     def __init__(self, cfg: GuardConfig, use_fused: bool = False,
                  gram_resync_every: int = 64, stats_dtype: str = "f32",
-                 device="cuda", sanitize: bool = False):
+                 device="cuda", sanitize: bool = False, gen_spec=None):
         self.cfg = cfg
+        self.gen_spec = gen_spec
         self.sanitize = bool(sanitize)
         self.use_fused = use_fused
         self.gram_resync_every = gram_resync_every
@@ -333,9 +339,37 @@ class ByzantineGuard:
 
         return GuardState(A=A, B=B, alive=good_k, k=k, gram_B=gram_b), xi, diag
 
-    def gen_step(self, state, genctx, x_k, x_1):
-        """The step with gradients generated in-kernel: not ported yet."""
-        raise NotImplementedError("on-device generation (gen_step) is not ported yet")
+    def gen_step(self, state: GuardState, genctx, x_k: torch.Tensor, x_1: torch.Tensor):
+        """:meth:`step` of the fused form with the gradients generated in
+        the kernels from ``self.gen_spec`` and ``genctx``
+        (:class:`~repro_torch.kernels.gradgen.GenStepCtx`): returns
+        ``(state', ξ, byz_sum, diag)``, ``byz_sum = Σᵢ w_byz[i]·rowᵢ`` over
+        the raw f32 rows.  The rows round through the stats dtype before
+        every statistic and ξ, as the materialising path stores its batch;
+        the incremental Gram re-anchors every ``gram_resync_every`` steps."""
+        if self.gen_spec is None:
+            raise ValueError("gen_step needs a GenSpec (pass gen_spec=...)")
+        cfg = self.cfg
+        gen = self.gen_spec
+        k = state.k + 1
+        delta = (x_k - x_1).to(self.stats_dtype)
+        operands = (x_k, gen.h, gen.x_star, gen.het_dir, genctx.worker_keys,
+                    genctx.skewsign, genctx.slot, genctx.params)
+
+        gram_g, cross, a_inc, B = ops.fused_guard_gen(state.B, delta, *operands)
+        A = state.A + a_inc
+        gram_b = state.gram_B + cross + cross.T + gram_g
+        if self.gram_resync_every > 0 and k % self.gram_resync_every == 0:
+            gram_b = _gram32(B)
+
+        good_k, diag = filter_update(A, gram_b, gram_g, state.alive, k, cfg)
+        if cfg.mean_over_alive:
+            denom = torch.clamp(torch.sum(good_k), min=1).to(torch.float32)
+        else:
+            denom = float(cfg.m)
+        xi, byz_sum = ops.gen_xi(good_k.to(torch.float32) / denom, genctx.w_byz, *operands,
+                                 stats_dtype=self.stats_dtype)
+        return GuardState(A=A, B=B, alive=good_k, k=k, gram_B=gram_b), xi, byz_sum, diag
 
 
 def _gram32(x: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,11 @@ declares, and a knob that no backend declares raises KeyError.
 ``dp_exact`` with ``auto_v=False`` matches ``dense`` to float tolerance
 (its thresholds round a device-side V in f32, dense's a Python float in
 double, as in the JAX package).  ``cfg.sanitize == "quarantine"`` builds
-sanitizing guards.  Telemetry is not ported.
+sanitizing guards.  ``cfg.generate == "kernel"`` makes ``fused`` return
+the generating step, ``step(state, genctx, x, x1, report=None) -> (state',
+ξ, n_alive, alive, byz_sum)`` over a
+:class:`~repro_torch.kernels.gradgen.GenStepCtx` (the solver's gate
+admits it on ``fused`` only).  Telemetry is not ported.
 """
 from __future__ import annotations
 
@@ -84,6 +88,19 @@ def _wrap_byzantine_guard(guard: ByzantineGuard, d: int):
     return state0, step
 
 
+def _wrap_gen_guard(guard: ByzantineGuard, d: int):
+    """The generating step: a GenStepCtx in place of the batch, and the
+    adversary's feedback row sum as a fifth output."""
+    state0 = guard.init(d)
+
+    def step(state, genctx, x, x1, report=None):
+        # report is None: partial participation needs the materialised batch
+        state, xi, byz_sum, diag = guard.gen_step(state, genctx, x, x1)
+        return state, xi, diag["n_alive"], state.alive, byz_sum
+
+    return state0, step
+
+
 def _dense_backend(problem, cfg, device="cuda"):
     # gram_B is re-derived from the stored B every step (the drift oracle)
     guard = ByzantineGuard(_guard_config(problem, cfg), stats_dtype=cfg.stats_dtype,
@@ -96,10 +113,14 @@ def _fused_backend(problem, cfg, device="cuda", d_block: int | None = None,
     """``d_block`` is accepted for the JAX package's sweeps and ignored: the
     CUDA kernel takes any d with no strip width."""
     _check_resync(gram_resync_every)
+    gen_on = cfg.generate == "kernel"
     guard = ByzantineGuard(_guard_config(problem, cfg), use_fused=True,
                            gram_resync_every=gram_resync_every,
                            stats_dtype=cfg.stats_dtype, device=device,
-                           sanitize=cfg.sanitize == "quarantine")
+                           sanitize=cfg.sanitize == "quarantine",
+                           gen_spec=problem.gen if gen_on else None)
+    if gen_on:
+        return _wrap_gen_guard(guard, problem.d)
     return _wrap_byzantine_guard(guard, problem.d)
 
 

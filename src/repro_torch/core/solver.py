@@ -22,11 +22,26 @@ their sweeps and drop the rows that held them for good; every baseline
 (and ``bucket<s>:<base>``) sees those entries zeroed and reports the rows
 dead for the step.  On finite input it changes no bit of the result.
 
-Not ported yet (they raise NotImplementedError): scenario adversaries
-(and with them fault plans in ``run_sgd``), telemetry and
-``generate="kernel"``.  Staleness (``max_delay``) and partial participation
-act only through an adversary's worker profile, so without one they are
-ignored, as in the JAX package.
+``adversary=`` takes a :class:`repro_torch.scenarios.adversary.
+ScenarioAdversary` in place of the static ``cfg.attack``/``cfg.alpha``
+pair: its ``mask_at`` schedule gives each step's Byzantine set, its
+``attack`` the rows, and its state is updated from the feedback after each
+aggregation.  Every attack receives ``ctx`` with the previous step's
+feedback: ``step``, ``alive``, ``n_alive``, ``prev_xi``.  ``byz_mask`` is
+the union of the step masks.
+
+``generate="kernel"`` (DESIGN.md §14, with a scenario adversary,
+``aggregator="byzantine_sgd"`` and ``guard_backend="fused"`` on a
+counter-generatable problem) never builds the (m, d) batch: each step
+hands the guard the worker keys and the adversary's O(m) attack
+parameters, and the two generating kernels rebuild the rows.  The key
+chain is the materialising path's, ``akey`` included, so both paths see
+the same noise step for step.
+
+Not ported yet (they raise NotImplementedError): telemetry, and on the
+adversary worker profiles, fault plans, staleness (``max_delay``) and
+partial participation.  Without an adversary ``max_delay`` and
+``partial_participation`` are ignored, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -41,6 +56,7 @@ from repro_torch import prng, resolve_device
 from repro_torch.core import aggregators as agg_lib
 from repro_torch.core import attacks as attack_lib
 from repro_torch.core.guard_backends import make_guard_backend
+from repro_torch.kernels import gradgen
 
 
 class Problem(NamedTuple):
@@ -61,6 +77,7 @@ class Problem(NamedTuple):
     V: float
     L: float = 1.0
     sigma: float = 0.0
+    gen: object = None   # kernels.gradgen.GenSpec on a counter-generatable problem
 
 
 def ceil_byzantine_count(alpha: float, m: int) -> int:
@@ -93,7 +110,8 @@ class SolverConfig(NamedTuple):
     #                             only the knobs it declares
     max_delay: int = 0          # ignored without a scenario adversary
     partial_participation: bool = False  # ignored without a scenario adversary
-    generate: str = "off"       # "off"; "kernel" is not ported yet
+    generate: str = "off"       # "off" | "kernel": rebuild the batch inside
+    #                             the fused guard's kernels (DESIGN.md §14)
     sanitize: str = "off"       # "off" | "quarantine": zero non-finite
     #                             gradient entries before the aggregator and
     #                             report their rows dead (DESIGN.md §15)
@@ -253,49 +271,116 @@ def make_aggregator(problem: Problem, cfg: SolverConfig, device="cuda"):
     return None, wrap(step)
 
 
-def _check_supported(cfg: SolverConfig, adversary, telemetry) -> None:
+def _check_supported(problem: Problem, cfg: SolverConfig, adversary, telemetry) -> None:
+    """The JAX package's ``ValueError`` gates of ``generate="kernel"`` that
+    apply without profiles and faults, then NotImplementedError for what
+    is not ported."""
     if cfg.generate not in ("off", "kernel"):
         raise ValueError(f"generate must be 'off' or 'kernel', got {cfg.generate!r}")
+    if cfg.generate == "kernel":
+        if problem.gen is None:
+            raise ValueError("generate='kernel' needs a counter-generatable problem "
+                             "(make_generated_problem)")
+        if adversary is None or not hasattr(adversary, "gen_attack_ctx"):
+            raise ValueError("generate='kernel' needs a scenario adversary "
+                             "(ScenarioAdversary): the static attack path is not "
+                             "parameterized for in-kernel generation")
+        if cfg.aggregator != "byzantine_sgd" or cfg.guard_backend != "fused":
+            raise ValueError("generate='kernel' requires aggregator='byzantine_sgd' with "
+                             f"guard_backend='fused', got {cfg.aggregator!r}/"
+                             f"{cfg.guard_backend!r}")
+        if cfg.max_delay or cfg.partial_participation:
+            raise ValueError("generate='kernel' does not compose with staleness buffers or "
+                             "partial participation (both need the materialized batch)")
+        if cfg.sanitize != "off":
+            raise ValueError("generate='kernel' does not compose with fault injection or "
+                             "sanitize='quarantine' (both need the materialized batch)")
+        ids = (adversary.scenario.attack_a, adversary.scenario.attack_b)
+        bad = [i for i in ids if i not in gradgen.GEN_SUPPORTED_IDS]
+        if bad:
+            raise ValueError(f"attack ids {bad} are not in-kernel generatable "
+                             f"(supported: {gradgen.GEN_SUPPORTED_IDS})")
     unported = {
-        "a scenario adversary": adversary is not None,
         "telemetry": telemetry is not None,
-        "generate='kernel'": cfg.generate == "kernel",
+        "worker profiles": getattr(adversary, "profile", None) is not None,
+        "fault plans on the adversary": getattr(adversary, "faults", None) is not None,
+        "staleness (max_delay) with an adversary": adversary is not None and cfg.max_delay > 0,
+        "partial participation with an adversary": (adversary is not None
+                                                    and cfg.partial_participation),
     }
     missing = [name for name, on in unported.items() if on]
     if missing:
-        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+        raise NotImplementedError(f"not ported yet (ROADMAP.md §1): {', '.join(missing)}")
 
 
 def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
             adversary=None, telemetry=None, device="cuda") -> SolverResult:
     """Run one full optimization on ``device`` (the card unless the caller
-    asks for the CPU).  ``key`` is a :func:`repro_torch.prng.PRNGKey`."""
-    _check_supported(cfg, adversary, telemetry)
+    asks for the CPU).  ``key`` is a :func:`repro_torch.prng.PRNGKey`;
+    ``adversary`` a :class:`~repro_torch.scenarios.adversary.
+    ScenarioAdversary` or None (the static ``cfg.attack``)."""
+    _check_supported(problem, cfg, adversary, telemetry)
     dev = resolve_device(device)
     if problem.x1.device.type != dev.type:
         raise ValueError(f"problem lives on {problem.x1.device}, run asked for {dev}")
+    gen_on = cfg.generate == "kernel"
     key = key.to(dev)
     key, mask_key = prng.split(key)
     rank = byz_rank(mask_key, cfg.m)
-    byz_mask = rank < cfg.n_byzantine
-    attack_fn = attack_lib.get_attack(cfg.attack)
-    attack_kwargs = dict(cfg.attack_kwargs)
+    if adversary is None:
+        static_mask = rank < cfg.n_byzantine
+        attack_fn = attack_lib.get_attack(cfg.attack)
+        attack_kwargs = dict(cfg.attack_kwargs)
+        adv_state = None
+    else:
+        adv_state = adversary.init_state(cfg.m, problem.d, device=dev)
     agg_state, agg_step = make_aggregator(problem, cfg, dev)
 
     x1 = problem.x1.to(torch.float32)
     x = x1
     x_sum = torch.zeros_like(x1)
+    ever_byz = torch.zeros((cfg.m,), dtype=torch.bool, device=dev)
     any_good_filtered = torch.zeros((), dtype=torch.bool, device=dev)
+    # the previous step's filter feedback: zeros / all alive at step 0
+    prev_xi = torch.zeros_like(x1)
+    prev_alive = torch.ones((cfg.m,), dtype=torch.bool, device=dev)
+    prev_n_alive = torch.tensor(cfg.m, device=dev)
     f_star = problem.f(problem.x_star)
+    if gen_on:
+        # the rank-1 skew of worker profiles, which are not ported: zero
+        no_skew = torch.zeros((cfg.m,), dtype=torch.float32, device=dev)
     rng = key
     gaps, n_alive_series = [], []
-    for _ in range(cfg.T):
+    for k in range(cfg.T):
         rng, gkey, akey = prng.split(rng, 3)
         worker_keys = prng.split(gkey, cfg.m)
-        grads = problem.stoch_grad(worker_keys, x)
-        ctx = {"true_grad": problem.grad(x), "V": problem.V}
-        grads = attack_fn(akey, grads, byz_mask, ctx, **attack_kwargs)
-        agg_state, xi, n_alive, alive = agg_step(agg_state, grads, x, x1)
+        ctx = {"true_grad": problem.grad(x), "V": problem.V, "step": k,
+               "alive": prev_alive, "n_alive": prev_n_alive, "prev_xi": prev_xi}
+        if gen_on:
+            # no (m, d) batch: the guard's kernels rebuild every row from
+            # the worker keys; akey is split all the same so the stream
+            # matches the materialising path's step for step
+            mask_k = adversary.mask_at(rank, k)
+            slot, params, w_byz = adversary.gen_attack_ctx(mask_k, ctx, adv_state,
+                                                           problem.gen.noise_scale)
+            genctx = gradgen.GenStepCtx(worker_keys=worker_keys, skewsign=no_skew, slot=slot,
+                                        params=params, w_byz=w_byz)
+            agg_state, xi, n_alive, alive, byz_sum = agg_step(agg_state, genctx, x, x1)
+            byz_row = byz_sum / torch.clamp(torch.sum(mask_k), min=1)
+            adv_state = adversary.update_state_from_byz_row(adv_state, mask_k, byz_row, xi,
+                                                            alive, n_alive, ctx)
+        else:
+            grads = problem.stoch_grad(worker_keys, x)
+            if adversary is None:
+                mask_k = static_mask
+                grads = attack_fn(akey, grads, mask_k, ctx, **attack_kwargs)
+            else:
+                mask_k = adversary.mask_at(rank, k)
+                grads = adversary.attack(akey, grads, mask_k, ctx, adv_state)
+            agg_state, xi, n_alive, alive = agg_step(agg_state, grads, x, x1)
+            if adversary is not None:
+                adv_state = adversary.update_state(adv_state, mask_k, grads, xi, alive,
+                                                   n_alive, ctx)
 
         x_new = x - cfg.eta * xi
         # Fact 2.5 projected step: ball of radius D around x_1
@@ -306,7 +391,9 @@ def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
         # the gap is taken at x_k, before the update
         gaps.append(problem.f(x) - f_star)
         n_alive_series.append(n_alive)
-        any_good_filtered = any_good_filtered | torch.any((~alive) & (~byz_mask))
+        ever_byz = ever_byz | mask_k
+        any_good_filtered = any_good_filtered | torch.any((~alive) & (~ever_byz))
+        prev_xi, prev_alive, prev_n_alive = xi, alive, n_alive
         # Theorem-3.8 average over the iterates the gradients were taken
         # at: accumulate x_k, not x_{k+1}
         x_sum = x_sum + x
@@ -317,7 +404,7 @@ def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
         x_avg=x_sum / cfg.T,
         gaps=torch.stack(gaps),
         n_alive=torch.stack(n_alive_series),
-        byz_mask=byz_mask,
+        byz_mask=ever_byz,
         ever_filtered_good=any_good_filtered,
         # the aggregator's carried membership where it keeps one (the
         # guards), else everyone: a baseline's per-step quarantine drop is

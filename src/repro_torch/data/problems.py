@@ -7,6 +7,9 @@ noise, noiseⱼ = (V/√d)·uniform(−1, 1) from threefry counters keyed on
 (worker key, coordinate j).  ``h`` and ``x*`` come from numpy's
 ``default_rng(seed)`` exactly as in the JAX package, and the noise stream
 is the same threefry stream, so the port samples the reference's batches.
+``Problem.gen`` holds the :class:`~repro_torch.kernels.gradgen.GenSpec`
+that ``SolverConfig.generate="kernel"`` regenerates the batch from
+(``het_dir`` zeros: ``heterogenize_generated`` waits for worker profiles).
 The quadratic problem with sphere noise draws ``jax.random.normal`` and is
 not ported.
 """
@@ -44,9 +47,11 @@ def generated_problem(h, x_star, x1, D: float, V: float, L: float,
         return (gradgen.mean_grad(h, x, x_star)[None, :]
                 + gradgen.noise_row(kd[:, 0:1], kd[:, 1:2], coords, noise_scale))
 
+    gen = gradgen.GenSpec(h=h, x_star=x_star, noise_scale=noise_scale,
+                          het_dir=torch.zeros((d,), **f32))
     return Problem(d=d, f=f, grad=grad, stoch_grad=stoch_grad, x1=x1,
                    x_star=x_star, D=float(D), V=float(V), L=float(L),
-                   sigma=float(sigma))
+                   sigma=float(sigma), gen=gen)
 
 
 def make_generated_problem(d: int = 16, sigma: float = 1.0, L: float = 10.0,

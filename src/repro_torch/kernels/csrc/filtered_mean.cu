@@ -20,8 +20,23 @@
 // in flight per thread.  The weights sit in shared memory.  No
 // cross-thread reduction is needed, so the result does not depend on the
 // launch shape.  Offsets are int64 (m·d may pass 2^31).
+//
+// gen_xi (entry rt_gen_xi) replaces fused_guard.py's gen_xi_pallas (body
+// _gen_xi_kernel): the same loop over rows in order, with each row
+// generated (gen_rows.cuh) rather than loaded, and two accumulators:
+//   ξ   = Σᵢ w_xi[i]·round_S(rowᵢ)   (S the statistics type, f32 or bf16:
+//         what the materialising guard's filtered mean reads),
+//   byz = Σᵢ w_byz[i]·rowᵢ           (the raw f32 rows: the adversary's
+//         feedback sum).
+// ξ is fmaf(w, v, acc) over i = 0 .. m−1 as above, so on the same rounded
+// rows it equals rt_filtered_mean with denom = 1 bit for bit.  It reads
+// only the (d,) vectors and writes 2·d floats; what bounds it is
+// threefry's ~80 integer operations per generated element (m·d of them,
+// ~0.15 ms at m = 32, d = 2^20 at 64 per clock per SM).  Each thread loads
+// its columns' data once and reuses it over the m rows.  m ≤ 128 (the
+// worker constants sit in shared memory).
 
-#include "common.cuh"
+#include "gen_rows.cuh"
 
 namespace {
 
@@ -86,6 +101,48 @@ int run(int64_t dtype, const void* x, const void* w, float denom, void* out, int
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename S>
+__global__ void __launch_bounds__(NT)
+gen_xi_kernel(const float* __restrict__ w_xi, const float* __restrict__ w_byz,
+              float* __restrict__ xi, float* __restrict__ byz, rt::gen::Args ga, int64_t m,
+              int64_t d) {
+  __shared__ float sx[128], sb[128];
+  __shared__ rt::gen::Row srow[128];
+  for (int64_t i = threadIdx.x; i < m; i += NT) {
+    sx[i] = w_xi[i];
+    sb[i] = w_byz[i];
+    srow[i] = rt::gen::load_row(ga, i);
+  }
+  __syncthreads();
+  const float ns = ga.params[rt::gen::P_NSCALE], tgnrm = ga.params[rt::gen::P_TGNRM];
+  const int64_t n4 = (d + 3) / 4;
+  for (int64_t q = (int64_t)blockIdx.x * NT + threadIdx.x; q < n4;
+       q += (int64_t)gridDim.x * NT) {
+    const int64_t c = 4 * q;
+    rt::gen::Col col[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) col[k] = rt::gen::load_col(ga, c + k < d ? c + k : d - 1);
+    float ax[4] = {0.f, 0.f, 0.f, 0.f}, ab[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int64_t i = 0; i < m; ++i) {
+      const rt::gen::Row& r = srow[i];
+      const float wx = sx[i], wb = sb[i];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int64_t j = c + k;
+        float v = 0.f;
+        if (r.slot >= 0 && j < d) {
+          const float g = rt::gen::honest(r.k0, r.k1, r.skew, col[k], ns, j);
+          v = rt::gen::attacked(r, g, col[k], tgnrm, ga.moments, j, d);
+        }
+        ax[k] = fmaf(wx, rt::gen::round_through(v, S()), ax[k]);
+        ab[k] = fmaf(wb, v, ab[k]);
+      }
+    }
+    rt::store4<float, false>(xi, c, d, ax);
+    rt::store4<float, false>(byz, c, d, ab);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16 (x only; w and out are f32).  m ≤ 12288 (the
@@ -102,4 +159,40 @@ extern "C" int rt_filtered_mean_sanitize(int64_t dtype, const void* x, const voi
                                          float denom, void* out, int64_t m, int64_t d,
                                          int64_t device, void* stream) {
   return run<true>(dtype, x, w, denom, out, m, d, device, stream);
+}
+
+// gen_xi: dtype is the statistics type ξ's rows round through (0 = f32,
+// 1 = bf16); w_xi, w_byz (m,) f32; xi, byz (d,) f32 outputs; then the
+// generator's operands as for rt_fused_guard_gen (moments: 2·d floats of
+// scratch).  m ≤ 128.  Launches the moments kernel (a no-op unless an
+// ALIE id is in play), then the sums.  Returns 0 or the first CUDA error.
+extern "C" int rt_gen_xi(int64_t dtype, const void* w_xi, const void* w_byz, void* xi,
+                         void* byz, const void* x, const void* h, const void* xs,
+                         const void* hd, const void* keys, const void* skew, const void* slot,
+                         const void* params, void* moments, int64_t m, int64_t d,
+                         int64_t device, void* stream) {
+  if (m < 1 || m > 128 || d < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice((int)device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const rt::gen::Args ga{static_cast<const float*>(x),        static_cast<const float*>(h),
+                         static_cast<const float*>(xs),       static_cast<const float*>(hd),
+                         static_cast<const uint32_t*>(keys),  static_cast<const float*>(skew),
+                         static_cast<const int*>(slot),       static_cast<const float*>(params),
+                         static_cast<float*>(moments)};
+  err = rt::gen::launch_moments(ga, m, d, s);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t n4 = (d + 3) / 4;
+  const int64_t blocks = (n4 + NT - 1) / NT < (1 << 20) ? (n4 + NT - 1) / NT : (1 << 20);
+  const float* wx = static_cast<const float*>(w_xi);
+  const float* wb = static_cast<const float*>(w_byz);
+  float* ox = static_cast<float*>(xi);
+  float* ob = static_cast<float*>(byz);
+  if (dtype == 0)
+    gen_xi_kernel<float><<<(unsigned)blocks, NT, 0, s>>>(wx, wb, ox, ob, ga, m, d);
+  else if (dtype == 1)
+    gen_xi_kernel<__nv_bfloat16><<<(unsigned)blocks, NT, 0, s>>>(wx, wb, ox, ob, ga, m, d);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

@@ -12,6 +12,17 @@
 // count of non-finite entries.  B and δ are not tested (finite by
 // construction).  On finite input its four shared outputs equal the plain
 // variant's bit for bit: the same sums in the same order.
+// The generating variant (template flag GEN, entry rt_fused_guard_gen)
+// replaces fused_guard_gen_pallas (body _fused_guard_gen_kernel, strip
+// prologue _gen_strip): it reads no g, but generates each tile of g in
+// registers where the plain sweep loads it, from the worker keys and the
+// attack parameters (gen_rows.cuh), rounded once through B's type as the
+// materialising path stores its batch.  Everything after the load is the
+// same code, so given the same rows both variants give the same bits.
+// ALIE rows need the honest column moments μ, σ over all m rows, which a
+// 32-row tile does not hold when m > 32: a small first kernel
+// (gen_moments_kernel) writes them to 2·d floats of scratch, and returns
+// at once when no phase plays ALIE.
 // g, B and δ are f32 or bf16; every product is upcast to f32 (exact for
 // bf16) and accumulated in f32 with CUDA-core FMAs (no TF32 tensor cores,
 // which would break the 1e-5 tolerance against the plain version).
@@ -19,7 +30,12 @@
 // What bounds it on an H100 (m = 32, d = 2^20): f32 moves 3·m·d·4 B =
 // 402,653,184 B, ~120 µs at 3.35 TB/s, against 4·m²·d ≈ 4.4 GFLOP, ~65 µs at
 // the 67 TFLOP/s f32 CUDA-core rate, so f32 is bound by bytes; bf16 halves
-// the bytes to ~60 µs and the FMAs become the bound.
+// the bytes to ~60 µs and the FMAs become the bound.  The generating
+// variant moves only B and B_new (2·m·d·e B) but issues threefry's ~80
+// integer operations per generated element (each diagonal block generates
+// its tile once, each off-diagonal one two tiles): at m = 32 that is
+// ~2.7 G integer operations, ~0.16 ms at 64 per clock per SM, so it is
+// bound by integer operations.
 //
 // Design.  The Pallas grid walks d in order and carries the (m, m)
 // accumulators from one strip to the next; CUDA blocks run in parallel and
@@ -44,7 +60,7 @@
 // second row tile without counting.  Per-block counts go to scratch and a
 // third small kernel sums them per row (integers, no atomics).
 
-#include "common.cuh"
+#include "gen_rows.cuh"
 
 namespace {
 
@@ -58,14 +74,17 @@ constexpr int SMEM_TILE = 3 * MT * LDS;
 constexpr int SMEM_RED = KG * 2 * MT * MT;
 constexpr int SMEM = SMEM_TILE > SMEM_RED ? SMEM_TILE : SMEM_RED;
 
-template <typename T, bool VEC, bool SAN>
+template <typename T, bool VEC, bool SAN, bool GEN>
 __global__ void __launch_bounds__(NT, 2)
 fused_guard_kernel(const T* __restrict__ g, const T* __restrict__ B,
                    const T* __restrict__ delta, T* __restrict__ B_new,
                    float* __restrict__ gram_part, float* __restrict__ cross_part,
                    float* __restrict__ a_part, int* __restrict__ nf_part, int64_t m,
-                   int64_t d, int64_t mp) {
+                   int64_t d, int64_t mp, rt::gen::Args ga) {
+  static_assert(!(SAN && GEN), "the generating sweep has no sanitizing variant");
   __shared__ __align__(16) float smem[SMEM];
+  // GEN: the constants of the block's two row tiles (I, then J)
+  __shared__ rt::gen::Row srow[GEN ? 2 * MT : 1];
   const int ti = blockIdx.y, tj = blockIdx.z;
   const bool diag = ti == tj;  // this block also writes B_new and a_inc of tile ti
   float* sGI = smem;
@@ -94,13 +113,32 @@ fused_guard_kernel(const T* __restrict__ g, const T* __restrict__ B,
     if (!vJ[p]) rowJ[p] = m - 1;
   }
 
+  if constexpr (GEN) {
+    for (int r = tid; r < 2 * MT; r += NT) {
+      const int64_t i = (int64_t)(r < MT ? ti : tj) * MT + r % MT;
+      if (i < m) srow[r] = rt::gen::load_row(ga, i);
+    }
+    __syncthreads();
+  }
+  // GEN: row `local` of tile `which` (0 = I, 1 = J), columns c .. c + 3,
+  // generated and rounded through T, where the plain sweep loads them
+  auto gen4 = [&](int which, int local, int64_t c, float v[4]) {
+    const rt::gen::Row& r = srow[which * MT + local];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      v[q] = rt::gen::round_through(rt::gen::value(ga, r, c + q, d), T());
+  };
+
   float pg[2][4], pb[2][4], pj[2][4], pd[4];
   auto fetch = [&](int64_t tile) {
     const int64_t c = tile * TK + lc;
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
       if (vI[p]) {
-        rt::load4<T, VEC>(g + rowI[p] * d, c, d, pg[p]);
+        if constexpr (GEN)
+          gen4(0, lr + 16 * p, c, pg[p]);
+        else
+          rt::load4<T, VEC>(g + rowI[p] * d, c, d, pg[p]);
         rt::load4<T, VEC>(B + rowI[p] * d, c, d, pb[p]);
       } else {
 #pragma unroll
@@ -108,7 +146,10 @@ fused_guard_kernel(const T* __restrict__ g, const T* __restrict__ B,
       }
       if (!diag) {
         if (vJ[p]) {
-          rt::load4<T, VEC>(g + rowJ[p] * d, c, d, pj[p]);
+          if constexpr (GEN)
+            gen4(1, lr + 16 * p, c, pj[p]);
+          else
+            rt::load4<T, VEC>(g + rowJ[p] * d, c, d, pj[p]);
         } else {
 #pragma unroll
           for (int q = 0; q < 4; ++q) pj[p][q] = 0.f;
@@ -281,10 +322,11 @@ nf_reduce_kernel(const int* __restrict__ nf_part, int* __restrict__ nf, int64_t 
   nf[i] = s;
 }
 
-template <typename T, bool SAN>
+template <typename T, bool SAN, bool GEN>
 cudaError_t launch(const void* g, const void* B, const void* delta, void* B_new,
                    float* gram_part, float* cross_part, float* a_part, int* nf_part,
-                   int64_t m, int64_t d, int64_t nb, cudaStream_t stream) {
+                   int64_t m, int64_t d, int64_t nb, const rt::gen::Args& ga,
+                   cudaStream_t stream) {
   const int64_t nt = (m + MT - 1) / MT, mp = nt * MT;
   const dim3 grid((unsigned)nb, (unsigned)nt, (unsigned)nt);
   const bool vec = d % 4 == 0 && rt::aligned(g, 4 * sizeof(T)) &&
@@ -295,32 +337,36 @@ cudaError_t launch(const void* g, const void* B, const void* delta, void* B_new,
   const T* dt = static_cast<const T*>(delta);
   T* bn = static_cast<T*>(B_new);
   if (vec)
-    fused_guard_kernel<T, true, SAN><<<grid, NT, 0, stream>>>(
-        gt, bt, dt, bn, gram_part, cross_part, a_part, nf_part, m, d, mp);
+    fused_guard_kernel<T, true, SAN, GEN><<<grid, NT, 0, stream>>>(
+        gt, bt, dt, bn, gram_part, cross_part, a_part, nf_part, m, d, mp, ga);
   else
-    fused_guard_kernel<T, false, SAN><<<grid, NT, 0, stream>>>(
-        gt, bt, dt, bn, gram_part, cross_part, a_part, nf_part, m, d, mp);
+    fused_guard_kernel<T, false, SAN, GEN><<<grid, NT, 0, stream>>>(
+        gt, bt, dt, bn, gram_part, cross_part, a_part, nf_part, m, d, mp, ga);
   return cudaGetLastError();
 }
 
-template <bool SAN>
+template <bool SAN, bool GEN>
 int run(int64_t dtype, const void* g, const void* B, const void* delta, void* B_new,
         void* gram_part, void* cross_part, void* a_part, void* nf_part, void* gram,
         void* cross, void* a_inc, void* nf, int64_t m, int64_t d, int64_t nb,
-        int64_t device, void* stream) {
+        const rt::gen::Args& ga, int64_t device, void* stream) {
   if (m < 1 || m > 4 * MT || d < 1 || nb < 1 || nb > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (GEN) {
+    err = rt::gen::launch_moments(ga, m, d, s);
+    if (err != cudaSuccess) return (int)err;
+  }
   float* gp = static_cast<float*>(gram_part);
   float* cp = static_cast<float*>(cross_part);
   float* ap = static_cast<float*>(a_part);
   int* np = static_cast<int*>(nf_part);
   if (dtype == 0)
-    err = launch<float, SAN>(g, B, delta, B_new, gp, cp, ap, np, m, d, nb, s);
+    err = launch<float, SAN, GEN>(g, B, delta, B_new, gp, cp, ap, np, m, d, nb, ga, s);
   else if (dtype == 1)
-    err = launch<__nv_bfloat16, SAN>(g, B, delta, B_new, gp, cp, ap, np, m, d, nb, s);
+    err = launch<__nv_bfloat16, SAN, GEN>(g, B, delta, B_new, gp, cp, ap, np, m, d, nb, ga, s);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
@@ -347,8 +393,9 @@ extern "C" int rt_fused_guard(int64_t dtype, const void* g, const void* B, const
                               void* B_new, void* gram_part, void* cross_part, void* a_part,
                               void* gram, void* cross, void* a_inc, int64_t m, int64_t d,
                               int64_t nb, int64_t device, void* stream) {
-  return run<false>(dtype, g, B, delta, B_new, gram_part, cross_part, a_part, nullptr, gram,
-                    cross, a_inc, nullptr, m, d, nb, device, stream);
+  return run<false, false>(dtype, g, B, delta, B_new, gram_part, cross_part, a_part, nullptr,
+                           gram, cross, a_inc, nullptr, m, d, nb, rt::gen::Args{}, device,
+                           stream);
 }
 
 // The sanitizing variant: as rt_fused_guard, plus nb·mp int32 of scratch
@@ -359,6 +406,28 @@ extern "C" int rt_fused_guard_sanitize(int64_t dtype, const void* g, const void*
                                        void* gram, void* cross, void* a_inc, void* nf,
                                        int64_t m, int64_t d, int64_t nb, int64_t device,
                                        void* stream) {
-  return run<true>(dtype, g, B, delta, B_new, gram_part, cross_part, a_part, nf_part, gram,
-                   cross, a_inc, nf, m, d, nb, device, stream);
+  return run<true, false>(dtype, g, B, delta, B_new, gram_part, cross_part, a_part, nf_part,
+                          gram, cross, a_inc, nf, m, d, nb, rt::gen::Args{}, device, stream);
+}
+
+// The generating variant: as rt_fused_guard with no g; instead the
+// generator's operands (gen_rows.cuh): x, h, x*, het_dir (d,) f32, keys
+// (m, 2) uint32 words, skew (m,) f32, slot (m,) int32, params (12,) f32,
+// and 2·d floats of scratch for the honest column moments.  The moments
+// kernel runs first (and returns at once unless an ALIE id is in play);
+// then the sweep generates each tile of g where rt_fused_guard loads it.
+extern "C" int rt_fused_guard_gen(int64_t dtype, const void* B, const void* delta,
+                                  void* B_new, void* gram_part, void* cross_part, void* a_part,
+                                  void* gram, void* cross, void* a_inc, const void* x,
+                                  const void* h, const void* xs, const void* hd,
+                                  const void* keys, const void* skew, const void* slot,
+                                  const void* params, void* moments, int64_t m, int64_t d,
+                                  int64_t nb, int64_t device, void* stream) {
+  const rt::gen::Args ga{static_cast<const float*>(x),        static_cast<const float*>(h),
+                         static_cast<const float*>(xs),       static_cast<const float*>(hd),
+                         static_cast<const uint32_t*>(keys),  static_cast<const float*>(skew),
+                         static_cast<const int*>(slot),       static_cast<const float*>(params),
+                         static_cast<float*>(moments)};
+  return run<false, true>(dtype, nullptr, B, delta, B_new, gram_part, cross_part, a_part,
+                          nullptr, gram, cross, a_inc, nullptr, m, d, nb, ga, device, stream);
 }

@@ -1,0 +1,208 @@
+// The in-kernel gradient generator shared by the two generating kernels
+// (fused_guard.cu with GEN, filtered_mean.cu's gen_xi): each worker's
+// attacked gradient at coordinate j, rebuilt from (worker key, j) instead
+// of read from an (m, d) batch.
+//
+// Replaces: repro/kernels/fused_guard.py, _gen_strip, and the row math of
+// repro/kernels/gradgen.py, gen_worker_rows; plain version:
+// repro_torch/kernels/gradgen.py, gen_worker_rows.  Per worker i and
+// coordinate j:
+//   t   = h_j·(x_j − x*_j)                       (the true gradient)
+//   g   = t + ns·(2·((bits >> 9) + 0.5)·2⁻²³ − 1) with bits = word 0 of
+//         threefry2x32(key_i, (0, j)), ns the noise scale
+//   g  += skew_i·het_dir_j                       (when skew_i ≠ 0)
+//   row = the attack of worker i's slot on g, t, ∇f/‖∇f‖ and the honest
+//         column moments μ_j, σ_j (ALIE, ids 4 and 8)
+//   out = row, or 0 for a padding row (slot −1) or j ≥ d.
+// Every product and sum is written with __fmul_rn/__fadd_rn/__fsub_rn:
+// nvcc contracts a*b + c into one FMA by default, and these intrinsics are
+// never contracted, so each term rounds as the plain version's separate
+// torch operations do and the rows equal it bit for bit (bar the moments,
+// whose sums run in another order).
+
+#pragma once
+
+#include "common.cuh"
+
+namespace rt {
+namespace gen {
+
+// slots of the (12,) f32 parameter vector (kernels/gradgen.py)
+enum {
+  P_ID_A, P_SF_A, P_Z_A, P_CONST_A, P_IPC_A,
+  P_ID_B, P_SF_B, P_Z_B, P_CONST_B, P_IPC_B,
+  P_TGNRM, P_NSCALE, NPARAMS
+};
+
+// The generator's operands: (d,) f32 coordinate data, (m,) worker data,
+// the parameters, and the honest column moments (2·d floats, written by
+// gen_moments_kernel; read only when an ALIE id is in play).
+struct Args {
+  const float* x;
+  const float* h;
+  const float* xs;
+  const float* hd;
+  const uint32_t* keys;  // (m, 2) words
+  const float* skew;
+  const int* slot;
+  const float* params;
+  float* moments;        // μ at [0, d), σ at [d, 2d)
+};
+
+// One worker's constants, resolved from its slot and the parameters.
+struct Row {
+  uint32_t k0, k1;
+  float skew;
+  int slot;
+  float aid, sf, zf, cst, ipc;
+};
+
+__device__ __forceinline__ Row load_row(const Args& a, int64_t i) {
+  Row r;
+  r.k0 = a.keys[2 * i];
+  r.k1 = a.keys[2 * i + 1];
+  r.skew = a.skew[i];
+  r.slot = a.slot[i];
+  const int o = r.slot == 2 ? P_ID_B : P_ID_A;
+  r.aid = a.params[o];
+  r.sf = a.params[o + 1];
+  r.zf = a.params[o + 2];
+  r.cst = a.params[o + 3];
+  r.ipc = a.params[o + 4];
+  return r;
+}
+
+// True when a phase plays ALIE or alie_update, whose rows need μ and σ.
+__device__ __forceinline__ bool needs_moments(const float* params) {
+  const float a = params[P_ID_A], b = params[P_ID_B];
+  return a == 4.f || a == 8.f || b == 4.f || b == 8.f;
+}
+
+__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return __funnelshift_l(x, x, r); }
+
+#define RT_TF_ROUND(r) x0 += x1; x1 = rotl(x1, r) ^ x0;
+
+// Word 0 of threefry2x32 (20 rounds) under key (k0, k1) on counter (0, j):
+// the JAX package's noise_bits.
+__device__ __forceinline__ uint32_t noise_bits(uint32_t k0, uint32_t k1, uint32_t j) {
+  const uint32_t ks2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  uint32_t x0 = k0;      // 0 + k0
+  uint32_t x1 = j + k1;
+  RT_TF_ROUND(13) RT_TF_ROUND(15) RT_TF_ROUND(26) RT_TF_ROUND(6)
+  x0 += k1; x1 += ks2 + 1u;
+  RT_TF_ROUND(17) RT_TF_ROUND(29) RT_TF_ROUND(16) RT_TF_ROUND(24)
+  x0 += ks2; x1 += k0 + 2u;
+  RT_TF_ROUND(13) RT_TF_ROUND(15) RT_TF_ROUND(26) RT_TF_ROUND(6)
+  x0 += k0; x1 += k1 + 3u;
+  RT_TF_ROUND(17) RT_TF_ROUND(29) RT_TF_ROUND(16) RT_TF_ROUND(24)
+  x0 += k1; x1 += ks2 + 4u;
+  RT_TF_ROUND(13) RT_TF_ROUND(15) RT_TF_ROUND(26) RT_TF_ROUND(6)
+  return x0 + ks2;
+}
+
+#undef RT_TF_ROUND
+
+// bits → f32 in (−1, 1): the 23-bit mantissa ladder, then centred.
+__device__ __forceinline__ float centered_uniform(uint32_t bits) {
+  const float u = __fmul_rn(__fadd_rn((float)(bits >> 9), 0.5f), 1.1920928955078125e-7f);
+  return __fsub_rn(__fmul_rn(2.f, u), 1.f);
+}
+
+// The column's coordinate data: t = h·(x − x*) and het_dir.
+struct Col {
+  float t, hd;
+};
+
+__device__ __forceinline__ Col load_col(const Args& a, int64_t j) {
+  Col c;
+  c.t = __fmul_rn(__ldg(a.h + j), __fsub_rn(__ldg(a.x + j), __ldg(a.xs + j)));
+  c.hd = __ldg(a.hd + j);
+  return c;
+}
+
+// Worker (k0, k1, skew)'s honest gradient at coordinate j.
+__device__ __forceinline__ float honest(uint32_t k0, uint32_t k1, float skew, const Col& c,
+                                        float ns, int64_t j) {
+  float g = __fadd_rn(c.t, __fmul_rn(ns, centered_uniform(noise_bits(k0, k1, (uint32_t)j))));
+  if (skew != 0.f) g = __fadd_rn(g, __fmul_rn(skew, c.hd));
+  return g;
+}
+
+// Worker r's row at coordinate j < d: its attack applied to its honest
+// value g (the where-chain of gen_worker_rows; ids 0, 2 and any other
+// fall through to g).  gn = t/‖∇f‖; mu, sig are read only for ids 4, 8.
+__device__ __forceinline__ float attacked(const Row& r, float g, const Col& c, float tgnrm,
+                                          const float* mom, int64_t j, int64_t d) {
+  if (r.slot <= 0) return g;
+  const float a = r.aid;
+  if (a == 1.f) return __fmul_rn(r.sf, g);
+  if (a == 3.f) return __fadd_rn(r.cst, 0.f);
+  if (a == 4.f) return __fsub_rn(mom[j], __fmul_rn(r.zf, mom[d + j]));
+  if (a == 8.f) return __fadd_rn(mom[j], __fmul_rn(r.zf, mom[d + j]));
+  if (a == 5.f) return __fsub_rn(c.t, __fmul_rn(r.ipc, __fdiv_rn(c.t, tgnrm)));
+  if (a == 6.f) return __fadd_rn(c.t, r.cst);
+  return g;
+}
+
+// Worker r's output at coordinate j: 0 for a padding row or j ≥ d.
+__device__ __forceinline__ float value(const Args& a, const Row& r, int64_t j, int64_t d) {
+  if (r.slot < 0 || j >= d) return 0.f;
+  const Col c = load_col(a, j);
+  const float g = honest(r.k0, r.k1, r.skew, c, a.params[P_NSCALE], j);
+  return attacked(r, g, c, a.params[P_TGNRM], a.moments, j, d);
+}
+
+// v rounded once through T (round-to-nearest-even for bf16) and back.
+__device__ __forceinline__ float round_through(float v, float) { return v; }
+__device__ __forceinline__ float round_through(float v, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The honest column moments of ALIE: μ_j = Σ g / n, σ_j = √(Σ (g − μ)² / n
+// + 1e-12) over the n = max(#honest, 1) rows of slot 0, each row
+// regenerated twice (two passes, no row kept).  One thread per column;
+// the whole grid returns at once when no phase plays ids 4 or 8.
+// Launched before either generating kernel, on the same stream.
+__global__ void __launch_bounds__(256)
+gen_moments_kernel(Args a, int64_t m, int64_t d) {
+  if (!needs_moments(a.params)) return;
+  __shared__ uint32_t sk[2 * 128];
+  __shared__ float ss[128];
+  __shared__ int sslot[128];
+  for (int64_t i = threadIdx.x; i < m; i += blockDim.x) {
+    sk[2 * i] = a.keys[2 * i];
+    sk[2 * i + 1] = a.keys[2 * i + 1];
+    ss[i] = a.skew[i];
+    sslot[i] = a.slot[i];
+  }
+  __syncthreads();
+  int n = 0;
+  for (int64_t i = 0; i < m; ++i) n += sslot[i] == 0;
+  const float n_good = n > 0 ? (float)n : 1.f;
+  const float ns = a.params[P_NSCALE];
+  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < d;
+       j += (int64_t)gridDim.x * blockDim.x) {
+    const Col c = load_col(a, j);
+    float s = 0.f;
+    for (int64_t i = 0; i < m; ++i)
+      if (sslot[i] == 0) s = __fadd_rn(s, honest(sk[2 * i], sk[2 * i + 1], ss[i], c, ns, j));
+    const float mu = __fdiv_rn(s, n_good);
+    float v = 0.f;
+    for (int64_t i = 0; i < m; ++i)
+      if (sslot[i] == 0) {
+        const float e = __fsub_rn(honest(sk[2 * i], sk[2 * i + 1], ss[i], c, ns, j), mu);
+        v = __fadd_rn(v, __fmul_rn(e, e));
+      }
+    a.moments[j] = mu;
+    a.moments[d + j] = __fsqrt_rn(__fadd_rn(__fdiv_rn(v, n_good), 1e-12f));
+  }
+}
+
+inline cudaError_t launch_moments(const Args& a, int64_t m, int64_t d, cudaStream_t s) {
+  const int64_t blocks = (d + 255) / 256 < (1 << 20) ? (d + 255) / 256 : (1 << 20);
+  gen_moments_kernel<<<(unsigned)blocks, 256, 0, s>>>(a, m, d);
+  return cudaGetLastError();
+}
+
+}  // namespace gen
+}  // namespace rt

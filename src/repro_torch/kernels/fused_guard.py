@@ -15,6 +15,16 @@ counterpart here: the kernel takes any d without padding.
 
 ``fused_guard_cuda.launches`` counts launches of the plain variant,
 ``fused_guard_cuda.launches_sanitize`` those of the sanitizing one.
+
+The two generating kernels replace ``fused_guard_gen_pallas`` and
+``gen_xi_pallas``: ``fused_guard_gen_cuda`` is the sweep above with each
+tile of g generated in the kernel from the worker keys and the attack
+parameters (``csrc/fused_guard.cu``, flag ``GEN``; the generator is
+``csrc/gen_rows.cuh``), and ``gen_xi_cuda`` the filtered-mean loop of
+``csrc/filtered_mean.cu`` over generated rows, returning ξ and the
+Byzantine row sum.  Neither reads or writes an (m, d) gradient batch.
+Their plain versions are ``ref.fused_guard_gen_ref`` and
+``ref.gen_xi_ref``; each counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.gradgen import GEN_NPARAMS, MASK32
 
 MAX_WORKERS = 128   # four 32-row worker tiles
 _TILE = 32
@@ -31,6 +42,10 @@ _ARGTYPES = ([ctypes.c_int64] + [ctypes.c_void_p] * 10
              + [ctypes.c_int64] * 4 + [ctypes.c_void_p])
 _SANITIZE_ARGTYPES = ([ctypes.c_int64] + [ctypes.c_void_p] * 12
                       + [ctypes.c_int64] * 4 + [ctypes.c_void_p])
+_GEN_ARGTYPES = ([ctypes.c_int64] + [ctypes.c_void_p] * 18
+                 + [ctypes.c_int64] * 4 + [ctypes.c_void_p])
+_GEN_XI_ARGTYPES = ([ctypes.c_int64] + [ctypes.c_void_p] * 13
+                    + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
 
 
 def check_cuda_inputs(name: str, tensors: dict, dtypes) -> torch.device:
@@ -97,3 +112,91 @@ def fused_guard_cuda(grads: torch.Tensor, B: torch.Tensor, delta: torch.Tensor,
 
 fused_guard_cuda.launches = 0
 fused_guard_cuda.launches_sanitize = 0
+
+
+def _gen_operands(name: str, dev: torch.device, m: int, d: int, x, h, x_star, het_dir,
+                  keys, skewsign, slot, params) -> list[torch.Tensor]:
+    """The generator's operands as the kernels take them, after checking
+    that they lie on ``dev``: the (d,) f32 vectors, the keys as (m, 2)
+    int32 bit patterns of their uint32 words (from int64), skewsign f32,
+    slot int32, params f32."""
+    f32 = {"x": x, "h": h, "x_star": x_star, "het_dir": het_dir, "skewsign": skewsign,
+           "params": params}
+    if check_cuda_inputs(name, {**f32, "keys": keys, "slot": slot},
+                         (torch.float32, torch.int64, torch.int32)) != dev:
+        raise ValueError(f"{name}: the generator's operands must lie on {dev}")
+    if (any(t.dtype != torch.float32 for t in f32.values()) or keys.dtype != torch.int64
+            or slot.dtype != torch.int32):
+        raise TypeError(f"{name}: expected f32 vectors, skewsign and params, int64 keys "
+                        f"and int32 slot")
+    if (any(t.shape != (d,) for t in (x, h, x_star, het_dir)) or keys.shape != (m, 2)
+            or skewsign.shape != (m,) or slot.shape != (m,) or params.shape != (GEN_NPARAMS,)):
+        raise ValueError(f"{name}: expected ({d},) vectors, keys ({m}, 2), skewsign and slot "
+                         f"({m},), params ({GEN_NPARAMS},)")
+    if not 1 <= m <= MAX_WORKERS or d < 1:
+        raise ValueError(f"{name}: needs 1 <= m <= {MAX_WORKERS} and d >= 1, got m={m}, d={d}")
+    words = keys & MASK32
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+    return [x, h, x_star, het_dir, words, skewsign, slot, params]
+
+
+def fused_guard_gen_cuda(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, params):
+    """Launch the generating fused guard: ``fused_guard_cuda``'s four
+    outputs over the rows the generator makes, rounded through ``B.dtype``;
+    raises on anything it does not take."""
+    dev = check_cuda_inputs("fused_guard_gen", {"B": B, "delta": delta}, tuple(_DTYPE_CODES))
+    if B.dim() != 2 or delta.shape != B.shape[1:] or B.dtype != delta.dtype:
+        raise ValueError(f"fused_guard_gen: B {tuple(B.shape)} {B.dtype} and delta "
+                         f"{tuple(delta.shape)} {delta.dtype}")
+    m, d = B.shape
+    gen = _gen_operands("fused_guard_gen", dev, m, d, x, h, x_star, het_dir, keys, skewsign,
+                        slot, params)
+    mp = _TILE * -(-m // _TILE)
+    nb = min(-(-d // 64), 2 * torch.cuda.get_device_properties(dev).multi_processor_count)
+    f32 = dict(dtype=torch.float32, device=dev)
+    parts = torch.empty((2, nb, mp, mp), **f32)
+    a_part = torch.empty((nb, mp), **f32)
+    gram_g = torch.empty((m, m), **f32)
+    cross = torch.empty((m, m), **f32)
+    a_inc = torch.empty((m,), **f32)
+    B_new = torch.empty_like(B)
+    moments = torch.empty((2, d), **f32)
+    fn = _build.load_function("fused_guard", "rt_fused_guard_gen", _GEN_ARGTYPES)
+    ptrs = [B, delta, B_new, parts[0], parts[1], a_part, gram_g, cross, a_inc, *gen, moments]
+    rc = fn(_DTYPE_CODES[B.dtype], *(t.data_ptr() for t in ptrs), m, d, nb, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_guard_gen: kernel launch failed with CUDA error {rc}")
+    fused_guard_gen_cuda.launches += 1
+    return gram_g, cross, a_inc, B_new
+
+
+def gen_xi_cuda(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,
+                stats_dtype=torch.float32):
+    """Launch the generating ξ pass: ``(Σ w_xi·round(rows), Σ w_byz·rows)``,
+    the rows rounded through ``stats_dtype`` for ξ only; raises on anything
+    it does not take."""
+    m, d = keys.shape[0], x.shape[0]
+    dev = check_cuda_inputs("gen_xi", {"w_xi": w_xi, "w_byz": w_byz}, (torch.float32,))
+    if w_xi.shape != (m,) or w_byz.shape != (m,):
+        raise ValueError(f"gen_xi: w_xi and w_byz must be ({m},)")
+    if stats_dtype not in _DTYPE_CODES:
+        raise TypeError(f"gen_xi: stats_dtype {stats_dtype} is not one of {tuple(_DTYPE_CODES)}")
+    gen = _gen_operands("gen_xi", dev, m, d, x, h, x_star, het_dir, keys, skewsign, slot,
+                        params)
+    f32 = dict(dtype=torch.float32, device=dev)
+    xi = torch.empty((d,), **f32)
+    byz = torch.empty((d,), **f32)
+    moments = torch.empty((2, d), **f32)
+    fn = _build.load_function("filtered_mean", "rt_gen_xi", _GEN_XI_ARGTYPES)
+    ptrs = [w_xi, w_byz, xi, byz, *gen, moments]
+    rc = fn(_DTYPE_CODES[stats_dtype], *(t.data_ptr() for t in ptrs), m, d, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gen_xi: kernel launch failed with CUDA error {rc}")
+    gen_xi_cuda.launches += 1
+    return xi, byz
+
+
+fused_guard_gen_cuda.launches = 0
+gen_xi_cuda.launches = 0

@@ -6,7 +6,9 @@ plain PyTorch version in :mod:`repro_torch.kernels.ref`.  The signatures
 are the JAX package's ``ops.fused_guard(grads, B, delta, sanitize=False)``,
 ``ops.filtered_mean(x, mask, denom, sanitize=False)``, ``ops.gram(x)``,
 ``ops.coordinate_median(x)``, ``ops.trimmed_mean(x, n_trim)`` and
-``ops.countsketch(x, k, salt=0)``, without the TPU's ``d_block``.
+``ops.countsketch(x, k, salt=0)``, ``ops.fused_guard_gen(B, delta, x, h,
+x_star, het_dir, keys, skewsign, slot, params)`` and ``ops.gen_xi(w_xi,
+w_byz, …, stats_dtype)``, without the TPU's ``d_block``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.countsketch import countsketch_cuda
-from repro_torch.kernels.fused_guard import fused_guard_cuda
+from repro_torch.kernels.fused_guard import fused_guard_cuda, fused_guard_gen_cuda, gen_xi_cuda
 from repro_torch.kernels.pairdist import gram_cuda
 from repro_torch.kernels.robust_reduce import (
     coordinate_median_cuda,
@@ -78,3 +80,26 @@ def countsketch(x: torch.Tensor, k: int, salt: int = 0) -> torch.Tensor:
     if runs_kernel(x):
         return countsketch_cuda(x, k, salt)
     return ref.countsketch_ref(x, k, salt)
+
+
+def fused_guard_gen(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, params):
+    """:func:`fused_guard` with the (m, d) gradients generated from the
+    worker keys and the attack parameters instead of read (see
+    :func:`repro_torch.kernels.gradgen.gen_worker_rows`); the rows are
+    rounded through ``B.dtype``.  ``keys`` are (m, 2) int64 uint32 words."""
+    if runs_kernel(B):
+        return fused_guard_gen_cuda(B, delta, x, h, x_star, het_dir, keys, skewsign, slot,
+                                    params)
+    return ref.fused_guard_gen_ref(B, delta, x, h, x_star, het_dir, keys, skewsign, slot,
+                                   params)
+
+
+def gen_xi(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,
+           stats_dtype=torch.float32):
+    """``(ξ, byz)`` over the generated rows: ξ = Σ w_xi·rows rounded through
+    ``stats_dtype``, byz = Σ w_byz·rows over the raw f32 rows."""
+    if runs_kernel(x):
+        return gen_xi_cuda(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,
+                           stats_dtype=stats_dtype)
+    return ref.gen_xi_ref(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,
+                          stats_dtype=stats_dtype)

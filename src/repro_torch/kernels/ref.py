@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import gradgen
 from repro_torch.kernels.gradgen import MASK32
 
 
@@ -87,6 +88,38 @@ def fused_guard_sanitize_ref(grads: torch.Tensor, B: torch.Tensor, delta: torch.
     b = B.to(torch.float32)
     dlt = delta.to(torch.float32)
     return g @ g.T, b @ g.T, g @ dlt, (b + g).to(B.dtype), nf
+
+
+def gen_rows_ref(x, h, x_star, het_dir, keys, skewsign, slot, params) -> torch.Tensor:
+    """The (m, d) f32 attacked batch the generating kernels stand in for:
+    :func:`~repro_torch.kernels.gradgen.gen_worker_rows` over every
+    coordinate at once.  ``keys`` are (m, 2) int64 uint32 words."""
+    d = x.shape[0]
+    j = torch.arange(d, dtype=torch.int64, device=x.device)
+    f32 = torch.float32
+    return gradgen.gen_worker_rows(x.to(f32), h.to(f32), x_star.to(f32), het_dir.to(f32),
+                                   keys, skewsign.to(f32), slot, params.to(f32), j, d)
+
+
+def fused_guard_gen_ref(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, params):
+    """:func:`fused_guard_ref` over the generated batch, rounded once
+    through the statistics dtype ``B.dtype`` as the materialising path
+    stores it."""
+    rows = gen_rows_ref(x, h, x_star, het_dir, keys, skewsign, slot, params)
+    return fused_guard_ref(rows.to(B.dtype), B, delta)
+
+
+def gen_xi_ref(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,
+               stats_dtype=torch.float32):
+    """``(Σᵢ w_xi[i]·rowᵢ, Σᵢ w_byz[i]·rowᵢ)`` in f32: ξ over the rows
+    rounded through ``stats_dtype`` (what the guard's filtered mean sees),
+    the Byzantine row sum over the raw f32 rows (what the adversary's
+    feedback update sees)."""
+    rows = gen_rows_ref(x, h, x_star, het_dir, keys, skewsign, slot, params)
+    gs = rows.to(stats_dtype).to(torch.float32)
+    xi = w_xi.to(torch.float32) @ gs
+    byz = torch.sum(rows * w_byz.to(torch.float32)[:, None], dim=0)
+    return xi, byz
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:

@@ -18,18 +18,26 @@ value or averages two, with no sum whose order could differ.  The
 sanitizing variants' ``nf`` counts are equal exactly, and on finite input
 their shared outputs equal the plain kernels' bit for bit.  The
 CountSketch's signs are bit-equal to ``ref.sketch_sign``, and its sums are
-held to the same tolerance.
+held to the same tolerance.  The generating kernels (``fused_guard_gen``,
+``gen_xi``) against their plain versions run on the card: ``B_new`` is
+bit-equal wherever no row depends on a sum over rows (every attack id but
+ALIE's 4 and 8, whose honest moments sum in another order), the rest
+within the same tolerance; and given the rows they generated, materialised,
+``fused_guard.cu`` gives all four outputs bit for bit and
+``filtered_mean.cu`` gives ξ bit for bit.
 """
 import pytest
 import torch
 
 from repro_torch import prng
 from repro_torch.core import byzantine_sgd as tbs
+from repro_torch.core.attacks import alie_z_max
 from repro_torch.core.solver import SolverConfig, run_sgd
+from repro_torch.scenarios import ScenarioAdversary, scenario_static
 from repro_torch.data.problems import make_generated_problem
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import gradgen, ops, ref
 from repro_torch.kernels.countsketch import countsketch_cuda
-from repro_torch.kernels.fused_guard import fused_guard_cuda
+from repro_torch.kernels.fused_guard import fused_guard_cuda, fused_guard_gen_cuda, gen_xi_cuda
 from repro_torch.kernels.pairdist import gram_cuda
 from repro_torch.kernels.robust_reduce import (
     coordinate_median_cuda,
@@ -277,6 +285,111 @@ def test_dp_run_on_the_card_matches_the_cpu(cuda_device, backend):
     assert countsketch_cuda.launches - before == (70 if backend == "dp_sketch" else 0)
     want = run_sgd(make_generated_problem(d=4099, seed=1, device="cpu"), SolverConfig(**kw),
                    prng.PRNGKey(1), device="cpu")
+    assert torch.equal(got.n_alive.cpu(), want.n_alive)
+    assert torch.equal(got.final_alive.cpu(), want.final_alive)
+    _within(got.x_avg.cpu(), want.x_avg, 1e-5)
+
+
+GEN_SHAPES = [(m, d) for m in (1, 7, 32, 33, 128) for d in (1, 555, 2 ** 20 + 3)]
+MOMENT_IDS = (4, 8)   # ALIE and alie_update: rows read the honest moments
+
+
+def gen_operands(m: int, d: int, aid: int, dev, seed: int = 0) -> list:
+    """The generator's operands: a quarter of the fleet plays ``aid``
+    (phase a), two rows sign_flip (phase b), the last row is padding
+    (slot −1) when m ≥ 4; every third worker carries a ±0.3 skew along a
+    unit ``het_dir``."""
+    cpu = torch.Generator().manual_seed(seed + 31 * m + d)
+    h = torch.logspace(0.0, 3.0, d, base=2.0)
+    x_star = torch.randn(d, generator=cpu) / d ** 0.5
+    x = 0.1 * torch.randn(d, generator=cpu)
+    het_dir = torch.randn(d, generator=cpu)
+    het_dir /= het_dir.norm()
+    keys = prng.split(prng.PRNGKey(seed + m), m)
+    w = torch.arange(m)
+    skewsign = 0.3 * (1.0 - 2.0 * (w % 2).float()) * (w % 3 == 0).float()
+    n_a = max(m // 4, 1)
+    slot = torch.zeros(m, dtype=torch.int32)
+    slot[:n_a] = 1
+    slot[n_a:n_a + 2] = 2
+    if m >= 4:
+        slot[-1] = -1
+    params = torch.zeros(gradgen.GEN_NPARAMS)
+    params[[gradgen.P_ID_A, gradgen.P_SF_A, gradgen.P_CONST_A, gradgen.P_IPC_A]] = torch.tensor(
+        [float(aid), -3.0, 10.0 / d ** 0.5, 2.0])
+    params[[gradgen.P_ID_B, gradgen.P_SF_B]] = torch.tensor([1.0, -1.5])
+    params[gradgen.P_Z_A] = alie_z_max(m, torch.sum(slot > 0))
+    params[gradgen.P_TGNRM] = torch.clamp(torch.linalg.vector_norm(h * (x - x_star)), min=1e-12)
+    params[gradgen.P_NSCALE] = 1.0 / d ** 0.5
+    return [t.to(dev) for t in (x, h, x_star, het_dir, keys, skewsign, slot, params)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", GEN_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_generating_kernels_match_plain(cuda_device, m, d, dt):
+    tdt, tol = DTYPES[dt]
+    cpu = torch.Generator().manual_seed(m * 1000 + d)
+    B = (3.0 * torch.randn(m, d, generator=cpu)).to(tdt).to(cuda_device)
+    delta = torch.randn(d, generator=cpu).to(tdt).to(cuda_device)
+    for aid in gradgen.GEN_SUPPORTED_IDS:
+        operands = gen_operands(m, d, aid, cuda_device)
+        got = fused_guard_gen_cuda(B, delta, *operands)
+        torch.cuda.synchronize()
+        want = ref.fused_guard_gen_ref(B, delta, *operands)
+        for a, b in zip(got[:3], want[:3]):
+            _within(a, b, tol)
+        assert got[3].dtype == tdt
+        if aid in MOMENT_IDS:
+            _within(got[3].float(), want[3].float(), tol)
+        else:
+            assert torch.equal(got[3], want[3]), f"B_new at id {aid}"
+        # the kernel's own rows, materialised (B = 0 makes B_new the rows)
+        rows = fused_guard_gen_cuda(torch.zeros_like(B), delta, *operands)[3]
+        assert all(torch.equal(a, b) for a, b in zip(got, fused_guard_cuda(rows, B, delta)))
+
+        slot = operands[6]
+        w_xi = (slot == 0).float() / m
+        w_byz = (slot > 0).float()
+        xi, byz = gen_xi_cuda(w_xi, w_byz, *operands, stats_dtype=tdt)
+        torch.cuda.synchronize()
+        xi_want, byz_want = ref.gen_xi_ref(w_xi, w_byz, *operands, stats_dtype=tdt)
+        _within(xi, xi_want, tol)
+        _within(byz, byz_want, tol)
+        assert torch.equal(xi, filtered_mean_cuda(rows, w_xi, 1.0)), f"xi at id {aid}"
+
+
+@pytest.mark.cuda
+def test_ops_generate_on_cuda_launch_the_kernels(cuda_device):
+    m, d = 8, 300
+    operands = gen_operands(m, d, 4, cuda_device)
+    B = torch.zeros(m, d, device=cuda_device)
+    before = fused_guard_gen_cuda.launches, gen_xi_cuda.launches
+    ops.fused_guard_gen(B, B[0], *operands)
+    ops.gen_xi(torch.ones(m, device=cuda_device), torch.ones(m, device=cuda_device), *operands)
+    assert (fused_guard_gen_cuda.launches, gen_xi_cuda.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    with pytest.raises(ValueError, match="m <= 128"):
+        ops.fused_guard_gen(torch.zeros(129, d, device=cuda_device), B[0],
+                            *gen_operands(129, d, 1, cuda_device))
+    with pytest.raises(TypeError):
+        ops.gen_xi(torch.ones(m, device=cuda_device), torch.ones(m, device=cuda_device),
+                   *operands[:6], operands[6].long(), operands[7])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attack", ["sign_flip", "alie"])
+def test_gen_run_on_the_card_matches_the_cpu(cuda_device, attack):
+    kw = dict(m=8, T=40, eta=0.05, alpha=0.25, aggregator="byzantine_sgd",
+              guard_backend="fused", generate="kernel")
+    adv = ScenarioAdversary(scenario_static(attack), 0.25)
+    before = fused_guard_gen_cuda.launches, gen_xi_cuda.launches, fused_guard_cuda.launches
+    got = run_sgd(make_generated_problem(d=4099, seed=1, device=cuda_device),
+                  SolverConfig(**kw), prng.PRNGKey(1), adversary=adv, device=cuda_device)
+    after = fused_guard_gen_cuda.launches, gen_xi_cuda.launches, fused_guard_cuda.launches
+    assert tuple(a - b for a, b in zip(after, before)) == (40, 40, 0)
+    want = run_sgd(make_generated_problem(d=4099, seed=1, device="cpu"), SolverConfig(**kw),
+                   prng.PRNGKey(1), adversary=adv, device="cpu")
     assert torch.equal(got.n_alive.cpu(), want.n_alive)
     assert torch.equal(got.final_alive.cpu(), want.final_alive)
     _within(got.x_avg.cpu(), want.x_avg, 1e-5)

@@ -6,6 +6,8 @@ honest batches agree to within an ulp and the filter decisions must agree
 exactly: ``n_alive`` at every step, ``final_alive`` and ``byz_mask``.
 ``x_avg`` and the gaps agree within 1e-5 relative (f32) or 1e-2 (bf16).
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -120,19 +122,19 @@ def test_run_sgd_defaults_to_the_card():
     ("generate", "kernel"), ("max_delay", 2), ("partial_participation", True),
     ("generate", "fast")])
 def test_run_sgd_rejects_unported_options(field, value):
-    """``generate="kernel"`` is not ported and raises; any other value than
-    "off"/"kernel" is a ValueError, as in the JAX package.  ``max_delay``
-    and ``partial_participation`` act only through a scenario adversary's
-    profile, so without one the run equals the run without them, as the
-    JAX package's does."""
+    """``generate="kernel"`` without a scenario adversary, and any other
+    value than "off"/"kernel", are ValueErrors, as in the JAX package.
+    ``max_delay`` and ``partial_participation`` act only through a scenario
+    adversary's profile, so without one the run equals the run without
+    them, as the JAX package's does."""
     cfg = SolverConfig(m=4, T=3, eta=0.1, alpha=0.25)
     problem = make_generated_problem(d=8, device="cpu")
     if field == "generate":
-        with pytest.raises(NotImplementedError if value == "kernel" else ValueError,
-                           match="not ported" if value == "kernel" else "generate must be"):
+        match = "scenario adversary" if value == "kernel" else "generate must be"
+        with pytest.raises(ValueError, match=match):
             run_sgd(problem, cfg._replace(generate=value), prng.PRNGKey(0), device="cpu")
-        with pytest.raises(ValueError, match="generate must be"):
-            jax_run_sgd(jax_problem(d=8), JaxConfig(m=4, T=3, eta=0.1, generate="fast"),
+        with pytest.raises(ValueError, match=match):
+            jax_run_sgd(jax_problem(d=8), JaxConfig(m=4, T=3, eta=0.1, generate=value),
                         jax.random.PRNGKey(0))
         return
     got = run_sgd(problem, cfg._replace(**{field: value}), prng.PRNGKey(0), device="cpu")
@@ -171,7 +173,9 @@ def test_run_sgd_rejects_an_unknown_sanitize_mode():
 def test_run_sgd_rejects_unported_attack_and_aggregator():
     problem = make_generated_problem(d=8, device="cpu")
     cfg = SolverConfig(m=4, T=2, eta=0.1)
-    for kw in ({"adversary": object()}, {"telemetry": object()}):
+    # an adversary with a worker profile: profiles are not ported yet
+    profiled = types.SimpleNamespace(profile=object(), faults=None)
+    for kw in ({"adversary": profiled}, {"telemetry": object()}):
         with pytest.raises(NotImplementedError, match="not ported"):
             run_sgd(problem, cfg, prng.PRNGKey(0), device="cpu", **kw)
     with pytest.raises(KeyError, match="random_gaussian"):
