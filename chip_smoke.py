@@ -83,13 +83,27 @@ and then no result line is printed):
    run's by at least the (m, d) f32 batch;
    then both attacks' generating runs on the card and on the CPU at
    d=4099, m=8, T=40 (decisions equal, ``x_avg`` within 1e-5);
-9. timing — each kernel's median time at m=32, d=2^20 beside its bound,
+9. workers — every kernel and variant (the guard kernels plain and
+   sanitizing, both generating kernels under sign_flip and ALIE,
+   ``gram``, the order statistics, ``countsketch``) against its plain
+   version at m = 33, 129, 257, 1000 (d = 4099) and m = MAX_WORKERS =
+   12288 (d = 257), f32 and bf16: the median and ``B_new`` bit-equal (but
+   ALIE's), two ``gram`` calls bit-equal, the rest within tol; every
+   wrapper raises a ValueError naming the cap at m = 12289; then
+   ``workers_main_path``: ``run_sgd`` at m = 256, d = 2^18, T = 8 under
+   ``scenario_static("sign_flip")`` with the fused guard materialising and
+   generating, dense, krum, coordinate_median, trimmed_mean and
+   dp_sketch (launches exact, results finite, fused and generating
+   n_alive equal to dense at every step, generating gaps bit-equal to
+   the materialising ones); then ``gram_main``: two ``gram`` calls at
+   m = 32, d = 2^20 give the same bits, and its time beside ``x @ xᵀ``;
+10. timing — each kernel's median time at m=32, d=2^20 beside its bound,
    its plain version and one library call where there is one (the
    sanitizing variants on input holding 4 non-finite rows, the generating
    ones on the main path's step-0 operands under sign_flip, and under
    ALIE apart), and the split of one materialising and one generating
    step between their parts;
-10. the kernels line (20 entries), the card line and the result line.
+11. the kernels line (20 entries), the card line and the result line.
 """
 from __future__ import annotations
 
@@ -118,6 +132,7 @@ from repro_torch.data.problems import make_generated_problem  # noqa: E402
 from repro_torch.kernels import _build, gradgen, ref  # noqa: E402
 from repro_torch.kernels.countsketch import countsketch_cuda  # noqa: E402
 from repro_torch.kernels.fused_guard import (  # noqa: E402
+    MAX_WORKERS,
     fused_guard_cuda,
     fused_guard_gen_cuda,
     gen_xi_cuda,
@@ -1093,6 +1108,222 @@ def gen_reference(dev) -> None:
 
 # ---------------------------------------------------------------- phase 9
 
+WORKER_SHAPES = ((33, 4099), (129, 4099), (257, 4099), (1000, 4099), (MAX_WORKERS, 257))
+WORKER_SKETCH_K = 64
+
+
+def worker_checks(m: int, d: int, dt: str, dev) -> dict:
+    """Every kernel and variant against its plain version at (m, d, dt):
+    returns {check: passed}; emits the errors."""
+    tdt, tol = DTYPES[dt], TOL[dt]
+    gen = torch.Generator(device=dev).manual_seed(m * 613 + d)
+    x = torch.randn(m, d, device=dev, generator=gen, dtype=tdt)
+    B = torch.randn(m, d, device=dev, generator=gen, dtype=tdt).mul_(3)
+    dlt = torch.randn(d, device=dev, generator=gen, dtype=tdt)
+    w = (torch.rand(m, device=dev, generator=gen) > 0.3).float() / m
+    n_trim = min(N_TRIM, (m - 1) // 2)
+    ok, err = {}, {}
+
+    def held(name, got, want):
+        err[name] = rel_err(got, want)
+        ok[name] = within(got, want, tol)
+
+    got, want = fused_guard_cuda(x, B, dlt), ref.fused_guard_ref(x, B, dlt)
+    ok["fused_guard.B_new_bit_equal"] = torch.equal(got[3], want[3])
+    for i, name in enumerate(("gram_g", "cross", "a_inc")):
+        held(f"fused_guard.{name}", got[i], want[i])
+    del got, want
+    held("filtered_mean", filtered_mean_cuda(x, w, 1.0), ref.filtered_mean_ref(x, w, 1.0))
+    g1, g2 = gram_cuda(x), gram_cuda(x)
+    held("gram", g1, ref.gram_ref(x))
+    ok["gram.repeat_bit_equal"] = torch.equal(g1, g2)
+    del g1, g2
+    ok["coordinate_median.bit_equal"] = torch.equal(coordinate_median_cuda(x),
+                                                    ref.coordinate_median_ref(x))
+    held("trimmed_mean", trimmed_mean_cuda(x, n_trim), ref.trimmed_mean_ref(x, n_trim))
+    held("countsketch", countsketch_cuda(x, WORKER_SKETCH_K),
+         ref.countsketch_ref(x, WORKER_SKETCH_K))
+    xp = poison(x.clone())
+    got = fused_guard_cuda(xp, B, dlt, sanitize=True)
+    want = ref.fused_guard_sanitize_ref(xp, B, dlt)
+    ok["fused_guard_sanitize.nf_equal"] = torch.equal(got[4], want[4])
+    ok["fused_guard_sanitize.B_new_bit_equal"] = torch.equal(got[3], want[3])
+    for i, name in enumerate(("gram_g", "cross", "a_inc")):
+        held(f"fused_guard_sanitize.{name}", got[i], want[i])
+    del got, want
+    held("filtered_mean_sanitize", filtered_mean_cuda(xp, w, 1.0, sanitize=True),
+         ref.filtered_mean_sanitize_ref(xp, w, 1.0))
+    del xp
+    # the generating kernels under sign_flip (id 1: rows bit-equal) and ALIE
+    # (id 4: the moments pass over all m honest rows, in chunks of 128)
+    for aid in (1, 4):
+        operands = gen_operands(m, d, aid, dev)
+        slot = operands[6]
+        got, want = (fused_guard_gen_cuda(B, dlt, *operands),
+                     ref.fused_guard_gen_ref(B, dlt, *operands))
+        if aid in MOMENT_IDS:
+            held(f"fused_guard_gen[{aid}].B_new", got[3].float(), want[3].float())
+        else:
+            ok[f"fused_guard_gen[{aid}].B_new_bit_equal"] = torch.equal(got[3], want[3])
+        for i, name in enumerate(("gram_g", "cross", "a_inc")):
+            held(f"fused_guard_gen[{aid}].{name}", got[i], want[i])
+        del got, want
+        w_xi, w_byz = (slot == 0).float() / m, (slot > 0).float()
+        got = gen_xi_cuda(w_xi, w_byz, *operands, stats_dtype=tdt)
+        want = ref.gen_xi_ref(w_xi, w_byz, *operands, stats_dtype=tdt)
+        held(f"gen_xi[{aid}].xi", got[0], want[0])
+        held(f"gen_xi[{aid}].byz", got[1], want[1])
+        del got, want, operands
+    torch.cuda.synchronize()
+    emit("workers", m=m, d=d, dtype=dt, n_trim=n_trim, rel_abs=err, tol=tol,
+         failed=[k for k, v in ok.items() if not v])
+    del x, B, dlt
+    torch.cuda.empty_cache()
+    return ok
+
+
+def wrappers_over_cap(dev) -> dict:
+    """Each CUDA wrapper at m = MAX_WORKERS + 1: {wrapper: raised a
+    ValueError naming the cap}."""
+    m, d = MAX_WORKERS + 1, 8
+    x = torch.zeros(m, d, device=dev)
+    w = torch.ones(m, device=dev)
+    operands = gen_operands(m, d, 1, dev)
+    calls = {
+        "fused_guard": lambda: fused_guard_cuda(x, x, x[0]),
+        "fused_guard_sanitize": lambda: fused_guard_cuda(x, x, x[0], sanitize=True),
+        "fused_guard_gen": lambda: fused_guard_gen_cuda(x, x[0], *operands),
+        "gen_xi": lambda: gen_xi_cuda(w, w, *operands),
+        "filtered_mean": lambda: filtered_mean_cuda(x, w, 1.0),
+        "filtered_mean_sanitize": lambda: filtered_mean_cuda(x, w, 1.0, sanitize=True),
+        "gram": lambda: gram_cuda(x),
+        "coordinate_median": lambda: coordinate_median_cuda(x),
+        "trimmed_mean": lambda: trimmed_mean_cuda(x, 1),
+        "countsketch": lambda: countsketch_cuda(x, 4),
+    }
+    raised = {}
+    for name, call in calls.items():
+        try:
+            call()
+            raised[name] = False
+        except ValueError as e:
+            raised[name] = f"MAX_WORKERS = {MAX_WORKERS}" in str(e)
+    return raised
+
+
+def workers(dev) -> None:
+    """Every kernel and variant at worker counts past the main path's
+    32, up to the port's cap, against its plain version; and every
+    wrapper refusing one worker more than the cap."""
+    failed = []
+    for m, d in WORKER_SHAPES:
+        for dt in ("f32", "bf16"):
+            ok = worker_checks(m, d, dt, dev)
+            failed += [f"{k} at m={m} d={d} {dt}" for k, v in ok.items() if not v]
+    raised = wrappers_over_cap(dev)
+    emit("workers", check="over_cap", m=MAX_WORKERS + 1, raised=raised)
+    require(not failed, f"workers: {failed}")
+    require(all(raised.values()), f"every wrapper raises past the cap: {raised}")
+
+
+WORKERS_M, WORKERS_D, WORKERS_T = 256, 2 ** 18, 8
+# (run, config over BASE, launch counts of a WORKERS_T-step run)
+WORKERS_RUNS = [
+    ("fused", dict(guard_backend="fused"), dict(fused_guard=1, filtered_mean=1)),
+    ("fused_gen", dict(guard_backend="fused", generate="kernel"),
+     dict(fused_guard_gen=1, gen_xi=1)),
+    ("dense", dict(guard_backend="dense"), {}),
+    ("krum", dict(aggregator="krum"), dict(gram=1)),
+    ("coordinate_median", dict(aggregator="coordinate_median"), dict(coordinate_median=1)),
+    ("trimmed_mean", dict(aggregator="trimmed_mean"), dict(trimmed_mean=1)),
+    ("dp_sketch", dict(guard_backend="dp_sketch"), dict(countsketch=1, filtered_mean=1)),
+]
+
+
+def workers_main_path(dev) -> None:
+    """``run_sgd`` at m = 256 workers under ``scenario_static("sign_flip")``:
+    the fused guard materialising and generating, dense as the oracle,
+    the kernel-backed baselines and dp_sketch; launches exact, results
+    finite, fused and the generating run deciding as dense at every step."""
+    problem = make_generated_problem(d=WORKERS_D, seed=0, device=dev)
+    adv = ScenarioAdversary(scenario_static("sign_flip"), BASE["alpha"])
+    results = {}
+    for name, over, per_step in WORKERS_RUNS:
+        cfg = SolverConfig(**{**BASE, "m": WORKERS_M, "T": WORKERS_T, **over})
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run_sgd(problem, cfg, prng.PRNGKey(0), adversary=adv, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = read_counts()
+        want = counts(**{k: WORKERS_T * v for k, v in per_step.items()})
+        finite = bool(torch.isfinite(res.x_avg).all() and torch.isfinite(res.gaps).all())
+        results[name] = res
+        emit("workers_main_path", run=name, m=WORKERS_M, d=WORKERS_D, T=WORKERS_T,
+             ms_per_step=1e3 * seconds / WORKERS_T, final_gap=float(res.gaps[-1]),
+             n_alive=[int(v) for v in res.n_alive], n_byzantine=int(res.byz_mask.sum()),
+             byzantine_alive=int((res.final_alive & res.byz_mask).sum()),
+             launches=got, finite=finite)
+        require(finite, f"workers_main_path {name}: finite x_avg and gaps")
+        require(got == want, f"workers_main_path {name}: launches {got}, expected {want}")
+    dense = results["dense"]
+    for name in ("fused", "fused_gen", "dp_sketch"):
+        same = torch.equal(results[name].n_alive, dense.n_alive)
+        emit("workers_main_path", check="n_alive_equal_to_dense", run=name, equal=same)
+        if name != "dp_sketch":
+            require(same, f"workers_main_path {name}: n_alive equal to dense at every step")
+    require(torch.equal(results["fused_gen"].gaps, results["fused"].gaps),
+            "workers_main_path: generating gaps bit-equal to the materialising run's")
+
+
+GRAM_FIRST_DESIGN_MS = {"f32": 0.0818, "bf16": 0.0826}   # PERF.md §6, the first design
+
+
+def clocks_during(fn, seconds: float = 1.0) -> dict:
+    """Median SM clock (MHz) and power draw (W) that ``nvidia-smi`` samples
+    every 50 ms while ``fn`` runs back to back for about ``seconds``."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                             "--format=csv,noheader,nounits", "-lms", "50"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+    rows = [[float(v) for v in ln.split(",")] for ln in out.strip().splitlines()
+            if ln.count(",") == 1 and "[" not in ln]
+    if not rows:
+        return {"sm_mhz": None, "power_w": None, "samples": 0}
+    return {"sm_mhz": statistics.median(r[0] for r in rows),
+            "power_w": statistics.median(r[1] for r in rows), "samples": len(rows)}
+
+
+def gram_main(dev) -> None:
+    """The redesigned gram at the main shape: two calls give the same bits,
+    and its time beside the library call (x @ xᵀ, TF32 off), with the SM
+    clock and power the card held while it ran."""
+    for dt in ("f32", "bf16"):
+        e = torch.tensor([], dtype=DTYPES[dt]).element_size()
+        x = torch.randn(M, D, device=dev, generator=torch.Generator(device=dev).manual_seed(9),
+                        dtype=DTYPES[dt])
+        same = torch.equal(gram_cuda(x), gram_cuda(x))
+        b_ms, b_by = bound(M * D * e + M * M * 4, 2 * M * M * D, PEAK_FLOPS[dt])
+        emit("gram_main", dtype=dt, repeat_bit_equal=same, ms=median_ms(lambda: gram_cuda(x)),
+             library_ms=median_ms(lambda: x @ x.T), bound_ms=b_ms, bound_by=b_by,
+             first_design_ms=GRAM_FIRST_DESIGN_MS[dt],
+             while_running=clocks_during(lambda: gram_cuda(x)))
+        require(same, f"gram: two calls give the same bits at the main shape {dt}")
+        del x
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 10
+
 def median_ms(fn, batches: int = 7, per_batch: int = 20) -> float:
     """Median over batches of the mean time of ``per_batch`` back-to-back
     calls, by CUDA events (the queue stays full, so host overhead hides)."""
@@ -1472,6 +1703,9 @@ def main() -> int:
     check_gen_kernels(dev, errs)
     gen_launches = gen_main_path(dev)
     gen_reference(dev)
+    workers(dev)
+    workers_main_path(dev)
+    gram_main(dev)
     entries = time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
                            gen_launches, gen_bounds(dev))
     require(len(entries) == 2 * len(KERNELS), f"{len(entries)} kernel entries")

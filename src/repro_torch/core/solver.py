@@ -39,9 +39,9 @@ chain is the materialising path's, ``akey`` included, so both paths see
 the same noise step for step.
 
 Not ported yet (they raise NotImplementedError): telemetry, and on the
-adversary worker profiles, fault plans, staleness (``max_delay``) and
-partial participation.  Without an adversary ``max_delay`` and
-``partial_participation`` are ignored, as in the JAX package.
+adversary worker profiles and fault plans.  Staleness (``max_delay``) and
+partial participation are armed only by a worker profile, as in the JAX
+package, so without one (and without an adversary) both are ignored.
 """
 from __future__ import annotations
 
@@ -108,8 +108,8 @@ class SolverConfig(NamedTuple):
     #                             clip_tau for centered_clip, bucket_seed
     #                             for bucket<s>:<base>; each rule receives
     #                             only the knobs it declares
-    max_delay: int = 0          # ignored without a scenario adversary
-    partial_participation: bool = False  # ignored without a scenario adversary
+    max_delay: int = 0          # ignored without a worker profile
+    partial_participation: bool = False  # ignored without a worker profile
     generate: str = "off"       # "off" | "kernel": rebuild the batch inside
     #                             the fused guard's kernels (DESIGN.md §14)
     sanitize: str = "off"       # "off" | "quarantine": zero non-finite
@@ -304,9 +304,6 @@ def _check_supported(problem: Problem, cfg: SolverConfig, adversary, telemetry) 
         "telemetry": telemetry is not None,
         "worker profiles": getattr(adversary, "profile", None) is not None,
         "fault plans on the adversary": getattr(adversary, "faults", None) is not None,
-        "staleness (max_delay) with an adversary": adversary is not None and cfg.max_delay > 0,
-        "partial participation with an adversary": (adversary is not None
-                                                    and cfg.partial_participation),
     }
     missing = [name for name, on in unported.items() if on]
     if missing:

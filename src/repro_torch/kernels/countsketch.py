@@ -20,10 +20,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_guard import check_cuda_inputs
+from repro_torch.kernels.fused_guard import check_cuda_inputs, check_workers
 from repro_torch.kernels.gradgen import MASK32
 
-MAX_WORKERS = 128     # the worker counts the port's other kernels take
 MIN_THREADS = 1 << 17  # enough outputs·chunks in flight to fill an H100
 MIN_TERMS = 32        # terms per chunk before the terms are split further
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,9 +51,9 @@ def countsketch_cuda(x: torch.Tensor, k: int, salt: int = 0) -> torch.Tensor:
         raise ValueError(f"countsketch: expected an (m, d) tensor, got shape {tuple(x.shape)}")
     m, d = x.shape
     k = int(k)
-    if not 1 <= m <= MAX_WORKERS or d < 1 or k < 1:
-        raise ValueError(f"countsketch: needs 1 <= m <= {MAX_WORKERS}, d >= 1 and k >= 1, "
-                         f"got m={m}, d={d}, k={k}")
+    check_workers("countsketch", m)
+    if d < 1 or k < 1:
+        raise ValueError(f"countsketch: needs d >= 1 and k >= 1, got d={d}, k={k}")
     s = (int(salt) * 0x9E3779B9 + 1) & MASK32
     chunks = n_chunks(m, d, k)
     out = torch.empty((m, k), dtype=torch.float32, device=dev)

@@ -8,6 +8,11 @@
 
 namespace rt {
 
+// The port's one worker cap: every kernel takes 1 <= m <= MAX_WORKERS
+// (kernels/fused_guard.py repeats it for the wrappers).  It is
+// filtered_mean's bound: its m weights fit in 48 KB of shared memory.
+constexpr int64_t MAX_WORKERS = 12288;
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 

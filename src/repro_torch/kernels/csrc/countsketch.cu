@@ -27,8 +27,8 @@
 // small (k = 8 in the reference's tests) the terms of each output are cut
 // into S chunks, one per grid row y: each chunk writes a partial sketch to
 // scratch and a second kernel sums the S partials in a fixed order, so
-// there are no float atomics and two runs give the same bits.  Any m, d
-// and k ≥ 1; offsets are int64 (m·d may pass 2^31).
+// there are no float atomics and two runs give the same bits.  Any m up to
+// rt::MAX_WORKERS, any d and k ≥ 1; offsets are int64 (m·d may pass 2^31).
 
 #include "common.cuh"
 
@@ -95,7 +95,8 @@ extern "C" int rt_countsketch(int64_t dtype, const void* x, void* part, void* ou
                               int64_t d, int64_t k, int64_t n_chunks, int64_t s,
                               int64_t device, void* stream) {
   const int64_t n_terms = d >= 1 && k >= 1 ? (d + k - 1) / k : 0;
-  if (m < 1 || d < 1 || k < 1 || n_chunks < 1 || n_chunks > n_terms || n_chunks > 65535 ||
+  if (m < 1 || m > rt::MAX_WORKERS || d < 1 || k < 1 || n_chunks < 1 || n_chunks > n_terms ||
+      n_chunks > 65535 ||
       s < 0 || s > 0xFFFFFFFFll)
     return (int)cudaErrorInvalidValue;
   const int64_t N = m * k;

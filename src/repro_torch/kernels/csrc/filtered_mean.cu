@@ -29,12 +29,15 @@
 //   byz = Σᵢ w_byz[i]·rowᵢ           (the raw f32 rows: the adversary's
 //         feedback sum).
 // ξ is fmaf(w, v, acc) over i = 0 .. m−1 as above, so on the same rounded
-// rows it equals rt_filtered_mean with denom = 1 bit for bit.  It reads
+// rows it equals rt_filtered_mean with denom = 1 bit for bit.  byz sums
+// each chunk of 128 rows in order and adds the chunks' sums in order: its
+// rows (ALIE's μ − zσ on a quarter of the fleet) share a sign, and one
+// f32 chain over 12288 of them would drift by ~2e-5.  It reads
 // only the (d,) vectors and writes 2·d floats; what bounds it is
 // threefry's ~80 integer operations per generated element (m·d of them,
 // ~0.15 ms at m = 32, d = 2^20 at 64 per clock per SM).  Each thread loads
-// its columns' data once and reuses it over the m rows.  m ≤ 128 (the
-// worker constants sit in shared memory).
+// its columns' data once and reuses it over the m rows, whose constants
+// it stages in shared memory 128 rows at a time (any m up to MAX_WORKERS).
 
 #include "gen_rows.cuh"
 
@@ -90,7 +93,7 @@ cudaError_t launch(const void* x, const float* w, float denom, float* out, int64
 template <bool SAN>
 int run(int64_t dtype, const void* x, const void* w, float denom, void* out, int64_t m,
         int64_t d, int64_t device, void* stream) {
-  if (m < 1 || m > 12288 || d < 1) return (int)cudaErrorInvalidValue;
+  if (m < 1 || m > rt::MAX_WORKERS || d < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -106,47 +109,63 @@ __global__ void __launch_bounds__(NT)
 gen_xi_kernel(const float* __restrict__ w_xi, const float* __restrict__ w_byz,
               float* __restrict__ xi, float* __restrict__ byz, rt::gen::Args ga, int64_t m,
               int64_t d) {
-  __shared__ float sx[128], sb[128];
-  __shared__ rt::gen::Row srow[128];
-  for (int64_t i = threadIdx.x; i < m; i += NT) {
-    sx[i] = w_xi[i];
-    sb[i] = w_byz[i];
-    srow[i] = rt::gen::load_row(ga, i);
-  }
-  __syncthreads();
+  constexpr int CH = rt::gen::ROW_CHUNK;
+  __shared__ float sx[CH], sb[CH];
+  __shared__ rt::gen::Row srow[CH];
   const float ns = ga.params[rt::gen::P_NSCALE], tgnrm = ga.params[rt::gen::P_TGNRM];
   const int64_t n4 = (d + 3) / 4;
-  for (int64_t q = (int64_t)blockIdx.x * NT + threadIdx.x; q < n4;
-       q += (int64_t)gridDim.x * NT) {
+  // the block's threads walk their columns in step, so each chunk of
+  // worker constants is staged block-wide
+  for (int64_t q0 = (int64_t)blockIdx.x * NT; q0 < n4; q0 += (int64_t)gridDim.x * NT) {
+    const int64_t q = q0 + threadIdx.x;
+    const bool on = q < n4;
     const int64_t c = 4 * q;
     rt::gen::Col col[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) col[k] = rt::gen::load_col(ga, c + k < d ? c + k : d - 1);
     float ax[4] = {0.f, 0.f, 0.f, 0.f}, ab[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int64_t i = 0; i < m; ++i) {
-      const rt::gen::Row& r = srow[i];
-      const float wx = sx[i], wb = sb[i];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int64_t j = c + k;
-        float v = 0.f;
-        if (r.slot >= 0 && j < d) {
-          const float g = rt::gen::honest(r.k0, r.k1, r.skew, col[k], ns, j);
-          v = rt::gen::attacked(r, g, col[k], tgnrm, ga.moments, j, d);
-        }
-        ax[k] = fmaf(wx, rt::gen::round_through(v, S()), ax[k]);
-        ab[k] = fmaf(wb, v, ab[k]);
+    for (int64_t i0 = 0; i0 < m; i0 += CH) {
+      const int len = (int)(m - i0 < CH ? m - i0 : CH);
+      __syncthreads();  // every thread is done with the last chunk
+      for (int i = threadIdx.x; i < len; i += NT) {
+        sx[i] = w_xi[i0 + i];
+        sb[i] = w_byz[i0 + i];
+        srow[i] = rt::gen::load_row(ga, i0 + i);
       }
+      __syncthreads();
+      if (!on) continue;
+      // byz: this chunk's sum, added to the total after it (short f32
+      // chains at any m; at m <= CH the plain row-order sum)
+      float cb[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int i = 0; i < len; ++i) {
+        const rt::gen::Row& r = srow[i];
+        const float wx = sx[i], wb = sb[i];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int64_t j = c + k;
+          float v = 0.f;
+          if (r.slot >= 0 && j < d) {
+            const float g = rt::gen::honest(r.k0, r.k1, r.skew, col[k], ns, j);
+            v = rt::gen::attacked(r, g, col[k], tgnrm, ga.moments, j, d);
+          }
+          ax[k] = fmaf(wx, rt::gen::round_through(v, S()), ax[k]);
+          cb[k] = fmaf(wb, v, cb[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) ab[k] = __fadd_rn(ab[k], cb[k]);
     }
-    rt::store4<float, false>(xi, c, d, ax);
-    rt::store4<float, false>(byz, c, d, ab);
+    if (on) {
+      rt::store4<float, false>(xi, c, d, ax);
+      rt::store4<float, false>(byz, c, d, ab);
+    }
   }
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (x only; w and out are f32).  m ≤ 12288 (the
-// weights fit the default 48 KB of shared memory).  Returns 0 or the CUDA
+// dtype: 0 = f32, 1 = bf16 (x only; w and out are f32).  m ≤ MAX_WORKERS
+// (the weights fit the default 48 KB of shared memory).  Returns 0 or the CUDA
 // error of the launch.
 extern "C" int rt_filtered_mean(int64_t dtype, const void* x, const void* w, float denom,
                                 void* out, int64_t m, int64_t d, int64_t device,
@@ -164,14 +183,14 @@ extern "C" int rt_filtered_mean_sanitize(int64_t dtype, const void* x, const voi
 // gen_xi: dtype is the statistics type ξ's rows round through (0 = f32,
 // 1 = bf16); w_xi, w_byz (m,) f32; xi, byz (d,) f32 outputs; then the
 // generator's operands as for rt_fused_guard_gen (moments: 2·d floats of
-// scratch).  m ≤ 128.  Launches the moments kernel (a no-op unless an
+// scratch).  m ≤ MAX_WORKERS.  Launches the moments kernel (a no-op unless an
 // ALIE id is in play), then the sums.  Returns 0 or the first CUDA error.
 extern "C" int rt_gen_xi(int64_t dtype, const void* w_xi, const void* w_byz, void* xi,
                          void* byz, const void* x, const void* h, const void* xs,
                          const void* hd, const void* keys, const void* skew, const void* slot,
                          const void* params, void* moments, int64_t m, int64_t d,
                          int64_t device, void* stream) {
-  if (m < 1 || m > 128 || d < 1) return (int)cudaErrorInvalidValue;
+  if (m < 1 || m > rt::MAX_WORKERS || d < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

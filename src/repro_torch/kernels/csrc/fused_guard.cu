@@ -49,9 +49,12 @@
 // FMAs, so loads overlap compute.  Each block writes its partial Grams to a
 // scratch buffer, and a second small kernel sums the partials in a fixed
 // order: no float atomics, so two runs give the same bits.  Workers are
-// taken in tiles of 32 (grid y, z); any m from 1 to 128 and any d are
-// handled with masked tails and no padded copy, and all offsets are int64
-// (m·d may pass 2^31).
+// taken in tiles of 32 (grid y, z); any m from 1 to rt::MAX_WORKERS and any
+// d are handled with masked tails and no padded copy, and all offsets are
+// int64 (m·d may pass 2^31).  The wrapper picks nb from the shape alone
+// (fewer d-splits as the nt² worker-tile pairs grow), so the partials stay
+// bounded and the bits repeat.  Only diagonal blocks (ti == tj) write
+// B_new, a_inc and the SAN counts, so each row is written once whatever nt.
 //
 // The sanitizing variant zeroes g where it is used, after the prefetch has
 // landed, so no extra instruction waits on a load.  Each entry of g is
@@ -350,7 +353,7 @@ int run(int64_t dtype, const void* g, const void* B, const void* delta, void* B_
         void* gram_part, void* cross_part, void* a_part, void* nf_part, void* gram,
         void* cross, void* a_inc, void* nf, int64_t m, int64_t d, int64_t nb,
         const rt::gen::Args& ga, int64_t device, void* stream) {
-  if (m < 1 || m > 4 * MT || d < 1 || nb < 1 || nb > 0x7fffffff)
+  if (m < 1 || m > rt::MAX_WORKERS || d < 1 || nb < 1 || nb > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;

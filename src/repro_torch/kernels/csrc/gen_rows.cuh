@@ -158,43 +158,76 @@ __device__ __forceinline__ float round_through(float v, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// Worker constants staged in shared memory at a time: the generating
+// kernels walk the m rows in chunks of ROW_CHUNK, so any m up to
+// MAX_WORKERS is taken with a fixed amount of shared memory.
+constexpr int ROW_CHUNK = 128;
+
 // The honest column moments of ALIE: μ_j = Σ g / n, σ_j = √(Σ (g − μ)² / n
 // + 1e-12) over the n = max(#honest, 1) rows of slot 0, each row
-// regenerated twice (two passes, no row kept).  One thread per column;
-// the whole grid returns at once when no phase plays ids 4 or 8.
-// Launched before either generating kernel, on the same stream.
+// regenerated twice (two passes, no row kept).  Each sum runs in row order
+// within a chunk of ROW_CHUNK rows, and the chunks' sums are added in
+// order: at m <= ROW_CHUNK that is the plain row-order sum, and at
+// m = 12288 no f32 chain is longer than 128 + 96 terms.  One thread per
+// column; a block's threads walk their columns in step, so the chunks of
+// worker constants can be staged block-wide.  The whole grid returns at
+// once when no phase plays ids 4 or 8.  Launched before either generating
+// kernel, on the same stream.
 __global__ void __launch_bounds__(256)
 gen_moments_kernel(Args a, int64_t m, int64_t d) {
   if (!needs_moments(a.params)) return;
-  __shared__ uint32_t sk[2 * 128];
-  __shared__ float ss[128];
-  __shared__ int sslot[128];
-  for (int64_t i = threadIdx.x; i < m; i += blockDim.x) {
-    sk[2 * i] = a.keys[2 * i];
-    sk[2 * i + 1] = a.keys[2 * i + 1];
-    ss[i] = a.skew[i];
-    sslot[i] = a.slot[i];
-  }
-  __syncthreads();
-  int n = 0;
-  for (int64_t i = 0; i < m; ++i) n += sslot[i] == 0;
-  const float n_good = n > 0 ? (float)n : 1.f;
+  __shared__ uint32_t sk[2 * ROW_CHUNK];
+  __shared__ float ss[ROW_CHUNK];
+  __shared__ int sslot[ROW_CHUNK];
+  // stages rows i0 .. i0 + len − 1, after every thread is done with the last chunk
+  auto stage = [&](int64_t i0, int len) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < len; i += blockDim.x) {
+      sk[2 * i] = a.keys[2 * (i0 + i)];
+      sk[2 * i + 1] = a.keys[2 * (i0 + i) + 1];
+      ss[i] = a.skew[i0 + i];
+      sslot[i] = a.slot[i0 + i];
+    }
+    __syncthreads();
+  };
   const float ns = a.params[P_NSCALE];
-  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < d;
-       j += (int64_t)gridDim.x * blockDim.x) {
-    const Col c = load_col(a, j);
+  for (int64_t j0 = (int64_t)blockIdx.x * blockDim.x; j0 < d;
+       j0 += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t j = j0 + threadIdx.x;
+    const bool on = j < d;
+    const Col c = load_col(a, on ? j : d - 1);
+    int n = 0;
     float s = 0.f;
-    for (int64_t i = 0; i < m; ++i)
-      if (sslot[i] == 0) s = __fadd_rn(s, honest(sk[2 * i], sk[2 * i + 1], ss[i], c, ns, j));
+    for (int64_t i0 = 0; i0 < m; i0 += ROW_CHUNK) {
+      const int len = (int)(m - i0 < ROW_CHUNK ? m - i0 : ROW_CHUNK);
+      stage(i0, len);
+      float cs = 0.f;
+      for (int i = 0; i < len; ++i)
+        if (sslot[i] == 0) {
+          ++n;
+          if (on) cs = __fadd_rn(cs, honest(sk[2 * i], sk[2 * i + 1], ss[i], c, ns, j));
+        }
+      s = __fadd_rn(s, cs);
+    }
+    const float n_good = n > 0 ? (float)n : 1.f;
     const float mu = __fdiv_rn(s, n_good);
     float v = 0.f;
-    for (int64_t i = 0; i < m; ++i)
-      if (sslot[i] == 0) {
-        const float e = __fsub_rn(honest(sk[2 * i], sk[2 * i + 1], ss[i], c, ns, j), mu);
-        v = __fadd_rn(v, __fmul_rn(e, e));
-      }
-    a.moments[j] = mu;
-    a.moments[d + j] = __fsqrt_rn(__fadd_rn(__fdiv_rn(v, n_good), 1e-12f));
+    for (int64_t i0 = 0; i0 < m; i0 += ROW_CHUNK) {
+      const int len = (int)(m - i0 < ROW_CHUNK ? m - i0 : ROW_CHUNK);
+      stage(i0, len);
+      float cv = 0.f;
+      if (on)
+        for (int i = 0; i < len; ++i)
+          if (sslot[i] == 0) {
+            const float e = __fsub_rn(honest(sk[2 * i], sk[2 * i + 1], ss[i], c, ns, j), mu);
+            cv = __fadd_rn(cv, __fmul_rn(e, e));
+          }
+      v = __fadd_rn(v, cv);
+    }
+    if (on) {
+      a.moments[j] = mu;
+      a.moments[d + j] = __fsqrt_rn(__fadd_rn(__fdiv_rn(v, n_good), 1e-12f));
+    }
   }
 }
 

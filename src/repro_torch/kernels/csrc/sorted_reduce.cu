@@ -24,12 +24,26 @@
 // and fmaxf would drop it); one NaN spreads through the m rounds to the
 // whole column, so a column holding a NaN gives NaN.  Any d is taken with
 // no padding; offsets are int64 (m·d may pass 2^31).
+//
+// Past MAX_M = 32 workers a column no longer fits one thread's registers,
+// and the wide path (sorted_mean_wide_kernel) takes m up to
+// rt::MAX_WORKERS: a block stages a tile of columns in dynamic shared
+// memory, each padded with +Inf to P = the next power of two ≥ m (the
+// pads sort after every value, NaN aside), sorts every column with a
+// bitonic network of the same min.NaN/max.NaN comparators (a comparator
+// that meets a NaN outputs NaN on both wires, and every output of a
+// sorting network is reachable from every input, so a NaN still turns its
+// whole column to NaN), and one warp per column sums the sorted values
+// lo .. hi−1: lane l takes lo + l, lo + l + 32, ... in order, then a fixed
+// shuffle tree.  For the median (one or two values) that is exactly the
+// register path's v[lo] (+ v[lo + 1]), so it stays bit-equal to the plain
+// version.  The register path for m ≤ 32 is unchanged.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int MAX_M = 32;  // one column's values stay in registers
+constexpr int MAX_M = 32;  // one column's values stay in registers (the register path)
 constexpr int NT = 128;
 
 // One instruction each (sm_80+): NaN when either input is NaN, as
@@ -85,27 +99,111 @@ cudaError_t launch(int m, const T* x, float* out, int64_t d, int lo, int hi,
   }
 }
 
+constexpr int WIDE_NT = 256;
+constexpr int WIDE_FLOATS = 24576;  // 96 KB of column tiles per block
+constexpr int WIDE_MAX_COLS = 64;
+
+// The wide path: block b sorts columns b·tc .. b·tc + tc − 1, each held in
+// shared memory as P values (the column's m, then +Inf) at a pitch of
+// P + 1 words, so neighbouring columns sit in neighbouring banks.
+template <typename T>
+__global__ void __launch_bounds__(WIDE_NT)
+sorted_mean_wide_kernel(const T* __restrict__ x, float* __restrict__ out, int64_t m,
+                        int64_t d, int P, int tc, int lo, int hi) {
+  extern __shared__ float sv[];
+  const int pitch = P + 1;
+  const int64_t c0 = (int64_t)blockIdx.x * tc;
+  const int ncol = d - c0 < tc ? (int)(d - c0) : tc;
+  // element (row i, column cc) at e = i·tc + cc: a warp reads neighbouring
+  // columns of a row
+  for (int e = threadIdx.x; e < P * tc; e += WIDE_NT) {
+    const int i = e / tc, cc = e % tc;
+    sv[cc * pitch + i] = (i < m && cc < ncol) ? rt::to_f32(x[(int64_t)i * d + c0 + cc])
+                                              : __int_as_float(0x7f800000);  // +Inf
+  }
+  __syncthreads();
+  const int half = P / 2;
+  for (int k = 2; k <= P; k <<= 1)
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int e = threadIdx.x; e < half * tc; e += WIDE_NT) {
+        const int cc = e / half, r = e % half;
+        const int i = 2 * r - (r & (j - 1));  // (r / j)·2j + r % j: the lower wire
+        float* col = sv + cc * pitch;
+        const float a = col[i], b = col[i + j];
+        const float lo_v = min_nan(a, b), hi_v = max_nan(a, b);
+        const bool up = (i & k) == 0;
+        col[i] = up ? lo_v : hi_v;
+        col[i + j] = up ? hi_v : lo_v;
+      }
+      __syncthreads();
+    }
+  const int lane = threadIdx.x & 31;
+  for (int cc = threadIdx.x >> 5; cc < ncol; cc += WIDE_NT / 32) {
+    const float* col = sv + cc * pitch;
+    float s = 0.f;
+    bool has = false;
+    for (int i = lo + lane; i < hi; i += 32) {
+      s = has ? s + col[i] : col[i];
+      has = true;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float o = __shfl_down_sync(0xffffffffu, s, off);
+      const bool oh = __shfl_down_sync(0xffffffffu, (int)has, off) != 0;
+      if (lane + off < 32 && oh) {
+        s = has ? s + o : o;
+        has = true;
+      }
+    }
+    if (lane == 0) out[c0 + cc] = s / (float)(hi - lo);
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const T* x, float* out, int64_t m, int64_t d, int lo, int hi,
+                        cudaStream_t stream) {
+  int P = 1;
+  while (P < m) P <<= 1;
+  int tc = WIDE_FLOATS / (P + 1);
+  tc = tc < WIDE_MAX_COLS ? tc : WIDE_MAX_COLS;
+  const int64_t blocks = (d + tc - 1) / tc;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  const size_t bytes = (size_t)tc * (P + 1) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(sorted_mean_wide_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         WIDE_FLOATS * (int)sizeof(float));
+  if (err != cudaSuccess) return err;
+  sorted_mean_wide_kernel<T><<<(unsigned)blocks, WIDE_NT, bytes, stream>>>(x, out, m, d, P,
+                                                                           tc, lo, hi);
+  return cudaGetLastError();
+}
+
 int run(int64_t dtype, const void* x, void* out, int64_t m, int64_t d, int64_t lo,
         int64_t hi, int64_t device, void* stream) {
-  if (m < 1 || m > MAX_M || d < 1 || (d + NT - 1) / NT > 0x7fffffff || lo < 0 ||
+  if (m < 1 || m > rt::MAX_WORKERS || d < 1 || (d + NT - 1) / NT > 0x7fffffff || lo < 0 ||
       hi > m || lo >= hi)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
-  if (dtype == 0)
-    return (int)launch<float, 1>((int)m, static_cast<const float*>(x), o, d, (int)lo,
-                                 (int)hi, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16, 1>((int)m, static_cast<const __nv_bfloat16*>(x), o,
-                                         d, (int)lo, (int)hi, s);
+  if (dtype == 0) {
+    const float* xf = static_cast<const float*>(x);
+    return m <= MAX_M ? (int)launch<float, 1>((int)m, xf, o, d, (int)lo, (int)hi, s)
+                      : (int)launch_wide<float>(xf, o, m, d, (int)lo, (int)hi, s);
+  }
+  if (dtype == 1) {
+    const __nv_bfloat16* xh = static_cast<const __nv_bfloat16*>(x);
+    return m <= MAX_M ? (int)launch<__nv_bfloat16, 1>((int)m, xh, o, d, (int)lo, (int)hi, s)
+                      : (int)launch_wide<__nv_bfloat16>(xh, o, m, d, (int)lo, (int)hi, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (x only; the output is f32).  1 <= m <= 32.
+// dtype: 0 = f32, 1 = bf16 (x only; the output is f32).  1 <= m <=
+// rt::MAX_WORKERS: the register network up to 32, the wide path beyond.
 // Each returns 0 or the CUDA error of the launch.
 
 // The median of each column: the middle value for odd m, the mean of the

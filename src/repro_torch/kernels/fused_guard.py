@@ -35,8 +35,15 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.gradgen import GEN_NPARAMS, MASK32
 
-MAX_WORKERS = 128   # four 32-row worker tiles
+# The port's one worker cap: every CUDA wrapper takes 1 <= m <= MAX_WORKERS
+# and raises above it (csrc/common.cuh repeats it for the kernels).  It is
+# filtered_mean's bound: its m weights fit in 48 KB of shared memory.  The
+# Pallas kernels set no cap; ROADMAP.md §3 lists this as a difference.
+MAX_WORKERS = 12288
 _TILE = 32
+# blocks per SM that fill the card: at m <= 128, 2 d-splits per SM times
+# 16 worker-tile pairs
+_BLOCKS_PER_SM = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_int64] + [ctypes.c_void_p] * 10
              + [ctypes.c_int64] * 4 + [ctypes.c_void_p])
@@ -63,6 +70,26 @@ def check_cuda_inputs(name: str, tensors: dict, dtypes) -> torch.device:
     return next(iter(devices))
 
 
+def check_workers(name: str, m: int) -> None:
+    """Raise unless 1 <= m <= MAX_WORKERS, naming the cap."""
+    if not 1 <= m <= MAX_WORKERS:
+        raise ValueError(f"{name}: takes 1 <= m <= MAX_WORKERS = {MAX_WORKERS} workers "
+                         f"(the port's worker cap), got m={m}")
+
+
+def d_splits(n_tiles: int, tile_pairs: int, dev: torch.device) -> int:
+    """How many blocks split d: enough that ``d_splits · tile_pairs``
+    blocks fill the card, at least one, at most two per SM and at most
+    ``n_tiles``.  A function of the shape only, so the order of the
+    sums, and the bits, repeat from call to call; the partials
+    (``d_splits`` · mp² floats) stay bounded as m grows.  For the guard
+    sweep at m <= 128 it is min(n_tiles, 2·SMs), as it was before the
+    worker cap was raised."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fill = -(-_BLOCKS_PER_SM * sms // tile_pairs)
+    return max(1, min(n_tiles, 2 * sms, fill))
+
+
 def fused_guard_cuda(grads: torch.Tensor, B: torch.Tensor, delta: torch.Tensor,
                      sanitize: bool = False):
     """Launch the fused guard kernel (its sanitizing variant when
@@ -75,13 +102,12 @@ def fused_guard_cuda(grads: torch.Tensor, B: torch.Tensor, delta: torch.Tensor,
     if not grads.dtype == B.dtype == delta.dtype:
         raise TypeError("fused_guard: grads, B and delta must share a dtype")
     m, d = grads.shape
-    if not 1 <= m <= MAX_WORKERS or d < 1:
-        raise ValueError(f"fused_guard: needs 1 <= m <= {MAX_WORKERS} and d >= 1, "
-                         f"got m={m}, d={d}")
-    mp = _TILE * -(-m // _TILE)
-    # two blocks per SM of 64-column tiles, or fewer when d is small
-    n_tiles = -(-d // 64)
-    nb = min(n_tiles, 2 * torch.cuda.get_device_properties(dev).multi_processor_count)
+    check_workers("fused_guard", m)
+    if d < 1:
+        raise ValueError(f"fused_guard: needs d >= 1, got d={d}")
+    nt = -(-m // _TILE)
+    mp = _TILE * nt
+    nb = d_splits(-(-d // 64), nt * nt, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     parts = torch.empty((2, nb, mp, mp), **f32)
     a_part = torch.empty((nb, mp), **f32)
@@ -133,8 +159,9 @@ def _gen_operands(name: str, dev: torch.device, m: int, d: int, x, h, x_star, he
             or skewsign.shape != (m,) or slot.shape != (m,) or params.shape != (GEN_NPARAMS,)):
         raise ValueError(f"{name}: expected ({d},) vectors, keys ({m}, 2), skewsign and slot "
                          f"({m},), params ({GEN_NPARAMS},)")
-    if not 1 <= m <= MAX_WORKERS or d < 1:
-        raise ValueError(f"{name}: needs 1 <= m <= {MAX_WORKERS} and d >= 1, got m={m}, d={d}")
+    check_workers(name, m)
+    if d < 1:
+        raise ValueError(f"{name}: needs d >= 1, got d={d}")
     words = keys & MASK32
     words = torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
     return [x, h, x_star, het_dir, words, skewsign, slot, params]
@@ -151,8 +178,9 @@ def fused_guard_gen_cuda(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, 
     m, d = B.shape
     gen = _gen_operands("fused_guard_gen", dev, m, d, x, h, x_star, het_dir, keys, skewsign,
                         slot, params)
-    mp = _TILE * -(-m // _TILE)
-    nb = min(-(-d // 64), 2 * torch.cuda.get_device_properties(dev).multi_processor_count)
+    nt = -(-m // _TILE)
+    mp = _TILE * nt
+    nb = d_splits(-(-d // 64), nt * nt, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     parts = torch.empty((2, nb, mp, mp), **f32)
     a_part = torch.empty((nb, mp), **f32)

@@ -15,10 +15,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_guard import check_cuda_inputs
+from repro_torch.kernels.fused_guard import check_cuda_inputs, check_workers, d_splits
 
-MAX_WORKERS = 128   # four 32-row worker tiles
 _TILE = 32
+_TILE_BYTES = 512   # bytes of a row per d-tile: 128 f32 or 256 bf16 columns
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_int64] + [ctypes.c_void_p] * 3
              + [ctypes.c_int64] * 4 + [ctypes.c_void_p])
@@ -30,12 +30,13 @@ def gram_cuda(x: torch.Tensor) -> torch.Tensor:
     if x.dim() != 2:
         raise ValueError(f"gram: expected an (m, d) tensor, got shape {tuple(x.shape)}")
     m, d = x.shape
-    if not 1 <= m <= MAX_WORKERS or d < 1:
-        raise ValueError(f"gram: needs 1 <= m <= {MAX_WORKERS} and d >= 1, "
-                         f"got m={m}, d={d}")
-    mp = _TILE * -(-m // _TILE)
-    # two blocks per SM of 64-column tiles, or fewer when d is small
-    nb = min(-(-d // 64), 2 * torch.cuda.get_device_properties(dev).multi_processor_count)
+    check_workers("gram", m)
+    if d < 1:
+        raise ValueError(f"gram: needs d >= 1, got d={d}")
+    nt = -(-m // _TILE)
+    mp = _TILE * nt
+    # only the worker-tile pairs ti <= tj run (G is symmetric)
+    nb = d_splits(-(-d // (_TILE_BYTES // x.element_size())), nt * (nt + 1) // 2, dev)
     part = torch.empty((nb, mp, mp), dtype=torch.float32, device=dev)
     out = torch.empty((m, m), dtype=torch.float32, device=dev)
     fn = _build.load_function("gram", "rt_gram", _ARGTYPES)

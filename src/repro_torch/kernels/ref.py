@@ -16,9 +16,13 @@ from repro_torch.kernels.gradgen import MASK32
 
 
 def gram_ref(x: torch.Tensor) -> torch.Tensor:
-    """(m, d) → (m, m) Gram matrix G_ij = ⟨x_i, x_j⟩ in f32."""
-    x32 = x.to(torch.float32)
-    return x32 @ x32.T
+    """(m, d) → (m, m) Gram matrix G_ij = ⟨x_i, x_j⟩ in f32: the f32 (or
+    exactly upcast bf16) rows multiplied and summed in f64, then rounded
+    once to f32.  A plain f32 product drifts with d: on an H100, cuBLAS's
+    f32 GEMM at m = 32, d = 2^26 misses the exact Gram by 1.3e-5 relative,
+    more than the 1e-5 the kernel is held to (PERF.md §6)."""
+    x64 = x.to(torch.float32).to(torch.float64)
+    return (x64 @ x64.T).to(torch.float32)
 
 
 def _sorted_columns(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

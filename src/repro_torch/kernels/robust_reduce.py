@@ -23,10 +23,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_guard import check_cuda_inputs
+from repro_torch.kernels.fused_guard import check_cuda_inputs, check_workers
 
-MAX_WORKERS = 12288   # the weights fit in 48 KB of shared memory
-SORT_MAX_WORKERS = 32  # a column's values stay in one thread's registers
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
@@ -46,9 +44,9 @@ def filtered_mean_cuda(x: torch.Tensor, mask: torch.Tensor, denom: float,
         raise ValueError(f"filtered_mean: shapes x {tuple(x.shape)}, "
                          f"mask {tuple(mask.shape)}")
     m, d = x.shape
-    if not 1 <= m <= MAX_WORKERS or d < 1:
-        raise ValueError(f"filtered_mean: needs 1 <= m <= {MAX_WORKERS} and "
-                         f"d >= 1, got m={m}, d={d}")
+    check_workers("filtered_mean", m)
+    if d < 1:
+        raise ValueError(f"filtered_mean: needs d >= 1, got d={d}")
     if mask.device != dev:
         raise ValueError(f"filtered_mean: mask on {mask.device}, x on {dev}")
     w = mask.to(torch.float32).contiguous()
@@ -76,9 +74,9 @@ def _check_sort_input(name: str, x: torch.Tensor) -> torch.device:
     if x.dim() != 2:
         raise ValueError(f"{name}: expected an (m, d) tensor, got shape {tuple(x.shape)}")
     m, d = x.shape
-    if not 1 <= m <= SORT_MAX_WORKERS or d < 1:
-        raise ValueError(f"{name}: needs 1 <= m <= {SORT_MAX_WORKERS} and d >= 1, "
-                         f"got m={m}, d={d}")
+    check_workers(name, m)
+    if d < 1:
+        raise ValueError(f"{name}: needs d >= 1, got d={d}")
     return dev
 
 

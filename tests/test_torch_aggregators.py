@@ -263,6 +263,27 @@ def test_trimmed_mean_ref_matches_pallas(m, d, n_trim):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("m", [33, 48])
+@pytest.mark.parametrize("dt", sorted(KDTYPES))
+def test_ops_past_32_workers_match_pallas(m, dt):
+    """``ops.gram``, ``ops.coordinate_median`` and ``ops.trimmed_mean`` on
+    the CPU past the register sort's 32 workers (the card's kernels take
+    them up to the port's worker cap), against the Pallas kernels in
+    interpret mode, with ``tests/test_kernels.py``'s tolerances."""
+    x = _kernel_input(m, 257, dt, 7 * m)
+    xt = _to_torch(x)
+    np.testing.assert_allclose(ops.gram(xt).numpy(), gram_pallas(x, d_block=512, interpret=True),
+                               rtol=2e-2 if dt == "bf16" else 2e-5,
+                               atol=1e-2 if dt == "bf16" else 1e-4)
+    np.testing.assert_allclose(ops.coordinate_median(xt).numpy(),
+                               coordinate_median_pallas(x, d_block=512, interpret=True),
+                               rtol=1e-5, atol=1e-5)
+    n_trim = m // 4
+    np.testing.assert_allclose(ops.trimmed_mean(xt, n_trim).numpy(),
+                               trimmed_mean_pallas(x, n_trim, d_block=512, interpret=True),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_ops_order_statistics_on_cpu_run_the_plain_versions():
     x = torch.from_numpy(_normal((9, 70), 50))
     before = (gram_cuda.launches, coordinate_median_cuda.launches, trimmed_mean_cuda.launches)

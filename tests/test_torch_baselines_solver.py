@@ -64,6 +64,17 @@ def test_baseline_under_alie_matches_jax(name):
     _assert_runs_agree(got, want)
 
 
+@pytest.mark.parametrize("name", ["krum", "coordinate_median"])
+def test_baseline_past_32_workers_matches_jax(name):
+    """m = 40 workers: past the register sort's 32 and the first Gram's
+    single worker tile, which the card's kernels now take."""
+    kw = {**BASE, "m": 40, "aggregator": name}
+    want = jax_run_sgd(jax_problem(d=D_DIM, seed=6), JaxConfig(**kw), jax.random.PRNGKey(6))
+    got = run_sgd(make_generated_problem(d=D_DIM, seed=6, device="cpu"), SolverConfig(**kw),
+                  prng.PRNGKey(6), device="cpu")
+    _assert_runs_agree(got, want)
+
+
 @pytest.mark.parametrize("over", [
     dict(aggregator="krum", krum_f=1),
     dict(aggregator="trimmed_mean", trim_fraction=0.25),

@@ -25,6 +25,12 @@ ALIE's 4 and 8, whose honest moments sum in another order), the rest
 within the same tolerance; and given the rows they generated, materialised,
 ``fused_guard.cu`` gives all four outputs bit for bit and
 ``filtered_mean.cu`` gives ξ bit for bit.
+
+Worker counts: every wrapper takes 1 ≤ m ≤ MAX_WORKERS = 12288 and raises
+a ValueError naming the cap above it; the kernels are held to their plain
+versions past the first version's 32 (order statistics) and 128 (the
+rest) workers.  The Gram repeats bit for bit from call to call and is
+exactly symmetric.
 """
 import pytest
 import torch
@@ -37,7 +43,12 @@ from repro_torch.scenarios import ScenarioAdversary, scenario_static
 from repro_torch.data.problems import make_generated_problem
 from repro_torch.kernels import gradgen, ops, ref
 from repro_torch.kernels.countsketch import countsketch_cuda
-from repro_torch.kernels.fused_guard import fused_guard_cuda, fused_guard_gen_cuda, gen_xi_cuda
+from repro_torch.kernels.fused_guard import (
+    MAX_WORKERS,
+    fused_guard_cuda,
+    fused_guard_gen_cuda,
+    gen_xi_cuda,
+)
 from repro_torch.kernels.pairdist import gram_cuda
 from repro_torch.kernels.robust_reduce import (
     coordinate_median_cuda,
@@ -61,7 +72,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,d", [(1, 1), (17, 555), (32, 2048), (33, 1000), (128, 4099)])
+@pytest.mark.parametrize("m,d", [(1, 1), (17, 555), (32, 2048), (33, 1000), (128, 4099),
+                                 (129, 4099), (300, 555)])
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 def test_cuda_kernels_match_plain(cuda_device, m, d, dt):
     tdt, tol = DTYPES[dt]
@@ -88,40 +100,62 @@ def test_ops_on_cuda_launch_the_kernels(cuda_device):
         before[0] + 1, before[1] + 1)
     with pytest.raises(TypeError):
         ops.fused_guard(g.double(), g.double(), g[0].double())
-    with pytest.raises(ValueError, match="m <= 128"):
-        ops.fused_guard(torch.zeros(129, 4, device=cuda_device),
-                        torch.zeros(129, 4, device=cuda_device),
-                        torch.zeros(4, device=cuda_device))
+    # past the first version's 128 workers, up to the port's cap
+    g = torch.randn(129, 300, device=cuda_device)
+    B = 3 * torch.randn(129, 300, device=cuda_device)
+    got, want = ops.fused_guard(g, B, g[0]), ref.fused_guard_ref(g, B, g[0])
+    assert torch.equal(got[3], want[3])
+    for a, b in zip(got[:3], want[:3]):
+        _within(a, b, 1e-5)
+    big = torch.zeros(MAX_WORKERS + 1, 4, device=cuda_device)
+    with pytest.raises(ValueError, match=f"MAX_WORKERS = {MAX_WORKERS}"):
+        ops.fused_guard(big, big, big[0])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,d", [(1, 1), (2, 9), (16, 4099), (17, 555), (32, 2048),
-                                 (33, 1000), (128, 257)])
+                                 (33, 1000), (128, 257), (129, 4099), (1000, 555)])
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 def test_gram_and_order_statistics_match_plain(cuda_device, m, d, dt):
     tdt, tol = DTYPES[dt]
     gen = torch.Generator(device=cuda_device).manual_seed(m * 31 + d)
     x = torch.randn(m, d, device=cuda_device, generator=gen).to(tdt)
     _within(gram_cuda(x), ref.gram_ref(x), tol)
-    if m > 32:   # beyond the sort kernels' register budget: they refuse
-        with pytest.raises(ValueError, match="m <= 32"):
-            coordinate_median_cuda(x)
-        return
+    # m > 32 runs the wide (shared-memory bitonic) path
     assert torch.equal(coordinate_median_cuda(x), ref.coordinate_median_ref(x))
     for n_trim in {0, (m - 1) // 2, min(8, (m - 1) // 2)}:
         _within(trimmed_mean_cuda(x, n_trim), ref.trimmed_mean_ref(x, n_trim), tol)
 
 
 @pytest.mark.cuda
-def test_order_statistics_spread_nan_and_refuse_over_trim(cuda_device):
-    x = torch.randn(9, 300, device=cuda_device)
+@pytest.mark.parametrize("m", [1, 16, 17, 33, 64, 129, 1000])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_gram_matches_plain_and_repeats_bit_for_bit(cuda_device, m, dt):
+    """The redesigned Gram (bf16 on tensor cores, f32 FMAs) at worker
+    counts from one tile to many: d = 4099 (rows of no whole number of 16
+    bytes: plain loads) and d = 4096 (cp.async); two calls give the same
+    bits, and G is exactly symmetric."""
+    tdt, tol = DTYPES[dt]
+    gen = torch.Generator(device=cuda_device).manual_seed(m * 17 + 3)
+    for d in (4099, 4096):
+        x = torch.randn(m, d, device=cuda_device, generator=gen).to(tdt)
+        got = gram_cuda(x)
+        _within(got, ref.gram_ref(x), tol)
+        assert torch.equal(got, gram_cuda(x))
+        assert torch.equal(got, got.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [9, 40])
+def test_order_statistics_spread_nan_and_refuse_over_trim(cuda_device, m):
+    x = torch.randn(m, 300, device=cuda_device)
     x[4, 7] = float("nan")
     for got, want in ((coordinate_median_cuda(x), ref.coordinate_median_ref(x)),
                       (trimmed_mean_cuda(x, 3), ref.trimmed_mean_ref(x, 3))):
         assert torch.equal(torch.isnan(got), torch.isnan(want))
         assert bool(torch.isnan(got[7])) and int(torch.isnan(got).sum()) == 1
     with pytest.raises(ValueError, match="trims everything"):
-        trimmed_mean_cuda(x, 5)
+        trimmed_mean_cuda(x, (m + 1) // 2)
 
 
 @pytest.mark.cuda
@@ -152,7 +186,8 @@ def poison(x: torch.Tensor) -> torch.Tensor:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,d", [(1, 1), (17, 555), (32, 2048), (33, 1000), (128, 4099)])
+@pytest.mark.parametrize("m,d", [(1, 1), (17, 555), (32, 2048), (33, 1000), (128, 4099),
+                                 (129, 4099), (300, 555)])
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 def test_sanitizing_kernels_match_plain(cuda_device, m, d, dt):
     tdt, tol = DTYPES[dt]
@@ -236,7 +271,7 @@ def test_quarantine_guard_on_the_card_matches_the_cpu(cuda_device, sd):
 # chip_smoke.py's shapes: the main path's, k not dividing d, k > d, a small
 # strided fold, and m·d > 2^31
 SKETCH_SHAPES = [(32, 2 ** 20, 4096), (17, 555, 8), (16, 16, 4096), (8, 4099, 64),
-                 (32, 2 ** 26 + 3, 4096)]
+                 (32, 2 ** 26 + 3, 4096), (129, 4099, 64), (1000, 555, 8)]
 
 
 @pytest.mark.cuda
@@ -290,7 +325,8 @@ def test_dp_run_on_the_card_matches_the_cpu(cuda_device, backend):
     _within(got.x_avg.cpu(), want.x_avg, 1e-5)
 
 
-GEN_SHAPES = [(m, d) for m in (1, 7, 32, 33, 128) for d in (1, 555, 2 ** 20 + 3)]
+GEN_SHAPES = ([(m, d) for m in (1, 7, 32, 33, 128) for d in (1, 555, 2 ** 20 + 3)]
+              + [(129, 555), (300, 4099)])
 MOMENT_IDS = (4, 8)   # ALIE and alie_update: rows read the honest moments
 
 
@@ -369,12 +405,53 @@ def test_ops_generate_on_cuda_launch_the_kernels(cuda_device):
     ops.gen_xi(torch.ones(m, device=cuda_device), torch.ones(m, device=cuda_device), *operands)
     assert (fused_guard_gen_cuda.launches, gen_xi_cuda.launches) == (before[0] + 1,
                                                                       before[1] + 1)
-    with pytest.raises(ValueError, match="m <= 128"):
-        ops.fused_guard_gen(torch.zeros(129, d, device=cuda_device), B[0],
-                            *gen_operands(129, d, 1, cuda_device))
     with pytest.raises(TypeError):
         ops.gen_xi(torch.ones(m, device=cuda_device), torch.ones(m, device=cuda_device),
                    *operands[:6], operands[6].long(), operands[7])
+    # past the first version's 128 workers, up to the port's cap
+    big = gen_operands(129, d, 4, cuda_device)
+    B = 3 * torch.randn(129, d, device=cuda_device)
+    for a, b in zip(ops.fused_guard_gen(B, B[0], *big), ref.fused_guard_gen_ref(B, B[0], *big)):
+        _within(a.float(), b.float(), 1e-5)
+    w = torch.ones(129, device=cuda_device)
+    for a, b in zip(ops.gen_xi(w, w, *big), ref.gen_xi_ref(w, w, *big)):
+        _within(a, b, 1e-5)
+    with pytest.raises(ValueError, match=f"MAX_WORKERS = {MAX_WORKERS}"):
+        ops.fused_guard_gen(torch.zeros(MAX_WORKERS + 1, d, device=cuda_device), B[0],
+                            *gen_operands(MAX_WORKERS + 1, d, 1, cuda_device))
+
+
+OVER_CAP_CALLS = {
+    "fused_guard": lambda x, w, g: fused_guard_cuda(x, x, x[0]),
+    "fused_guard_sanitize": lambda x, w, g: fused_guard_cuda(x, x, x[0], sanitize=True),
+    "fused_guard_gen": lambda x, w, g: fused_guard_gen_cuda(x, x[0], *g),
+    "gen_xi": lambda x, w, g: gen_xi_cuda(w, w, *g),
+    "filtered_mean": lambda x, w, g: filtered_mean_cuda(x, w, 1.0),
+    "filtered_mean_sanitize": lambda x, w, g: filtered_mean_cuda(x, w, 1.0, sanitize=True),
+    "gram": lambda x, w, g: gram_cuda(x),
+    "coordinate_median": lambda x, w, g: coordinate_median_cuda(x),
+    "trimmed_mean": lambda x, w, g: trimmed_mean_cuda(x, 1),
+    "countsketch": lambda x, w, g: countsketch_cuda(x, 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(OVER_CAP_CALLS))
+def test_every_wrapper_takes_the_cap_and_refuses_past_it(cuda_device, name):
+    """m = MAX_WORKERS runs (finite outputs); one worker more raises a
+    ValueError naming the cap."""
+    for m in (MAX_WORKERS, MAX_WORKERS + 1):
+        x = torch.randn(m, 8, device=cuda_device)
+        w = torch.ones(m, device=cuda_device)
+        operands = gen_operands(m, 8, 1, cuda_device)
+        if m > MAX_WORKERS:
+            with pytest.raises(ValueError, match=f"MAX_WORKERS = {MAX_WORKERS}"):
+                OVER_CAP_CALLS[name](x, w, operands)
+            continue
+        out = OVER_CAP_CALLS[name](x, w, operands)
+        torch.cuda.synchronize()
+        for t in out if isinstance(out, tuple) else (out,):
+            assert not t.is_floating_point() or bool(torch.isfinite(t).all())
 
 
 @pytest.mark.cuda

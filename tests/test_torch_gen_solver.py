@@ -16,6 +16,8 @@ against the JAX package and against itself.
 * Every ``ValueError`` gate of the reference's ``generate="kernel"`` that
   applies without profiles and faults, and NotImplementedError for what
   is not ported.
+* Staleness and partial participation without a worker profile: ignored,
+  as in the reference, on the dense and the fused guard.
 """
 import jax
 import jax.numpy as jnp
@@ -165,13 +167,47 @@ def test_generate_gates_raise_value_error(over, match):
 
 @pytest.mark.parametrize("over,match", [
     (dict(telemetry=object()), "telemetry"),
-    (dict(generate="off", max_delay=2), "staleness"),
-    (dict(generate="off", partial_participation=True), "partial participation"),
     (dict(generate="off", attack="random_gaussian"), "prng.normal"),
-], ids=["telemetry", "staleness", "partial", "random_gaussian"])
+], ids=["telemetry", "random_gaussian"])
 def test_unported_parts_raise_not_implemented(over, match):
     with pytest.raises(NotImplementedError, match=match):
         _gen_run(**over)
+
+
+def test_worker_profile_still_raises_not_implemented():
+    """Profiles (which arm staleness and partial participation) are not
+    ported: an adversary that carries one is refused."""
+    with pytest.raises(NotImplementedError, match="worker profiles"):
+        adversary.ScenarioAdversary(spec.scenario_static("sign_flip"), 0.25, profile=object())
+
+
+STALE_PARTIAL = {"staleness": dict(max_delay=3),
+                 "partial": dict(partial_participation=True),
+                 "both": dict(max_delay=3, partial_participation=True)}
+
+
+@pytest.mark.parametrize("backend", ["dense", "fused"])
+@pytest.mark.parametrize("opt", sorted(STALE_PARTIAL))
+def test_staleness_and_partial_without_profile_match_jax(opt, backend):
+    """The reference arms staleness and partial participation only when the
+    adversary carries a worker profile (``src/repro/core/solver.py``:
+    ``stale_on``/``part_on``).  Without one, the port's adversary run with
+    ``max_delay=3`` and/or ``partial_participation=True`` equals JAX's
+    (decisions exactly, values within 1e-6) and its own ``max_delay=0``
+    run bit for bit."""
+    over = dict(guard_backend=backend, **STALE_PARTIAL[opt])
+    jprob = jax_problem(d=D, sigma=1.0, L=8.0, V=1.0, seed=0)
+    jadv = JaxAdversary(jspec.scenario_static("sign_flip"), jnp.asarray(0.25, jnp.float32))
+    want = jax_run_sgd(jprob, JaxConfig(**_cfg("off", **over)), jax.random.PRNGKey(3),
+                       adversary=jadv)
+    got = _port("static_sign_flip", "off", **over)
+    _assert_decisions_equal(got, want)
+    for f in ("gaps", "x_final", "x_avg"):
+        np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                   rtol=0, atol=1e-6, err_msg=f)
+    plain = _port("static_sign_flip", "off", guard_backend=backend)
+    for f in ("n_alive", "byz_mask", "final_alive", "gaps", "x_final", "x_avg"):
+        assert torch.equal(getattr(got, f), getattr(plain, f)), f
 
 
 def test_convert_carries_a_jax_scenario_into_a_run():
