@@ -18,7 +18,8 @@ and then no result line is printed):
    d=2^20 and m=17, d=555 (f32, bf16) and m=32, d=2^26+3 (bf16, m·d >
    2^31): ``B_new`` bit-equal, the rest within ‖got−want‖ ≤ tol·‖want‖ +
    tol, tol = 1e-5 (f32) / 1e-4 (bf16: both sides sum exact f32 upcasts,
-   so only the order of the sums differs); then ``gram``,
+   so only the order of the sums differs), and at d=2^26+3 both sides'
+   Grams beside f64 sums of the exact products (reported); then ``gram``,
    ``coordinate_median`` and ``trimmed_mean`` (n_trim = min(8, (m−1)//2))
    at m=32, d=2^20; m=17, d=555; m=16, d=4099; m=32, d=2^26+3, in f32 and
    bf16: the median bit-equal, the rest within the same tol; then the
@@ -72,7 +73,8 @@ and then no result line is printed):
    and at m=32, d=2^26+3 (bf16, sign_flip; m·d > 2^31, the plain version
    by column chunks): ``B_new`` bit-equal but for ALIE's ids 4 and 8, the
    rest within tol, and on their own rows materialised ``fused_guard`` and
-   ``filtered_mean`` give the same bits; then ``run_sgd`` at the main
+   ``filtered_mean`` give the same bits, and ``gen_xi`` reading the
+   sweep's moments gives its own bits; then ``run_sgd`` at the main
    path's shape under ``scenario_static("sign_flip")`` and
    ``scenario_static("alie")``, f32 and bf16, ``generate="kernel"``
    against ``"off"``: ms/step, peak memory, final gap, n_alive, launches
@@ -101,8 +103,14 @@ and then no result line is printed):
    its plain version and one library call where there is one (the
    sanitizing variants on input holding 4 non-finite rows, the generating
    ones on the main path's step-0 operands under sign_flip, and under
-   ALIE apart), and the split of one materialising and one generating
-   step between their parts;
+   ALIE apart, with gen_xi running its own moments pass and reading the
+   sweep's); for each guard sweep (plain, sanitizing, generating; f32 and
+   bf16) a ``guard_sweep`` line: two calls give the same bits, the card's
+   time in its kernels (``torch.profiler``) and the host's time a call
+   beside the median time, the SM clock and power while it runs, and its
+   time before the redesign as PERF.md records it (not measured here);
+   then the split of one materialising and one generating step between
+   their parts;
 11. the kernels line (20 entries), the card line and the result line.
 """
 from __future__ import annotations
@@ -179,6 +187,30 @@ KERNELS = {
     "gen_xi": ("src/repro_torch/kernels/csrc/filtered_mean.cu",
                "src/repro/kernels/fused_guard.py:349"),
 }
+# The bf16 guard sweep (plain, sanitizing, generating) is a kernel of the
+# header that csrc/fused_guard.cu includes.
+SWEEP_HEADER = "src/repro_torch/kernels/csrc/guard_sweep.cuh"
+# Recorded, not measured here: each guard sweep's time before the sweep's
+# redesign at m = 32, d = 2^20 as PERF.md §6 holds it (NVIDIA H100 80GB
+# HBM3 at 700 W), under sign_flip and under ALIE (the generating kernels,
+# each with its own moments pass).  Phase lines print it beside this run's
+# time; the kernels line carries only what this run measured.
+RECORDED_BEFORE_MS = {("fused_guard", "f32"): 0.1734, ("fused_guard", "bf16"): 0.2415,
+                      ("fused_guard_sanitize", "f32"): 0.2028,
+                      ("fused_guard_sanitize", "bf16"): 0.2630,
+                      ("fused_guard_gen", "f32"): 0.3748, ("fused_guard_gen", "bf16"): 0.4147}
+RECORDED_BEFORE_ALIE_MS = {("fused_guard_gen", "f32"): 0.6209,
+                           ("fused_guard_gen", "bf16"): 0.6469,
+                           ("gen_xi", "f32"): 0.3750, ("gen_xi", "bf16"): 0.3734}
+
+
+def source_of(name: str, dt: str) -> str:
+    """The file that holds the kernel of ``name`` at ``dt``."""
+    if name in ("fused_guard", "fused_guard_sanitize", "fused_guard_gen") and dt == "bf16":
+        return SWEEP_HEADER
+    return KERNELS[name][0]
+
+
 # each kernel's launch count: (wrapper, attribute); a sanitizing variant is
 # counted on its wrapper apart from the plain one
 COUNTERS = {"fused_guard": (fused_guard_cuda, "launches"),
@@ -256,6 +288,9 @@ def check_kernels(dev) -> dict:
         torch.cuda.synchronize()
         want = ref.fused_guard_ref(g, B, dlt)
         b_equal = torch.equal(got[3], want[3])
+        # at m·d > 2^31 both Grams against f64 sums of the exact products:
+        # what each of kernel and plain version (an f32 GEMM) errs by
+        vs_f64 = grams_vs_f64(g, B, got, want) if d > D else None
         del B
         fg = [rel_err(a, b) for a, b in zip(got[:3], want[:3])]
         fg_ok = all(within(a, b, TOL[dt]) for a, b in zip(got[:3], want[:3]))
@@ -267,7 +302,8 @@ def check_kernels(dev) -> dict:
         fm_ok = within(xi, xi_ref, TOL[dt])
         emit("kernels", m=m, d=d, dtype=dt, B_new_bit_equal=b_equal,
              fused_guard_rel_abs={"gram_g": fg[0], "cross": fg[1], "a_inc": fg[2]},
-             filtered_mean_rel_abs=fm, tol=TOL[dt])
+             filtered_mean_rel_abs=fm, tol=TOL[dt],
+             **({"grams_rel_to_f64": vs_f64} if vs_f64 else {}))
         require(b_equal, f"fused_guard B_new bit-equal at m={m} d={d} {dt}")
         require(fg_ok, f"fused_guard within {TOL[dt]} at m={m} d={d} {dt}")
         require(fm_ok, f"filtered_mean within {TOL[dt]} at m={m} d={d} {dt}")
@@ -277,6 +313,20 @@ def check_kernels(dev) -> dict:
         del g, dlt, xi, xi_ref
         torch.cuda.empty_cache()
     return errs
+
+
+def grams_vs_f64(g, B, got, want, cols: int = 1 << 22) -> dict:
+    """‖X − exact‖ / ‖exact‖ of gram_g and cross for the kernel (``got``)
+    and the plain version (``want``), exact = f64 sums of the exact
+    products, by column chunks."""
+    m = g.shape[0]
+    exact = [torch.zeros((m, m), dtype=torch.float64, device=g.device) for _ in range(2)]
+    for lo in range(0, g.shape[1], cols):
+        gc, bc = g[:, lo:lo + cols].double(), B[:, lo:lo + cols].double()
+        exact[0] += gc @ gc.T
+        exact[1] += bc @ gc.T
+    return {who: {name: rel_err(t, e)[0] for name, t, e in zip(("gram_g", "cross"), out, exact)}
+            for who, out in (("kernel", got), ("plain", want))}
 
 
 def by_columns(fn, x: torch.Tensor, cols: int = 1 << 22) -> torch.Tensor:
@@ -997,18 +1047,26 @@ def check_gen_kernels(dev, errs: dict) -> None:
             rows = fused_guard_gen_cuda(torch.zeros_like(B), dlt, *operands)[3]
             same_fg = all(torch.equal(a, b) for a, b in zip(got, fused_guard_cuda(rows, B, dlt)))
             same_xi = torch.equal(xi, filtered_mean_cuda(rows, w_xi, 1.0))
-            del rows, got
+            # the moments handed from the sweep to gen_xi, as gen_step runs
+            # them, give gen_xi's own bits
+            mom = torch.empty((2, d), device=dev)
+            fused_guard_gen_cuda(B, dlt, *operands, moments=mom)
+            shared = gen_xi_cuda(w_xi, w_byz, *operands, stats_dtype=tdt, moments=mom)
+            same_shared = torch.equal(shared[0], xi) and torch.equal(shared[1], byz)
+            del rows, got, mom, shared
             emit("gen_kernels", m=m, d=d, dtype=dt, attack_id=aid, B_new_bit_equal=b_equal,
                  fused_guard_gen_rel_abs={"gram_g": fg[0], "cross": fg[1], "a_inc": fg[2]},
                  gen_xi_rel_abs={"xi": gx[0], "byz": gx[1]},
                  equals_fused_guard_on_its_rows=same_fg,
-                 xi_equals_filtered_mean_on_its_rows=same_xi, tol=tol)
+                 xi_equals_filtered_mean_on_its_rows=same_xi,
+                 shared_moments_bit_equal=same_shared, tol=tol)
             where = f"at m={m} d={d} {dt} id {aid}"
             require(b_ok, f"fused_guard_gen B_new {'within tol' if aid in MOMENT_IDS else 'bit-equal'} {where}")
             require(fg_ok, f"fused_guard_gen within {tol} {where}")
             require(gx_ok, f"gen_xi within {tol} {where}")
             require(same_fg, f"fused_guard_gen equals fused_guard on its own rows {where}")
             require(same_xi, f"gen_xi's xi equals filtered_mean on its own rows {where}")
+            require(same_shared, f"gen_xi with the sweep's moments equals its own {where}")
             if d == D:
                 for name, e in (("fused_guard_gen", max(x[1] for x in fg)),
                                 ("gen_xi", max(x[1] for x in gx))):
@@ -1343,6 +1401,66 @@ def median_ms(fn, batches: int = 7, per_batch: int = 20) -> float:
     return statistics.median(times)
 
 
+def kernel_and_host_ms(fn, calls: int = 20) -> dict:
+    """Per call of ``fn``: the host's time to return from it while the card
+    works through the queue (``time.perf_counter``, no synchronisation
+    between the calls); then, from a ``torch.profiler`` trace of ``calls``
+    more, the card's time in the kernels they launch, the span from the
+    first kernel's start to the last one's end, and each kernel's count
+    (each of the sweep's kernels ``calls`` times when none went unrecorded)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    # a warm-up cycle starts the tracer (the first launches after it starts
+    # can go unrecorded), then ``calls`` calls are traced
+    kern = []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1),
+            on_trace_ready=lambda p: kern.extend(
+                e for e in p.events() if e.device_type == torch.autograd.DeviceType.CUDA)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    if not kern:
+        return {"host_ms": host_ms, "kernel_ms": None, "span_ms": None, "kernels": {}}
+    counts: dict = {}
+    for e in kern:
+        # "void (anonymous namespace)::fused_guard_kernel<true, ...>(...)" -> "fused_guard_kernel"
+        name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
+        name = name.split("<")[0].split("(")[0].split("::")[-1]
+        counts[name] = counts.get(name, 0) + 1
+    span = max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)
+    return {"host_ms": host_ms,
+            "kernel_ms": sum(e.time_range.elapsed_us() for e in kern) / 1e3 / calls,
+            "span_ms": span / 1e3 / calls, "kernels": counts,
+            "every_launch_traced": all(c % calls == 0 for c in counts.values())}
+
+
+def ms_of(entries: list, name: str) -> float:
+    """The kernels-line time of the entry ``name``."""
+    return next(e["ms"] for e in entries if e["name"] == name)
+
+
+def guard_sweep_line(name: str, dt: str, fn, ms: float) -> None:
+    """The ``guard_sweep`` line of one sweep, beside its kernels-line time
+    ``ms``: two calls give the same bits, the card's and the host's time a
+    call (``kernel_and_host_ms``), the SM clock and power while it runs,
+    and its recorded time before the redesign."""
+    same = all(torch.equal(a, b) for a, b in zip(fn(), fn()))
+    emit("guard_sweep", kernel=f"{name}[{dt}]", source=source_of(name, dt),
+         repeat_bit_equal=same, ms=ms, **kernel_and_host_ms(fn),
+         recorded_before_redesign_ms=RECORDED_BEFORE_MS[(name, dt)],
+         while_running=clocks_during(fn))
+    require(same, f"{name}[{dt}]: two calls give the same bits at the main shape")
+
+
 def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
     """The least time the card could take, in ms: the larger of the bytes
     over the HBM rate and the operations over ``peak`` (per second)."""
@@ -1368,7 +1486,7 @@ def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
         b_ms, b_by = bound(fg_bytes, fg_flops, PEAK_FLOPS[dt])
         entries.append({
             "name": f"fused_guard[{dt}]", "route": "cuda",
-            "source": KERNELS["fused_guard"][0], "replaces": KERNELS["fused_guard"][1],
+            "source": source_of("fused_guard", dt), "replaces": KERNELS["fused_guard"][1],
             "launches": launches[run]["fused_guard"],
             "max_abs_err": errs[("fused_guard", dt)],
             "ms": median_ms(lambda: fused_guard_cuda(g, B, dlt)),
@@ -1383,7 +1501,7 @@ def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
         w_lib = w.to(DTYPES[dt])
         entries.append({
             "name": f"filtered_mean[{dt}]", "route": "cuda",
-            "source": KERNELS["filtered_mean"][0], "replaces": KERNELS["filtered_mean"][1],
+            "source": source_of("filtered_mean", dt), "replaces": KERNELS["filtered_mean"][1],
             "launches": launches[run]["filtered_mean"],
             "max_abs_err": errs[("filtered_mean", dt)],
             "ms": median_ms(lambda: filtered_mean_cuda(g, w, 1.0)),
@@ -1400,7 +1518,7 @@ def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
         b_ms, b_by = bound(gr_bytes, gr_flops, PEAK_FLOPS[dt])
         entries.append({
             "name": f"gram[{dt}]", "route": "cuda",
-            "source": KERNELS["gram"][0], "replaces": KERNELS["gram"][1],
+            "source": source_of("gram", dt), "replaces": KERNELS["gram"][1],
             "launches": base_launches[("krum", "sign_flip")]["gram"],
             "max_abs_err": errs[("gram", dt)],
             "ms": median_ms(lambda: gram_cuda(g)),
@@ -1423,7 +1541,7 @@ def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
         for name, kernel, plain in order_stats:
             entries.append({
                 "name": f"{name}[{dt}]", "route": "cuda",
-                "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+                "source": source_of(name, dt), "replaces": KERNELS[name][1],
                 "launches": base_launches[(name, "sign_flip")][name],
                 "max_abs_err": errs[(name, dt)],
                 "ms": median_ms(kernel), "plain_ms": median_ms(plain),
@@ -1442,7 +1560,7 @@ def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
         b_ms, b_by = bound(sg_bytes, sg_ops, PEAK_FLOPS[dt])
         entries.append({
             "name": f"fused_guard_sanitize[{dt}]", "route": "cuda",
-            "source": KERNELS["fused_guard_sanitize"][0],
+            "source": source_of("fused_guard_sanitize", dt),
             "replaces": KERNELS["fused_guard_sanitize"][1],
             "launches": q_launches[run]["fused_guard_sanitize"],
             "max_abs_err": errs[("fused_guard_sanitize", dt)],
@@ -1456,7 +1574,7 @@ def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
         b_ms, b_by = bound(fm_bytes, sm_ops, PEAK_FLOPS[dt])
         entries.append({
             "name": f"filtered_mean_sanitize[{dt}]", "route": "cuda",
-            "source": KERNELS["filtered_mean_sanitize"][0],
+            "source": source_of("filtered_mean_sanitize", dt),
             "replaces": KERNELS["filtered_mean_sanitize"][1],
             "launches": q_launches[run]["filtered_mean_sanitize"],
             "max_abs_err": errs[("filtered_mean_sanitize", dt)],
@@ -1473,7 +1591,7 @@ def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
         b_ms, b_by = bound(cs_bytes, cs_ops, PEAK_FLOPS["f32"])
         entries.append({
             "name": f"countsketch[{dt}]", "route": "cuda",
-            "source": KERNELS["countsketch"][0], "replaces": KERNELS["countsketch"][1],
+            "source": source_of("countsketch", dt), "replaces": KERNELS["countsketch"][1],
             "launches": dp_launches[f"dp_sketch@{dt}"]["countsketch"],
             "max_abs_err": errs[("countsketch", dt)],
             "ms": median_ms(lambda: countsketch_cuda(g, SKETCH_K)),
@@ -1484,6 +1602,11 @@ def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
         })
         emit("bound", kernel=f"countsketch[{dt}]", shape=[M, D, SKETCH_K], bytes=cs_bytes,
              flops=cs_ops)
+        guard_sweep_line("fused_guard", dt, lambda: fused_guard_cuda(g, B, dlt),
+                         ms_of(entries, f"fused_guard[{dt}]"))
+        guard_sweep_line("fused_guard_sanitize", dt,
+                         lambda: fused_guard_cuda(gp, B, dlt, sanitize=True),
+                         ms_of(entries, f"fused_guard_sanitize[{dt}]"))
         del g, gp
         # the generating kernels on the main path's step-0 operands under
         # sign_flip; their plain versions run threefry in int64 torch (~40
@@ -1502,7 +1625,7 @@ def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
             b_ms, b_by = gen_bound[(name, dt)]
             entries.append({
                 "name": f"{name}[{dt}]", "route": "cuda",
-                "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+                "source": source_of(name, dt), "replaces": KERNELS[name][1],
                 "launches": gen_launches[run][name],
                 "max_abs_err": errs[(name, dt)],
                 "ms": median_ms(kernel),
@@ -1511,13 +1634,30 @@ def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
                 # no single PyTorch call generates the batch in place
                 "library_ms": None,
             })
-        # ALIE's rows add the moments pass (twice per step: once per kernel)
+        # ALIE's rows read the honest moments: the sweep's moments pass,
+        # then gen_xi with its own pass (separate) or reading the sweep's
+        # (shared, as gen_step runs them: one pass a step)
         alie, _ = main_gen_operands("alie", dev)
+        mom = torch.empty((2, D), device=dev)
+        fused_guard_gen_cuda(B, dlt, *alie, moments=mom)
+        sd = DTYPES[dt]
         emit("gen_timing", attack="alie", dtype=dt,
              fused_guard_gen_ms=median_ms(lambda: fused_guard_gen_cuda(B, dlt, *alie)),
-             gen_xi_ms=median_ms(lambda: gen_xi_cuda(w_xi, w_byz, *alie,
-                                                      stats_dtype=DTYPES[dt])))
-        del B, dlt, operands, alie
+             gen_xi_ms=median_ms(lambda: gen_xi_cuda(w_xi, w_byz, *alie, stats_dtype=sd)),
+             gen_xi_shared_moments_ms=median_ms(
+                 lambda: gen_xi_cuda(w_xi, w_byz, *alie, stats_dtype=sd, moments=mom)),
+             both_kernels_ms={
+                 "separate_moments": median_ms(lambda: (
+                     fused_guard_gen_cuda(B, dlt, *alie),
+                     gen_xi_cuda(w_xi, w_byz, *alie, stats_dtype=sd))),
+                 "shared_moments": median_ms(lambda: (
+                     fused_guard_gen_cuda(B, dlt, *alie, moments=mom),
+                     gen_xi_cuda(w_xi, w_byz, *alie, stats_dtype=sd, moments=mom)))},
+             recorded_before_redesign_ms={name: RECORDED_BEFORE_ALIE_MS[(name, dt)]
+                                          for name in ("fused_guard_gen", "gen_xi")})
+        guard_sweep_line("fused_guard_gen", dt, lambda: fused_guard_gen_cuda(B, dlt, *operands),
+                         ms_of(entries, f"fused_guard_gen[{dt}]"))
+        del B, dlt, operands, alie, mom
         torch.cuda.empty_cache()
     return entries
 

@@ -37,7 +37,9 @@ changes no bit of the result.
 (DESIGN.md §14): ``ops.fused_guard_gen`` and ``ops.gen_xi`` rebuild the
 worker rows from the guard's ``GenSpec`` and the step's ``GenStepCtx``,
 so no (m, d) gradient tensor exists; it also returns the Byzantine row
-sum that the scenario adversary's feedback reads.
+sum that the scenario adversary's feedback reads.  ALIE's honest column
+moments are taken once a step: the sweep leaves them in a (2, d) buffer
+that the ξ pass reads.
 """
 from __future__ import annotations
 
@@ -355,8 +357,12 @@ class ByzantineGuard:
         delta = (x_k - x_1).to(self.stats_dtype)
         operands = (x_k, gen.h, gen.x_star, gen.het_dir, genctx.worker_keys,
                     genctx.skewsign, genctx.slot, genctx.params)
+        # ALIE's honest column moments, taken once: the sweep leaves them
+        # here and the ξ pass reads them
+        moments = torch.empty((2, x_k.shape[0]), dtype=torch.float32, device=x_k.device)
 
-        gram_g, cross, a_inc, B = ops.fused_guard_gen(state.B, delta, *operands)
+        gram_g, cross, a_inc, B = ops.fused_guard_gen(state.B, delta, *operands,
+                                                      moments=moments)
         A = state.A + a_inc
         gram_b = state.gram_B + cross + cross.T + gram_g
         if self.gram_resync_every > 0 and k % self.gram_resync_every == 0:
@@ -368,7 +374,7 @@ class ByzantineGuard:
         else:
             denom = float(cfg.m)
         xi, byz_sum = ops.gen_xi(good_k.to(torch.float32) / denom, genctx.w_byz, *operands,
-                                 stats_dtype=self.stats_dtype)
+                                 stats_dtype=self.stats_dtype, moments=moments)
         return GuardState(A=A, B=B, alive=good_k, k=k, gram_B=gram_b), xi, byz_sum, diag
 
 

@@ -1,5 +1,6 @@
 // Shared helpers of the port's kernels: four-wide row loads that upcast to
-// f32, and four-wide stores that round once to the storage type.
+// f32, four-wide stores that round once to the storage type, and the
+// cp.async / ldmatrix / mma.sync wrappers of the tensor-core kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -110,6 +111,77 @@ __device__ __forceinline__ float4 unpack4(uint2 r) {
 // bf16 inputs too, since their upcast to f32 is a 16-bit shift.
 __device__ __forceinline__ bool nonfinite(float v) {
   return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u;
+}
+
+// Asynchronous copies into shared memory (cp.async, 16 bytes a thread,
+// no registers): src_bytes < 16 fills the rest of the 16 with zeros, so
+// a tail past the end of a row is copied as 0.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const unsigned char* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+// D = A·B + D on the tensor cores: A 16×16 bf16 (row), B 16×8 bf16 (col),
+// D 16×8 f32.  A bf16×bf16 product is exact in f32.
+__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Shared-memory barriers (mbarrier) that producer and consumer warps meet
+// at without a block-wide barrier: a phase completes after `count`
+// arrivals; arrive releases this thread's shared-memory writes, and a
+// wait on a phase's parity acquires them.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(s), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(s) : "memory");
+}
+
+// Waits until the phase of parity `parity` is complete.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(s),
+      "r"(parity)
+      : "memory");
 }
 
 inline bool aligned(const void* p, size_t bytes) {

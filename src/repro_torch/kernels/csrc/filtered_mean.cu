@@ -138,18 +138,13 @@ gen_xi_kernel(const float* __restrict__ w_xi, const float* __restrict__ w_byz,
       // chains at any m; at m <= CH the plain row-order sum)
       float cb[4] = {0.f, 0.f, 0.f, 0.f};
       for (int i = 0; i < len; ++i) {
-        const rt::gen::Row& r = srow[i];
         const float wx = sx[i], wb = sb[i];
+        float v[1][4];
+        rt::gen::values_at<1, 4>(&srow[i], col, ns, tgnrm, ga.moments, c, d, v);
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          const int64_t j = c + k;
-          float v = 0.f;
-          if (r.slot >= 0 && j < d) {
-            const float g = rt::gen::honest(r.k0, r.k1, r.skew, col[k], ns, j);
-            v = rt::gen::attacked(r, g, col[k], tgnrm, ga.moments, j, d);
-          }
-          ax[k] = fmaf(wx, rt::gen::round_through(v, S()), ax[k]);
-          cb[k] = fmaf(wb, v, cb[k]);
+          ax[k] = fmaf(wx, rt::gen::round_through(v[0][k], S()), ax[k]);
+          cb[k] = fmaf(wb, v[0][k], cb[k]);
         }
       }
 #pragma unroll
@@ -182,14 +177,17 @@ extern "C" int rt_filtered_mean_sanitize(int64_t dtype, const void* x, const voi
 
 // gen_xi: dtype is the statistics type ξ's rows round through (0 = f32,
 // 1 = bf16); w_xi, w_byz (m,) f32; xi, byz (d,) f32 outputs; then the
-// generator's operands as for rt_fused_guard_gen (moments: 2·d floats of
-// scratch).  m ≤ MAX_WORKERS.  Launches the moments kernel (a no-op unless an
-// ALIE id is in play), then the sums.  Returns 0 or the first CUDA error.
+// generator's operands as for rt_fused_guard_gen (moments: 2·d floats).
+// m ≤ MAX_WORKERS.  Unless moments_ready, launches the moments kernel (a
+// no-op unless an ALIE id is in play); with moments_ready the buffer holds
+// what rt_fused_guard_gen wrote there for the same operands, and the step
+// runs one moments pass, not two.  Then the sums.  Returns 0 or the first
+// CUDA error.
 extern "C" int rt_gen_xi(int64_t dtype, const void* w_xi, const void* w_byz, void* xi,
                          void* byz, const void* x, const void* h, const void* xs,
                          const void* hd, const void* keys, const void* skew, const void* slot,
-                         const void* params, void* moments, int64_t m, int64_t d,
-                         int64_t device, void* stream) {
+                         const void* params, void* moments, int64_t moments_ready, int64_t m,
+                         int64_t d, int64_t device, void* stream) {
   if (m < 1 || m > rt::MAX_WORKERS || d < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
@@ -199,8 +197,10 @@ extern "C" int rt_gen_xi(int64_t dtype, const void* w_xi, const void* w_byz, voi
                          static_cast<const uint32_t*>(keys),  static_cast<const float*>(skew),
                          static_cast<const int*>(slot),       static_cast<const float*>(params),
                          static_cast<float*>(moments)};
-  err = rt::gen::launch_moments(ga, m, d, s);
-  if (err != cudaSuccess) return (int)err;
+  if (!moments_ready) {
+    err = rt::gen::launch_moments(ga, m, d, s);
+    if (err != cudaSuccess) return (int)err;
+  }
   const int64_t n4 = (d + 3) / 4;
   const int64_t blocks = (n4 + NT - 1) / NT < (1 << 20) ? (n4 + NT - 1) / NT : (1 << 20);
   const float* wx = static_cast<const float*>(w_xi);

@@ -12,30 +12,35 @@
 // count of non-finite entries.  B and δ are not tested (finite by
 // construction).  On finite input its four shared outputs equal the plain
 // variant's bit for bit: the same sums in the same order.
-// The generating variant (template flag GEN, entry rt_fused_guard_gen)
-// replaces fused_guard_gen_pallas (body _fused_guard_gen_kernel, strip
-// prologue _gen_strip): it reads no g, but generates each tile of g in
-// registers where the plain sweep loads it, from the worker keys and the
-// attack parameters (gen_rows.cuh), rounded once through B's type as the
-// materialising path stores its batch.  Everything after the load is the
-// same code, so given the same rows both variants give the same bits.
+// The generating variant (entry rt_fused_guard_gen) replaces
+// fused_guard_gen_pallas (body _fused_guard_gen_kernel, strip prologue
+// _gen_strip): it reads no g, but generates each tile of g from the worker
+// keys and the attack parameters (gen_rows.cuh), rounded once through B's
+// type as the materialising path stores its batch.  Given the same rows it
+// gives the plain variant's bits: at f32 it generates each tile in
+// registers where the plain sweep loads it and everything after the load
+// is the same code (template flag GEN), and at bf16 all three variants
+// run one consumer (guard_sweep.cuh).
 // ALIE rows need the honest column moments μ, σ over all m rows, which a
 // 32-row tile does not hold when m > 32: a small first kernel
-// (gen_moments_kernel) writes them to 2·d floats of scratch, and returns
-// at once when no phase plays ALIE.
-// g, B and δ are f32 or bf16; every product is upcast to f32 (exact for
-// bf16) and accumulated in f32 with CUDA-core FMAs (no TF32 tensor cores,
-// which would break the 1e-5 tolerance against the plain version).
+// (gen_moments_kernel) writes them to 2·d floats, and returns at once when
+// no phase plays ALIE.  The caller keeps them for gen_xi (filtered_mean.cu),
+// which then skips its own moments pass: one moments pass a step.
+//
+// f32: every product in f32 on the CUDA cores with FMAs (no TF32, which
+// would break the 1e-5 tolerance against the plain version).  bf16: the
+// Grams on the tensor cores (mma.sync, bf16 in, f32 sums; a bf16×bf16
+// product is exact in f32), B_new and a_inc in f32 on the CUDA cores.
 //
 // What bounds it on an H100 (m = 32, d = 2^20): f32 moves 3·m·d·4 B =
 // 402,653,184 B, ~120 µs at 3.35 TB/s, against 4·m²·d ≈ 4.4 GFLOP, ~65 µs at
 // the 67 TFLOP/s f32 CUDA-core rate, so f32 is bound by bytes; bf16 halves
-// the bytes to ~60 µs and the FMAs become the bound.  The generating
-// variant moves only B and B_new (2·m·d·e B) but issues threefry's ~80
-// integer operations per generated element (each diagonal block generates
-// its tile once, each off-diagonal one two tiles): at m = 32 that is
-// ~2.7 G integer operations, ~0.16 ms at 64 per clock per SM, so it is
-// bound by integer operations.
+// the bytes to ~60 µs and, on the tensor cores, stays bound by them.  The
+// generating variant moves only B and B_new (2·m·d·e B) but issues
+// threefry's ~72 integer operations per generated element (each diagonal
+// block generates its tile once, each off-diagonal one two tiles): at
+// m = 32 that is ~2.4 G integer operations, ~0.14 ms at 64 per clock per
+// SM, so it is bound by integer operations.
 //
 // Design.  The Pallas grid walks d in order and carries the (m, m)
 // accumulators from one strip to the next; CUDA blocks run in parallel and
@@ -55,6 +60,8 @@
 // (fewer d-splits as the nt² worker-tile pairs grow), so the partials stay
 // bounded and the bits repeat.  Only diagonal blocks (ti == tj) write
 // B_new, a_inc and the SAN counts, so each row is written once whatever nt.
+// The bf16 sweep (guard_sweep.cuh) keeps this grid, the partials and their
+// reduction.
 //
 // The sanitizing variant zeroes g where it is used, after the prefetch has
 // landed, so no extra instruction waits on a load.  Each entry of g is
@@ -63,11 +70,14 @@
 // second row tile without counting.  Per-block counts go to scratch and a
 // third small kernel sums them per row (integers, no atomics).
 
-#include "gen_rows.cuh"
+#include "guard_sweep.cuh"
 
 namespace {
 
-constexpr int MT = 32;        // workers per output tile
+using rt::guard::MT;
+using rt::guard::sum16;
+using rt::guard::guard_bf16_kernel;
+namespace bf = rt::guard::bf;
 constexpr int TK = 64;        // columns of d per shared-memory tile
 constexpr int LDS = TK + 4;   // padded row: 16-B aligned, conflict-free float4 reads
 constexpr int NT = 256;       // threads per block
@@ -77,10 +87,11 @@ constexpr int SMEM_TILE = 3 * MT * LDS;
 constexpr int SMEM_RED = KG * 2 * MT * MT;
 constexpr int SMEM = SMEM_TILE > SMEM_RED ? SMEM_TILE : SMEM_RED;
 
-template <typename T, bool VEC, bool SAN, bool GEN>
+// The plain, sanitizing and generating f32 sweep.
+template <bool VEC, bool SAN, bool GEN>
 __global__ void __launch_bounds__(NT, 2)
-fused_guard_kernel(const T* __restrict__ g, const T* __restrict__ B,
-                   const T* __restrict__ delta, T* __restrict__ B_new,
+fused_guard_kernel(const float* __restrict__ g, const float* __restrict__ B,
+                   const float* __restrict__ delta, float* __restrict__ B_new,
                    float* __restrict__ gram_part, float* __restrict__ cross_part,
                    float* __restrict__ a_part, int* __restrict__ nf_part, int64_t m,
                    int64_t d, int64_t mp, rt::gen::Args ga) {
@@ -116,50 +127,52 @@ fused_guard_kernel(const T* __restrict__ g, const T* __restrict__ B,
     if (!vJ[p]) rowJ[p] = m - 1;
   }
 
+  float ns = 0.f, tgnrm = 0.f;
   if constexpr (GEN) {
     for (int r = tid; r < 2 * MT; r += NT) {
       const int64_t i = (int64_t)(r < MT ? ti : tj) * MT + r % MT;
-      if (i < m) srow[r] = rt::gen::load_row(ga, i);
+      srow[r] = i < m ? rt::gen::load_row(ga, i) : rt::gen::padding_row();
     }
+    ns = ga.params[rt::gen::P_NSCALE];
+    tgnrm = ga.params[rt::gen::P_TGNRM];
     __syncthreads();
   }
-  // GEN: row `local` of tile `which` (0 = I, 1 = J), columns c .. c + 3,
-  // generated and rounded through T, where the plain sweep loads them
-  auto gen4 = [&](int which, int local, int64_t c, float v[4]) {
-    const rt::gen::Row& r = srow[which * MT + local];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      v[q] = rt::gen::round_through(rt::gen::value(ga, r, c + q, d), T());
-  };
 
   float pg[2][4], pb[2][4], pj[2][4], pd[4];
   auto fetch = [&](int64_t tile) {
     const int64_t c = tile * TK + lc;
+    if constexpr (GEN) {
+      // rows lr and lr + 16 of each row tile, columns c .. c + 3, generated
+      // where the plain sweep loads them (f32: exact)
+      rt::gen::Col col[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) col[q] = rt::gen::load_col(ga, c + q < d ? c + q : d - 1);
+      const rt::gen::Row rI[2] = {srow[lr], srow[lr + 16]};
+      rt::gen::values_at<2, 4>(rI, col, ns, tgnrm, ga.moments, c, d, pg);
+      if (!diag) {
+        const rt::gen::Row rJ[2] = {srow[MT + lr], srow[MT + lr + 16]};
+        rt::gen::values_at<2, 4>(rJ, col, ns, tgnrm, ga.moments, c, d, pj);
+      }
+    }
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
       if (vI[p]) {
-        if constexpr (GEN)
-          gen4(0, lr + 16 * p, c, pg[p]);
-        else
-          rt::load4<T, VEC>(g + rowI[p] * d, c, d, pg[p]);
-        rt::load4<T, VEC>(B + rowI[p] * d, c, d, pb[p]);
+        if constexpr (!GEN) rt::load4<float, VEC>(g + rowI[p] * d, c, d, pg[p]);
+        rt::load4<float, VEC>(B + rowI[p] * d, c, d, pb[p]);
       } else {
 #pragma unroll
         for (int q = 0; q < 4; ++q) pg[p][q] = pb[p][q] = 0.f;
       }
-      if (!diag) {
+      if (!diag && !GEN) {
         if (vJ[p]) {
-          if constexpr (GEN)
-            gen4(1, lr + 16 * p, c, pj[p]);
-          else
-            rt::load4<T, VEC>(g + rowJ[p] * d, c, d, pj[p]);
+          rt::load4<float, VEC>(g + rowJ[p] * d, c, d, pj[p]);
         } else {
 #pragma unroll
           for (int q = 0; q < 4; ++q) pj[p][q] = 0.f;
         }
       }
     }
-    if (diag) rt::load4<T, VEC>(delta, c, d, pd);
+    if (diag) rt::load4<float, VEC>(delta, c, d, pd);
   };
 
   float acc_g[4][4], acc_c[4][4];
@@ -193,10 +206,10 @@ fused_guard_kernel(const T* __restrict__ g, const T* __restrict__ B,
         float s[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          s[q] = pb[p][q] + pg[p][q];  // f32 add, rounded once by the store
+          s[q] = pb[p][q] + pg[p][q];  // f32 add
           a_acc[p] = fmaf(pg[p][q], pd[q], a_acc[p]);
         }
-        rt::store4<T, VEC>(B_new + rowI[p] * d, c, d, s);
+        rt::store4<float, VEC>(B_new + rowI[p] * d, c, d, s);
       }
     }
     __syncthreads();  // the previous tile's FMAs are done with shared memory
@@ -263,17 +276,12 @@ fused_guard_kernel(const T* __restrict__ g, const T* __restrict__ B,
     // the 16 lanes that loaded a row hold its A-increment in pieces
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
-      float v = a_acc[p];
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if ((tid & 15) == 0)
-        a_part[(int64_t)blockIdx.x * mp + (int64_t)ti * MT + lr + 16 * p] = v;
+      const int64_t o = (int64_t)blockIdx.x * mp + (int64_t)ti * MT + lr + 16 * p;
+      const float v = sum16(a_acc[p]);
+      if ((tid & 15) == 0) a_part[o] = v;
       if constexpr (SAN) {
-        int c = nf_acc[p];
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1) c += __shfl_xor_sync(0xffffffffu, c, off);
-        if ((tid & 15) == 0)
-          nf_part[(int64_t)blockIdx.x * mp + (int64_t)ti * MT + lr + 16 * p] = c;
+        const int c = sum16(nf_acc[p]);
+        if ((tid & 15) == 0) nf_part[o] = c;
       }
     }
   }
@@ -325,64 +333,103 @@ nf_reduce_kernel(const int* __restrict__ nf_part, int* __restrict__ nf, int64_t 
   nf[i] = s;
 }
 
-template <typename T, bool SAN, bool GEN>
-cudaError_t launch(const void* g, const void* B, const void* delta, void* B_new,
-                   float* gram_part, float* cross_part, float* a_part, int* nf_part,
-                   int64_t m, int64_t d, int64_t nb, const rt::gen::Args& ga,
-                   cudaStream_t stream) {
-  const int64_t nt = (m + MT - 1) / MT, mp = nt * MT;
-  const dim3 grid((unsigned)nb, (unsigned)nt, (unsigned)nt);
-  const bool vec = d % 4 == 0 && rt::aligned(g, 4 * sizeof(T)) &&
-                   rt::aligned(B, 4 * sizeof(T)) && rt::aligned(delta, 4 * sizeof(T)) &&
-                   rt::aligned(B_new, 4 * sizeof(T));
-  const T* gt = static_cast<const T*>(g);
-  const T* bt = static_cast<const T*>(B);
-  const T* dt = static_cast<const T*>(delta);
-  T* bn = static_cast<T*>(B_new);
+// The outputs and scratch of one sweep, as the entry points receive them.
+struct Sweep {
+  const void* g;  // null for the generating variant
+  const void* B;
+  const void* delta;
+  void* B_new;
+  float* gram_part;
+  float* cross_part;
+  float* a_part;
+  int* nf_part;
+  int64_t m, d, nb;
+};
+
+template <bool SAN, bool GEN>
+cudaError_t launch_f32(const Sweep& w, const rt::gen::Args& ga, cudaStream_t stream) {
+  const int64_t nt = (w.m + MT - 1) / MT, mp = nt * MT;
+  const dim3 grid((unsigned)w.nb, (unsigned)nt, (unsigned)nt);
+  const bool vec = w.d % 4 == 0 && (GEN || rt::aligned(w.g, 16)) && rt::aligned(w.B, 16) &&
+                   rt::aligned(w.delta, 16) && rt::aligned(w.B_new, 16);
+  const float* gt = static_cast<const float*>(w.g);
+  const float* bt = static_cast<const float*>(w.B);
+  const float* dt = static_cast<const float*>(w.delta);
+  float* bn = static_cast<float*>(w.B_new);
   if (vec)
-    fused_guard_kernel<T, true, SAN, GEN><<<grid, NT, 0, stream>>>(
-        gt, bt, dt, bn, gram_part, cross_part, a_part, nf_part, m, d, mp, ga);
+    fused_guard_kernel<true, SAN, GEN><<<grid, NT, 0, stream>>>(
+        gt, bt, dt, bn, w.gram_part, w.cross_part, w.a_part, w.nf_part, w.m, w.d, mp, ga);
   else
-    fused_guard_kernel<T, false, SAN, GEN><<<grid, NT, 0, stream>>>(
-        gt, bt, dt, bn, gram_part, cross_part, a_part, nf_part, m, d, mp, ga);
+    fused_guard_kernel<false, SAN, GEN><<<grid, NT, 0, stream>>>(
+        gt, bt, dt, bn, w.gram_part, w.cross_part, w.a_part, w.nf_part, w.m, w.d, mp, ga);
+  return cudaGetLastError();
+}
+
+template <bool VEC, bool SAN, bool GEN>
+cudaError_t launch_bf16_one(const Sweep& w, const rt::gen::Args& ga, cudaStream_t stream) {
+  const int64_t nt = (w.m + MT - 1) / MT;
+  const int ops = nt > 1 ? 3 : 2;
+  // the largest ring this kernel takes, allowed once per device (above the
+  // default 48 KB of dynamic shared memory)
+  static uint64_t allowed = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 64 && !((allowed >> device) & 1)) {
+    err = cudaFuncSetAttribute(guard_bf16_kernel<VEC, SAN, GEN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bf::STAGES * bf::stage_bytes(3));
+    if (err != cudaSuccess) return err;
+    allowed |= 1ull << device;
+  }
+  const dim3 grid((unsigned)w.nb, (unsigned)nt, (unsigned)nt);
+  const int threads = GEN ? bf::NC + bf::NG : bf::NC;
+  guard_bf16_kernel<VEC, SAN, GEN><<<grid, threads, (size_t)bf::STAGES * bf::stage_bytes(ops),
+                                     stream>>>(
+      static_cast<const __nv_bfloat16*>(w.g), static_cast<const __nv_bfloat16*>(w.B),
+      static_cast<const __nv_bfloat16*>(w.delta), static_cast<__nv_bfloat16*>(w.B_new),
+      w.gram_part, w.cross_part, w.a_part, w.nf_part, w.m, w.d, nt * MT, ops, ga);
   return cudaGetLastError();
 }
 
 template <bool SAN, bool GEN>
-int run(int64_t dtype, const void* g, const void* B, const void* delta, void* B_new,
-        void* gram_part, void* cross_part, void* a_part, void* nf_part, void* gram,
-        void* cross, void* a_inc, void* nf, int64_t m, int64_t d, int64_t nb,
+cudaError_t launch_bf16(const Sweep& w, const rt::gen::Args& ga, cudaStream_t stream) {
+  // VEC: whole 16-byte chunks (8 bf16) of every row, aligned
+  const bool vec = w.d % 8 == 0 && (GEN || rt::aligned(w.g, 16)) && rt::aligned(w.B, 16) &&
+                   rt::aligned(w.delta, 16) && rt::aligned(w.B_new, 16);
+  return vec ? launch_bf16_one<true, SAN, GEN>(w, ga, stream)
+             : launch_bf16_one<false, SAN, GEN>(w, ga, stream);
+}
+
+template <bool SAN, bool GEN>
+int run(int64_t dtype, const Sweep& w, void* gram, void* cross, void* a_inc, void* nf,
         const rt::gen::Args& ga, int64_t device, void* stream) {
-  if (m < 1 || m > rt::MAX_WORKERS || d < 1 || nb < 1 || nb > 0x7fffffff)
+  if (w.m < 1 || w.m > rt::MAX_WORKERS || w.d < 1 || w.nb < 1 || w.nb > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (GEN) {
-    err = rt::gen::launch_moments(ga, m, d, s);
+    err = rt::gen::launch_moments(ga, w.m, w.d, s);
     if (err != cudaSuccess) return (int)err;
   }
-  float* gp = static_cast<float*>(gram_part);
-  float* cp = static_cast<float*>(cross_part);
-  float* ap = static_cast<float*>(a_part);
-  int* np = static_cast<int*>(nf_part);
   if (dtype == 0)
-    err = launch<float, SAN, GEN>(g, B, delta, B_new, gp, cp, ap, np, m, d, nb, ga, s);
+    err = launch_f32<SAN, GEN>(w, ga, s);
   else if (dtype == 1)
-    err = launch<__nv_bfloat16, SAN, GEN>(g, B, delta, B_new, gp, cp, ap, np, m, d, nb, ga, s);
+    err = launch_bf16<SAN, GEN>(w, ga, s);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
-  const int64_t mp = ((m + MT - 1) / MT) * MT;
-  const int64_t threads = 8 * (2 * m * m + m);
+  const int64_t mp = ((w.m + MT - 1) / MT) * MT;
+  const int64_t threads = 8 * (2 * w.m * w.m + w.m);
   fused_guard_reduce_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
-      gp, cp, ap, static_cast<float*>(gram), static_cast<float*>(cross),
-      static_cast<float*>(a_inc), m, mp, nb);
+      w.gram_part, w.cross_part, w.a_part, static_cast<float*>(gram),
+      static_cast<float*>(cross), static_cast<float*>(a_inc), w.m, mp, w.nb);
   if constexpr (SAN) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    nf_reduce_kernel<<<(unsigned)((m + 127) / 128), 128, 0, s>>>(np, static_cast<int*>(nf),
-                                                                 m, mp, nb);
+    nf_reduce_kernel<<<(unsigned)((w.m + 127) / 128), 128, 0, s>>>(
+        w.nf_part, static_cast<int*>(nf), w.m, mp, w.nb);
   }
   return (int)cudaGetLastError();
 }
@@ -390,14 +437,18 @@ int run(int64_t dtype, const void* g, const void* B, const void* delta, void* B_
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16 (g, B, delta and B_new share it).  The scratch
-// buffers hold nb·mp·mp (Grams) and nb·mp (A) floats, mp = 32·ceil(m/32).
+// buffers hold nb·mp·mp (Grams) and nb·mp (A) floats, mp = 32·ceil(m/32);
+// nb is the number of d-splits, chosen by the caller from the shape (the
+// f32 sweep walks d in tiles of 64 columns, the bf16 one in tiles of 128).
 // Returns 0 or the CUDA error of the first launch that failed.
 extern "C" int rt_fused_guard(int64_t dtype, const void* g, const void* B, const void* delta,
                               void* B_new, void* gram_part, void* cross_part, void* a_part,
                               void* gram, void* cross, void* a_inc, int64_t m, int64_t d,
                               int64_t nb, int64_t device, void* stream) {
-  return run<false, false>(dtype, g, B, delta, B_new, gram_part, cross_part, a_part, nullptr,
-                           gram, cross, a_inc, nullptr, m, d, nb, rt::gen::Args{}, device,
+  const Sweep w{g, B, delta, B_new, static_cast<float*>(gram_part),
+                static_cast<float*>(cross_part), static_cast<float*>(a_part), nullptr, m, d,
+                nb};
+  return run<false, false>(dtype, w, gram, cross, a_inc, nullptr, rt::gen::Args{}, device,
                            stream);
 }
 
@@ -409,16 +460,19 @@ extern "C" int rt_fused_guard_sanitize(int64_t dtype, const void* g, const void*
                                        void* gram, void* cross, void* a_inc, void* nf,
                                        int64_t m, int64_t d, int64_t nb, int64_t device,
                                        void* stream) {
-  return run<true, false>(dtype, g, B, delta, B_new, gram_part, cross_part, a_part, nf_part,
-                          gram, cross, a_inc, nf, m, d, nb, rt::gen::Args{}, device, stream);
+  const Sweep w{g, B, delta, B_new, static_cast<float*>(gram_part),
+                static_cast<float*>(cross_part), static_cast<float*>(a_part),
+                static_cast<int*>(nf_part), m, d, nb};
+  return run<true, false>(dtype, w, gram, cross, a_inc, nf, rt::gen::Args{}, device, stream);
 }
 
 // The generating variant: as rt_fused_guard with no g; instead the
 // generator's operands (gen_rows.cuh): x, h, x*, het_dir (d,) f32, keys
 // (m, 2) uint32 words, skew (m,) f32, slot (m,) int32, params (12,) f32,
-// and 2·d floats of scratch for the honest column moments.  The moments
-// kernel runs first (and returns at once unless an ALIE id is in play);
-// then the sweep generates each tile of g where rt_fused_guard loads it.
+// and 2·d floats for the honest column moments.  The moments kernel runs
+// first (and returns at once unless an ALIE id is in play) and leaves them
+// there for rt_gen_xi; then the sweep generates each tile of g where
+// rt_fused_guard loads it.
 extern "C" int rt_fused_guard_gen(int64_t dtype, const void* B, const void* delta,
                                   void* B_new, void* gram_part, void* cross_part, void* a_part,
                                   void* gram, void* cross, void* a_inc, const void* x,
@@ -431,6 +485,8 @@ extern "C" int rt_fused_guard_gen(int64_t dtype, const void* B, const void* delt
                          static_cast<const uint32_t*>(keys),  static_cast<const float*>(skew),
                          static_cast<const int*>(slot),       static_cast<const float*>(params),
                          static_cast<float*>(moments)};
-  return run<false, true>(dtype, nullptr, B, delta, B_new, gram_part, cross_part, a_part,
-                          nullptr, gram, cross, a_inc, nullptr, m, d, nb, ga, device, stream);
+  const Sweep w{nullptr, B, delta, B_new, static_cast<float*>(gram_part),
+                static_cast<float*>(cross_part), static_cast<float*>(a_part), nullptr, m, d,
+                nb};
+  return run<false, true>(dtype, w, gram, cross, a_inc, nullptr, ga, device, stream);
 }

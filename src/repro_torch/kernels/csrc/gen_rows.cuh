@@ -1,7 +1,7 @@
-// The in-kernel gradient generator shared by the two generating kernels
-// (fused_guard.cu with GEN, filtered_mean.cu's gen_xi): each worker's
-// attacked gradient at coordinate j, rebuilt from (worker key, j) instead
-// of read from an (m, d) batch.
+// The in-kernel gradient generator shared by the generating kernels (the
+// generating sweeps of fused_guard.cu and guard_sweep.cuh, filtered_mean.cu's
+// gen_xi): each worker's attacked gradient at coordinate j, rebuilt from
+// (worker key, j) instead of read from an (m, d) batch.
 //
 // Replaces: repro/kernels/fused_guard.py, _gen_strip, and the row math of
 // repro/kernels/gradgen.py, gen_worker_rows; plain version:
@@ -123,33 +123,78 @@ __device__ __forceinline__ Col load_col(const Args& a, int64_t j) {
 // Worker (k0, k1, skew)'s honest gradient at coordinate j.
 __device__ __forceinline__ float honest(uint32_t k0, uint32_t k1, float skew, const Col& c,
                                         float ns, int64_t j) {
-  float g = __fadd_rn(c.t, __fmul_rn(ns, centered_uniform(noise_bits(k0, k1, (uint32_t)j))));
-  if (skew != 0.f) g = __fadd_rn(g, __fmul_rn(skew, c.hd));
-  return g;
+  const float u = centered_uniform(noise_bits(k0, k1, (uint32_t)j));
+  const float g = __fadd_rn(c.t, __fmul_rn(ns, u));
+  return skew != 0.f ? __fadd_rn(g, __fmul_rn(skew, c.hd)) : g;  // a select, not a branch
 }
 
-// Worker r's row at coordinate j < d: its attack applied to its honest
-// value g (the where-chain of gen_worker_rows; ids 0, 2 and any other
-// fall through to g).  gn = t/‖∇f‖; mu, sig are read only for ids 4, 8.
-__device__ __forceinline__ float attacked(const Row& r, float g, const Col& c, float tgnrm,
-                                          const float* mom, int64_t j, int64_t d) {
-  if (r.slot <= 0) return g;
+// Worker r's outputs at the N coordinates j0 .. j0 + N − 1 (column data
+// c[], clamped to d − 1 past the end) from its honest values g[]: its
+// attack, the where-chain of gen_worker_rows (ids 0, 2 and any other fall
+// through to g; gn = t/‖∇f‖; ALIE's ids 4 and 8 read the honest column
+// moments μ, σ), decided once for the row (a warp whose threads share the
+// row takes one branch), then 0 for a padding row (slot −1) or j ≥ d.
+template <int N>
+__device__ __forceinline__ void attack_row(const Row& r, const float* g, const Col* c,
+                                           float tgnrm, const float* mom, int64_t j0,
+                                           int64_t d, float* out) {
   const float a = r.aid;
-  if (a == 1.f) return __fmul_rn(r.sf, g);
-  if (a == 3.f) return __fadd_rn(r.cst, 0.f);
-  if (a == 4.f) return __fsub_rn(mom[j], __fmul_rn(r.zf, mom[d + j]));
-  if (a == 8.f) return __fadd_rn(mom[j], __fmul_rn(r.zf, mom[d + j]));
-  if (a == 5.f) return __fsub_rn(c.t, __fmul_rn(r.ipc, __fdiv_rn(c.t, tgnrm)));
-  if (a == 6.f) return __fadd_rn(c.t, r.cst);
-  return g;
+  if (r.slot <= 0 || !(a == 1.f || a == 3.f || a == 4.f || a == 8.f || a == 5.f || a == 6.f)) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) out[e] = g[e];
+  } else if (a == 1.f) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) out[e] = __fmul_rn(r.sf, g[e]);
+  } else if (a == 3.f) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) out[e] = __fadd_rn(r.cst, 0.f);
+  } else if (a == 4.f || a == 8.f) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const int64_t j = j0 + e < d ? j0 + e : d - 1;
+      const float zs = __fmul_rn(r.zf, mom[d + j]);
+      out[e] = a == 4.f ? __fsub_rn(mom[j], zs) : __fadd_rn(mom[j], zs);
+    }
+  } else if (a == 5.f) {
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      out[e] = __fsub_rn(c[e].t, __fmul_rn(r.ipc, __fdiv_rn(c[e].t, tgnrm)));
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) out[e] = __fadd_rn(c[e].t, r.cst);
+  }
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    if (r.slot < 0 || j0 + e >= d) out[e] = 0.f;
 }
 
-// Worker r's output at coordinate j: 0 for a padding row or j ≥ d.
-__device__ __forceinline__ float value(const Args& a, const Row& r, int64_t j, int64_t d) {
-  if (r.slot < 0 || j >= d) return 0.f;
-  const Col c = load_col(a, j);
-  const float g = honest(r.k0, r.k1, r.skew, c, a.params[P_NSCALE], j);
-  return attacked(r, g, c, a.params[P_TGNRM], a.moments, j, d);
+// Rows rows[0 .. R − 1] at the N coordinates j0 .. j0 + N − 1 (column
+// data c[]): the values the plain version gives.  All R·N honest values
+// come first, with no branch between them, so the compiler interleaves
+// their threefry chains (one chain alone waits on each of its ~40
+// dependent steps); then each row's attack.
+template <int R, int N>
+__device__ __forceinline__ void values_at(const Row* rows, const Col* c, float ns, float tgnrm,
+                                          const float* mom, int64_t j0, int64_t d,
+                                          float (*out)[N]) {
+  float g[R][N];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      g[i][e] = honest(rows[i].k0, rows[i].k1, rows[i].skew, c[e], ns, j0 + e);
+#pragma unroll
+  for (int i = 0; i < R; ++i) attack_row<N>(rows[i], g[i], c, tgnrm, mom, j0, d, out[i]);
+}
+
+// The constants of a row past m: a padding row, whose outputs are 0.
+__device__ __forceinline__ Row padding_row() {
+  Row r;
+  r.k0 = r.k1 = 0u;
+  r.skew = 0.f;
+  r.slot = -1;
+  r.aid = r.sf = r.zf = r.cst = r.ipc = 0.f;
+  return r;
 }
 
 // v rounded once through T (round-to-nearest-even for bf16) and back.
@@ -171,8 +216,9 @@ constexpr int ROW_CHUNK = 128;
 // m = 12288 no f32 chain is longer than 128 + 96 terms.  One thread per
 // column; a block's threads walk their columns in step, so the chunks of
 // worker constants can be staged block-wide.  The whole grid returns at
-// once when no phase plays ids 4 or 8.  Launched before either generating
-// kernel, on the same stream.
+// once when no phase plays ids 4 or 8.  Launched before the generating
+// sweep, on the same stream; gen_xi launches it again only when the caller
+// does not hand it the sweep's moments.
 __global__ void __launch_bounds__(256)
 gen_moments_kernel(Args a, int64_t m, int64_t d) {
   if (!needs_moments(a.params)) return;

@@ -66,22 +66,6 @@ constexpr int ACC = 32;        // f32 accumulators a thread holds (bf16: 2×4×4
 constexpr int FLUSH = 16;      // tiles summed in registers before they join the running sum
 constexpr int RUN_BYTES = ACC * NT * 4;  // the running sums, after the ring
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Rows row0 .. row0 + 31 of X, columns [col0, col0 + ROW_BYTES / e), into
 // one operand slot of the ring; rows at or past m and columns at or past d
 // are zero.  VEC: every row is 16-byte aligned and d·e is a multiple of 16,
@@ -99,7 +83,7 @@ __device__ __forceinline__ void load_tile(unsigned char* slot, const T* __restri
     unsigned char* dst = slot + r * PITCH + q * 16;
     if constexpr (VEC) {
       const bool in = row < m && col < d;
-      cp_async16(dst, in ? (const void*)(x + row * d + col) : (const void*)x, in ? 16 : 0);
+      rt::cp_async16(dst, in ? (const void*)(x + row * d + col) : (const void*)x, in ? 16 : 0);
     } else {
       // the raw bits, element by element (a zero word is 0.0 in both types)
       using U = typename std::conditional<E == 2, uint16_t, uint32_t>::type;
@@ -110,25 +94,6 @@ __device__ __forceinline__ void load_tile(unsigned char* slot, const T* __restri
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
     }
   }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const unsigned char* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s)
-               : "memory");
-}
-
-// D = A·B + D on the tensor cores: A 16×16 bf16 (row), B 16×8 bf16 (col),
-// D 16×8 f32.
-__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // bf16: warp w takes the 16-column slices w and w + 8 of each 256-column
@@ -151,7 +116,7 @@ __device__ __forceinline__ void compute_bf16(Bf16Acc& acc, const unsigned char* 
     const int kb = 32 * (warp + 8 * q);  // byte offset of the 16-column slice
     unsigned a[2][4], b[2][4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) ldmatrix_x4(a[h], sI + (16 * h + lrow) * PITCH + kb + lcol);
+    for (int h = 0; h < 2; ++h) rt::ldmatrix_x4(a[h], sI + (16 * h + lrow) * PITCH + kb + lcol);
     if (diag) {
 #pragma unroll
       for (int h = 0; h < 2; ++h)
@@ -159,14 +124,14 @@ __device__ __forceinline__ void compute_bf16(Bf16Acc& acc, const unsigned char* 
         for (int t = 0; t < 4; ++t) b[h][t] = a[h][t];
     } else {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) ldmatrix_x4(b[h], sJ + (16 * h + lrow) * PITCH + kb + lcol);
+      for (int h = 0; h < 2; ++h) rt::ldmatrix_x4(b[h], sJ + (16 * h + lrow) * PITCH + kb + lcol);
     }
     // column block n of 8 rows of X_J: (b[n/2][n%2], b[n/2][n%2 + 2])
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int n = 0; n < 4; ++n)
-        mma_bf16(acc.c[mi][n], a[mi], b[n >> 1][n & 1], b[n >> 1][(n & 1) + 2]);
+        rt::mma_bf16(acc.c[mi][n], a[mi], b[n >> 1][n & 1], b[n >> 1][(n & 1) + 2]);
   }
 }
 
@@ -271,13 +236,13 @@ gram_kernel(const T* __restrict__ x, float* __restrict__ part, int64_t m, int64_
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < cnt) load(s);
-    cp_async_commit();
+    rt::cp_async_commit();
   }
   for (int64_t k = 0; k < cnt; ++k) {
-    cp_async_wait<STAGES - 2>();  // tile k has landed (this thread's copies)
-    __syncthreads();              // ... everyone's, and tile k - 1 is consumed
+    rt::cp_async_wait<STAGES - 2>();  // tile k has landed (this thread's copies)
+    __syncthreads();                  // ... everyone's, and tile k - 1 is consumed
     if (k + STAGES - 1 < cnt) load(k + STAGES - 1);
-    cp_async_commit();
+    rt::cp_async_commit();
     const unsigned char* sI = slot(k, 0);
     const unsigned char* sJ = diag ? sI : slot(k, 1);
     if constexpr (BF16)
@@ -286,7 +251,7 @@ gram_kernel(const T* __restrict__ x, float* __restrict__ part, int64_t m, int64_
       compute_f32(facc, sI, sJ);
     if ((k + 1) % FLUSH == 0) flush();
   }
-  cp_async_wait<0>();
+  rt::cp_async_wait<0>();
   flush();
   __syncthreads();
 

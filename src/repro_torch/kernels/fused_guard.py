@@ -19,12 +19,16 @@ counterpart here: the kernel takes any d without padding.
 The two generating kernels replace ``fused_guard_gen_pallas`` and
 ``gen_xi_pallas``: ``fused_guard_gen_cuda`` is the sweep above with each
 tile of g generated in the kernel from the worker keys and the attack
-parameters (``csrc/fused_guard.cu``, flag ``GEN``; the generator is
-``csrc/gen_rows.cuh``), and ``gen_xi_cuda`` the filtered-mean loop of
-``csrc/filtered_mean.cu`` over generated rows, returning ξ and the
-Byzantine row sum.  Neither reads or writes an (m, d) gradient batch.
-Their plain versions are ``ref.fused_guard_gen_ref`` and
-``ref.gen_xi_ref``; each counts its launches in ``.launches``.
+parameters (``csrc/fused_guard.cu``'s ``rt_fused_guard_gen``: flag ``GEN``
+there at f32, in ``csrc/guard_sweep.cuh`` at bf16; the generator is
+``csrc/gen_rows.cuh``), and
+``gen_xi_cuda`` the filtered-mean loop of ``csrc/filtered_mean.cu`` over
+generated rows, returning ξ and the Byzantine row sum.  Neither reads or
+writes an (m, d) gradient batch.  ALIE's honest column moments are taken
+once a step: ``fused_guard_gen_cuda(..., moments=buf)`` leaves them in
+``buf`` and ``gen_xi_cuda(..., moments=buf)`` reads them.  Their plain
+versions are ``ref.fused_guard_gen_ref`` and ``ref.gen_xi_ref``; each
+counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -52,7 +56,10 @@ _SANITIZE_ARGTYPES = ([ctypes.c_int64] + [ctypes.c_void_p] * 12
 _GEN_ARGTYPES = ([ctypes.c_int64] + [ctypes.c_void_p] * 18
                  + [ctypes.c_int64] * 4 + [ctypes.c_void_p])
 _GEN_XI_ARGTYPES = ([ctypes.c_int64] + [ctypes.c_void_p] * 13
-                    + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
+                    + [ctypes.c_int64] * 4 + [ctypes.c_void_p])
+# columns of d per tile of the sweep: f32 on the CUDA cores, bf16 on the
+# tensor cores (csrc/guard_sweep.cuh); the d-splits count these tiles
+_SWEEP_TILE = {torch.float32: 64, torch.bfloat16: 128}
 
 
 def check_cuda_inputs(name: str, tensors: dict, dtypes) -> torch.device:
@@ -90,6 +97,32 @@ def d_splits(n_tiles: int, tile_pairs: int, dev: torch.device) -> int:
     return max(1, min(n_tiles, 2 * sms, fill))
 
 
+def _sweep_buffers(B: torch.Tensor, dev: torch.device):
+    """The d-split count and the buffers of one sweep over (m, d) ``B``:
+    ``(nb, parts, a_part, gram_g, cross, a_inc, B_new)``; ``parts`` holds
+    both Grams' per-split partials."""
+    m, d = B.shape
+    nt = -(-m // _TILE)
+    mp = _TILE * nt
+    nb = d_splits(-(-d // _SWEEP_TILE[B.dtype]), nt * nt, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (nb, torch.empty((2, nb, mp, mp), **f32), torch.empty((nb, mp), **f32),
+            torch.empty((m, m), **f32), torch.empty((m, m), **f32), torch.empty((m,), **f32),
+            torch.empty_like(B))
+
+
+def _moments_buffer(name: str, moments, d: int, dev: torch.device) -> torch.Tensor:
+    """``moments`` checked as a contiguous (2, d) f32 tensor on ``dev``, or
+    a new one when it is None."""
+    if moments is None:
+        return torch.empty((2, d), dtype=torch.float32, device=dev)
+    if (moments.device != dev or moments.dtype != torch.float32
+            or moments.shape != (2, d) or not moments.is_contiguous()):
+        raise ValueError(f"{name}: moments must be a contiguous (2, {d}) f32 tensor on {dev}, "
+                         f"got {tuple(moments.shape)} {moments.dtype} on {moments.device}")
+    return moments
+
+
 def fused_guard_cuda(grads: torch.Tensor, B: torch.Tensor, delta: torch.Tensor,
                      sanitize: bool = False):
     """Launch the fused guard kernel (its sanitizing variant when
@@ -105,21 +138,12 @@ def fused_guard_cuda(grads: torch.Tensor, B: torch.Tensor, delta: torch.Tensor,
     check_workers("fused_guard", m)
     if d < 1:
         raise ValueError(f"fused_guard: needs d >= 1, got d={d}")
-    nt = -(-m // _TILE)
-    mp = _TILE * nt
-    nb = d_splits(-(-d // 64), nt * nt, dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    parts = torch.empty((2, nb, mp, mp), **f32)
-    a_part = torch.empty((nb, mp), **f32)
-    gram_g = torch.empty((m, m), **f32)
-    cross = torch.empty((m, m), **f32)
-    a_inc = torch.empty((m,), **f32)
-    B_new = torch.empty_like(B)
+    nb, parts, a_part, gram_g, cross, a_inc, B_new = _sweep_buffers(B, dev)
     inputs = [grads, B, delta, B_new, parts[0], parts[1], a_part]
     outputs = [gram_g, cross, a_inc]
     if sanitize:
         # per-block counts, then the (m,) int32 output nf
-        inputs.append(torch.empty((nb, mp), dtype=torch.int32, device=dev))
+        inputs.append(torch.empty_like(a_part, dtype=torch.int32))
         outputs.append(torch.empty((m,), dtype=torch.int32, device=dev))
         fn = _build.load_function("fused_guard", "rt_fused_guard_sanitize",
                                   _SANITIZE_ARGTYPES)
@@ -167,10 +191,13 @@ def _gen_operands(name: str, dev: torch.device, m: int, d: int, x, h, x_star, he
     return [x, h, x_star, het_dir, words, skewsign, slot, params]
 
 
-def fused_guard_gen_cuda(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, params):
+def fused_guard_gen_cuda(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, params,
+                         moments=None):
     """Launch the generating fused guard: ``fused_guard_cuda``'s four
     outputs over the rows the generator makes, rounded through ``B.dtype``;
-    raises on anything it does not take."""
+    raises on anything it does not take.  ``moments``, a (2, d) f32 tensor,
+    receives the honest column moments (μ, σ) when an ALIE id is in play,
+    for :func:`gen_xi_cuda` of the same step; without it they go to scratch."""
     dev = check_cuda_inputs("fused_guard_gen", {"B": B, "delta": delta}, tuple(_DTYPE_CODES))
     if B.dim() != 2 or delta.shape != B.shape[1:] or B.dtype != delta.dtype:
         raise ValueError(f"fused_guard_gen: B {tuple(B.shape)} {B.dtype} and delta "
@@ -178,17 +205,8 @@ def fused_guard_gen_cuda(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, 
     m, d = B.shape
     gen = _gen_operands("fused_guard_gen", dev, m, d, x, h, x_star, het_dir, keys, skewsign,
                         slot, params)
-    nt = -(-m // _TILE)
-    mp = _TILE * nt
-    nb = d_splits(-(-d // 64), nt * nt, dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    parts = torch.empty((2, nb, mp, mp), **f32)
-    a_part = torch.empty((nb, mp), **f32)
-    gram_g = torch.empty((m, m), **f32)
-    cross = torch.empty((m, m), **f32)
-    a_inc = torch.empty((m,), **f32)
-    B_new = torch.empty_like(B)
-    moments = torch.empty((2, d), **f32)
+    moments = _moments_buffer("fused_guard_gen", moments, d, dev)
+    nb, parts, a_part, gram_g, cross, a_inc, B_new = _sweep_buffers(B, dev)
     fn = _build.load_function("fused_guard", "rt_fused_guard_gen", _GEN_ARGTYPES)
     ptrs = [B, delta, B_new, parts[0], parts[1], a_part, gram_g, cross, a_inc, *gen, moments]
     rc = fn(_DTYPE_CODES[B.dtype], *(t.data_ptr() for t in ptrs), m, d, nb, dev.index,
@@ -200,10 +218,12 @@ def fused_guard_gen_cuda(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, 
 
 
 def gen_xi_cuda(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,
-                stats_dtype=torch.float32):
+                stats_dtype=torch.float32, moments=None):
     """Launch the generating ξ pass: ``(Σ w_xi·round(rows), Σ w_byz·rows)``,
     the rows rounded through ``stats_dtype`` for ξ only; raises on anything
-    it does not take."""
+    it does not take.  ``moments``: the (2, d) f32 tensor that
+    :func:`fused_guard_gen_cuda` filled for the same operands; the kernel
+    then reads ALIE's moments from it and runs no moments pass of its own."""
     m, d = keys.shape[0], x.shape[0]
     dev = check_cuda_inputs("gen_xi", {"w_xi": w_xi, "w_byz": w_byz}, (torch.float32,))
     if w_xi.shape != (m,) or w_byz.shape != (m,):
@@ -212,14 +232,15 @@ def gen_xi_cuda(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params
         raise TypeError(f"gen_xi: stats_dtype {stats_dtype} is not one of {tuple(_DTYPE_CODES)}")
     gen = _gen_operands("gen_xi", dev, m, d, x, h, x_star, het_dir, keys, skewsign, slot,
                         params)
+    ready = moments is not None
+    moments = _moments_buffer("gen_xi", moments, d, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     xi = torch.empty((d,), **f32)
     byz = torch.empty((d,), **f32)
-    moments = torch.empty((2, d), **f32)
     fn = _build.load_function("filtered_mean", "rt_gen_xi", _GEN_XI_ARGTYPES)
     ptrs = [w_xi, w_byz, xi, byz, *gen, moments]
-    rc = fn(_DTYPE_CODES[stats_dtype], *(t.data_ptr() for t in ptrs), m, d, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
+    rc = fn(_DTYPE_CODES[stats_dtype], *(t.data_ptr() for t in ptrs), int(ready), m, d,
+            dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gen_xi: kernel launch failed with CUDA error {rc}")
     gen_xi_cuda.launches += 1

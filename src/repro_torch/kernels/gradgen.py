@@ -126,7 +126,31 @@ class GenStepCtx(NamedTuple):
     w_byz: torch.Tensor        # (m,) f32 Byzantine mask, for the feedback sum
 
 
-def gen_worker_rows(x, h, x_star, het_dir, keys, skewsign, slot, params, j, d: int):
+def honest_rows(x, h, x_star, het_dir, keys, skewsign, params, j):
+    """``(t, g)``: the true gradient t (blk,) and every worker's honest
+    row g (m, blk) at the coordinates ``j`` (arguments as for
+    :func:`gen_worker_rows`)."""
+    jm = j.reshape(1, -1)
+    t = mean_grad(h, x, x_star)
+    bits = threefry2x32(keys[:, 0:1], keys[:, 1:2], torch.zeros_like(jm), jm)[0]
+    g = t[None, :] + params[P_NSCALE] * centered_uniform(bits)
+    g = torch.where(skewsign[:, None] != 0.0,
+                    g + skewsign[:, None] * het_dir[None, :], g)
+    return t, g
+
+
+def honest_moments(g, slot):
+    """ALIE's honest column moments ``(μ, σ)`` over the rows of slot 0,
+    population form, as attacks._good_row_stats."""
+    w = (slot == 0).to(torch.float32)[:, None]
+    n_good = torch.clamp(torch.sum(w), min=1.0)
+    mu = torch.sum(g * w, dim=0) / n_good
+    var = torch.sum(w * (g - mu[None, :]) ** 2, dim=0) / n_good
+    return mu, torch.sqrt(var + 1e-12)
+
+
+def gen_worker_rows(x, h, x_star, het_dir, keys, skewsign, slot, params, j, d: int,
+                    moments=None):
     """All worker rows at the coordinates ``j``, attacked: the plain
     version of the generating kernels' prologue, op for op the JAX
     package's ``gen_worker_rows``.
@@ -134,23 +158,15 @@ def gen_worker_rows(x, h, x_star, het_dir, keys, skewsign, slot, params, j, d: i
     ``x, h, x_star, het_dir`` are the (blk,) f32 strips at ``j``; ``keys``
     the (m, 2) int64 key words; ``skewsign`` (m,) f32; ``slot`` (m,) int
     (−1 marks a padding row); ``params`` (GEN_NPARAMS,) f32; ``j`` the
-    (blk,) int64 global coordinates.  Returns (m, blk) f32 rows; padding
-    rows and coordinates at or past ``d`` are 0.
+    (blk,) int64 global coordinates; ``moments``, when given, the (2, blk)
+    honest moments (μ, σ) at ``j`` to use instead of taking them from
+    these rows (:func:`honest_moments` gives the same values).  Returns
+    (m, blk) f32 rows; padding rows and coordinates at or past ``d`` are 0.
     """
     p = params
     jm = j.reshape(1, -1)
-    t = mean_grad(h, x, x_star)
-    bits = threefry2x32(keys[:, 0:1], keys[:, 1:2], torch.zeros_like(jm), jm)[0]
-    g = t[None, :] + p[P_NSCALE] * centered_uniform(bits)
-    g = torch.where(skewsign[:, None] != 0.0,
-                    g + skewsign[:, None] * het_dir[None, :], g)
-
-    # honest moments, population form, as attacks._good_row_stats
-    w = (slot == 0).to(torch.float32)[:, None]
-    n_good = torch.clamp(torch.sum(w), min=1.0)
-    mu = torch.sum(g * w, dim=0) / n_good
-    var = torch.sum(w * (g - mu[None, :]) ** 2, dim=0) / n_good
-    sig = torch.sqrt(var + 1e-12)
+    t, g = honest_rows(x, h, x_star, het_dir, keys, skewsign, params, j)
+    mu, sig = honest_moments(g, slot) if moments is None else (moments[0], moments[1])
     gn = t / p[P_TGNRM]
 
     use_b = slot == 2

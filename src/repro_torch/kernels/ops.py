@@ -82,24 +82,29 @@ def countsketch(x: torch.Tensor, k: int, salt: int = 0) -> torch.Tensor:
     return ref.countsketch_ref(x, k, salt)
 
 
-def fused_guard_gen(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, params):
+def fused_guard_gen(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, params,
+                    moments=None):
     """:func:`fused_guard` with the (m, d) gradients generated from the
     worker keys and the attack parameters instead of read (see
     :func:`repro_torch.kernels.gradgen.gen_worker_rows`); the rows are
-    rounded through ``B.dtype``.  ``keys`` are (m, 2) int64 uint32 words."""
+    rounded through ``B.dtype``.  ``keys`` are (m, 2) int64 uint32 words.
+    ``moments``, a (2, d) f32 tensor, receives ALIE's honest column
+    moments for :func:`gen_xi` of the same step."""
     if runs_kernel(B):
         return fused_guard_gen_cuda(B, delta, x, h, x_star, het_dir, keys, skewsign, slot,
-                                    params)
+                                    params, moments=moments)
     return ref.fused_guard_gen_ref(B, delta, x, h, x_star, het_dir, keys, skewsign, slot,
-                                   params)
+                                   params, moments=moments)
 
 
 def gen_xi(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,
-           stats_dtype=torch.float32):
+           stats_dtype=torch.float32, moments=None):
     """``(ξ, byz)`` over the generated rows: ξ = Σ w_xi·rows rounded through
-    ``stats_dtype``, byz = Σ w_byz·rows over the raw f32 rows."""
+    ``stats_dtype``, byz = Σ w_byz·rows over the raw f32 rows.  ``moments``:
+    what :func:`fused_guard_gen` left there for the same operands, read
+    instead of taken again."""
     if runs_kernel(x):
         return gen_xi_cuda(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,
-                           stats_dtype=stats_dtype)
+                           stats_dtype=stats_dtype, moments=moments)
     return ref.gen_xi_ref(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,
-                          stats_dtype=stats_dtype)
+                          stats_dtype=stats_dtype, moments=moments)

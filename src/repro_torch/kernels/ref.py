@@ -94,32 +94,53 @@ def fused_guard_sanitize_ref(grads: torch.Tensor, B: torch.Tensor, delta: torch.
     return g @ g.T, b @ g.T, g @ dlt, (b + g).to(B.dtype), nf
 
 
-def gen_rows_ref(x, h, x_star, het_dir, keys, skewsign, slot, params) -> torch.Tensor:
+def gen_rows_ref(x, h, x_star, het_dir, keys, skewsign, slot, params,
+                 moments=None) -> torch.Tensor:
     """The (m, d) f32 attacked batch the generating kernels stand in for:
     :func:`~repro_torch.kernels.gradgen.gen_worker_rows` over every
-    coordinate at once.  ``keys`` are (m, 2) int64 uint32 words."""
+    coordinate at once.  ``keys`` are (m, 2) int64 uint32 words;
+    ``moments``, when given, the (2, d) honest moments ALIE's rows read."""
     d = x.shape[0]
     j = torch.arange(d, dtype=torch.int64, device=x.device)
     f32 = torch.float32
     return gradgen.gen_worker_rows(x.to(f32), h.to(f32), x_star.to(f32), het_dir.to(f32),
-                                   keys, skewsign.to(f32), slot, params.to(f32), j, d)
+                                   keys, skewsign.to(f32), slot, params.to(f32), j, d,
+                                   moments=moments)
 
 
-def fused_guard_gen_ref(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, params):
+def gen_moments_ref(x, h, x_star, het_dir, keys, skewsign, slot, params) -> torch.Tensor:
+    """(2, d) f32: the honest column moments (μ, σ) that ALIE's rows read,
+    over the whole batch."""
+    d = x.shape[0]
+    j = torch.arange(d, dtype=torch.int64, device=x.device)
+    f32 = torch.float32
+    _, g = gradgen.honest_rows(x.to(f32), h.to(f32), x_star.to(f32), het_dir.to(f32), keys,
+                               skewsign.to(f32), params.to(f32), j)
+    return torch.stack(gradgen.honest_moments(g, slot))
+
+
+def fused_guard_gen_ref(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, params,
+                        moments=None):
     """:func:`fused_guard_ref` over the generated batch, rounded once
     through the statistics dtype ``B.dtype`` as the materialising path
-    stores it."""
-    rows = gen_rows_ref(x, h, x_star, het_dir, keys, skewsign, slot, params)
+    stores it.  ``moments``, a (2, d) f32 tensor, receives the honest
+    column moments (:func:`gen_moments_ref`) for :func:`gen_xi_ref`."""
+    operands = (x, h, x_star, het_dir, keys, skewsign, slot, params)
+    if moments is not None:
+        moments.copy_(gen_moments_ref(*operands))
+    rows = gen_rows_ref(*operands, moments=moments)
     return fused_guard_ref(rows.to(B.dtype), B, delta)
 
 
 def gen_xi_ref(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,
-               stats_dtype=torch.float32):
+               stats_dtype=torch.float32, moments=None):
     """``(Σᵢ w_xi[i]·rowᵢ, Σᵢ w_byz[i]·rowᵢ)`` in f32: ξ over the rows
     rounded through ``stats_dtype`` (what the guard's filtered mean sees),
     the Byzantine row sum over the raw f32 rows (what the adversary's
-    feedback update sees)."""
-    rows = gen_rows_ref(x, h, x_star, het_dir, keys, skewsign, slot, params)
+    feedback update sees).  ``moments``: the (2, d) honest moments that
+    :func:`fused_guard_gen_ref` left for the same operands, read instead
+    of taken again."""
+    rows = gen_rows_ref(x, h, x_star, het_dir, keys, skewsign, slot, params, moments=moments)
     gs = rows.to(stats_dtype).to(torch.float32)
     xi = w_xi.to(torch.float32) @ gs
     byz = torch.sum(rows * w_byz.to(torch.float32)[:, None], dim=0)

@@ -24,7 +24,12 @@ bit-equal wherever no row depends on a sum over rows (every attack id but
 ALIE's 4 and 8, whose honest moments sum in another order), the rest
 within the same tolerance; and given the rows they generated, materialised,
 ``fused_guard.cu`` gives all four outputs bit for bit and
-``filtered_mean.cu`` gives ξ bit for bit.
+``filtered_mean.cu`` gives ξ bit for bit.  The three sweeps (plain,
+sanitizing, generating; at bf16 one tensor-core consumer) repeat bit for
+bit; the generating sweep equals the plain sweep fed the plain
+generator's rows, all four outputs bit for bit, wherever no row reads a
+sum over rows; and ``gen_xi`` reading the sweep's ALIE moments gives its
+own bits.
 
 Worker counts: every wrapper takes 1 ≤ m ≤ MAX_WORKERS = 12288 and raises
 a ValueError naming the cap above it; the kernels are held to their plain
@@ -393,6 +398,86 @@ def test_generating_kernels_match_plain(cuda_device, m, d, dt):
         _within(xi, xi_want, tol)
         _within(byz, byz_want, tol)
         assert torch.equal(xi, filtered_mean_cuda(rows, w_xi, 1.0)), f"xi at id {aid}"
+
+
+SWEEP_WORKERS = [1, 17, 32, 33, 257]
+ROW_LOCAL_IDS = [i for i in gradgen.GEN_SUPPORTED_IDS if i not in MOMENT_IDS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", SWEEP_WORKERS)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_guard_sweep_variants_match_plain_and_repeat(cuda_device, m, dt):
+    """The plain, sanitizing and generating sweeps (at bf16 one
+    tensor-core consumer, csrc/guard_sweep.cuh) at an odd d: each against
+    its plain version, and two calls give the same bits."""
+    tdt, tol = DTYPES[dt]
+    d = 4099
+    cpu = torch.Generator().manual_seed(m * 31 + d)
+    g = torch.randn(m, d, generator=cpu).to(tdt).to(cuda_device)
+    B = (3.0 * torch.randn(m, d, generator=cpu)).to(tdt).to(cuda_device)
+    delta = torch.randn(d, generator=cpu).to(tdt).to(cuda_device)
+    gp = poison(g.clone()) if m > 1 else g.clone().fill_(float("nan"))
+    operands = gen_operands(m, d, 1, cuda_device)
+    calls = {"plain": (lambda: fused_guard_cuda(g, B, delta),
+                       lambda: ref.fused_guard_ref(g, B, delta)),
+             "sanitize": (lambda: fused_guard_cuda(gp, B, delta, sanitize=True),
+                          lambda: ref.fused_guard_sanitize_ref(gp, B, delta)),
+             "gen": (lambda: fused_guard_gen_cuda(B, delta, *operands),
+                     lambda: ref.fused_guard_gen_ref(B, delta, *operands))}
+    for name, (kernel, plain) in calls.items():
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+        assert torch.equal(got[3], want[3]), name
+        for a, b in zip(got[:3], want[:3]):
+            _within(a, b, tol)
+        if name == "sanitize":
+            assert torch.equal(got[4], want[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aid", ROW_LOCAL_IDS)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_generating_sweep_equals_plain_sweep_on_the_plain_rows(cuda_device, aid, dt):
+    """The generating sweep against the plain sweep fed the plain
+    generator's rows (rounded once to the statistics type): all four
+    outputs bit for bit, the kernel-level form of the main path's gate
+    that generating and materialising runs give the same gaps."""
+    tdt, _ = DTYPES[dt]
+    m, d = 33, 1027
+    cpu = torch.Generator().manual_seed(aid + d)
+    B = (3.0 * torch.randn(m, d, generator=cpu)).to(tdt).to(cuda_device)
+    delta = torch.randn(d, generator=cpu).to(tdt).to(cuda_device)
+    operands = gen_operands(m, d, aid, cuda_device)
+    rows = ref.gen_rows_ref(*operands).to(tdt)
+    got = fused_guard_gen_cuda(B, delta, *operands)
+    want = fused_guard_cuda(rows, B, delta)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aid", MOMENT_IDS)
+@pytest.mark.parametrize("m", [17, 129])
+def test_shared_moments_equal_separate_moments(cuda_device, aid, m):
+    """ALIE's moments handed from the sweep to gen_xi (one moments pass a
+    step, as gen_step runs them) give gen_xi's own bits; the buffer holds
+    the plain version's moments within 1e-6; a buffer of the wrong shape
+    is refused."""
+    d = 1027
+    operands = gen_operands(m, d, aid, cuda_device)
+    slot = operands[6]
+    w_xi, w_byz = (slot == 0).float() / m, (slot > 0).float()
+    B = torch.zeros(m, d, device=cuda_device)
+    mom = torch.empty((2, d), device=cuda_device)
+    fused_guard_gen_cuda(B, B[0], *operands, moments=mom)
+    _within(mom, ref.gen_moments_ref(*operands), 1e-6)
+    for tdt, _ in DTYPES.values():
+        own = gen_xi_cuda(w_xi, w_byz, *operands, stats_dtype=tdt)
+        shared = gen_xi_cuda(w_xi, w_byz, *operands, stats_dtype=tdt, moments=mom)
+        assert all(torch.equal(a, b) for a, b in zip(own, shared))
+    with pytest.raises(ValueError, match="moments"):
+        gen_xi_cuda(w_xi, w_byz, *operands, moments=mom[:, :-1].contiguous())
 
 
 @pytest.mark.cuda

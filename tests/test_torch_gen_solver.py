@@ -222,3 +222,39 @@ def test_convert_carries_a_jax_scenario_into_a_run():
     assert torch.equal(res.gaps, own.gaps) and torch.equal(res.byz_mask, own.byz_mask)
     # churn rotates the Byzantine set: the union outgrows one step's 4
     assert int(res.byz_mask.sum()) > 4
+
+
+@pytest.mark.parametrize("name", ["static_alie", "static_alie_update", "coalition"])
+@pytest.mark.parametrize("sd", ["f32", "bf16"])
+def test_gen_step_hands_alie_moments_to_gen_xi(name, sd, monkeypatch):
+    """ALIE's honest moments are taken once a step: every step's
+    ``ops.gen_xi`` reads the (2, d) buffer that the same step's
+    ``ops.fused_guard_gen`` filled, and the run equals JAX's generating
+    run (Pallas in interpret mode): decisions exactly, values within
+    1e-6."""
+    seen = []
+    fg, gx = ops.fused_guard_gen, ops.gen_xi
+
+    def sweep(*a, moments=None, **k):
+        seen.append(moments)
+        return fg(*a, moments=moments, **k)
+
+    def xi_pass(*a, moments=None, **k):
+        assert moments is not None and moments is seen[-1]
+        assert torch.isfinite(moments).all()
+        seen.append(moments)
+        return gx(*a, moments=moments, **k)
+
+    monkeypatch.setattr(ops, "fused_guard_gen", sweep)
+    monkeypatch.setattr(ops, "gen_xi", xi_pass)
+    got = _port(name, "kernel", stats_dtype=sd)
+    assert len(seen) == 2 * T and all(m.shape == (2, D) for m in seen)
+    jprob = jax_problem(d=D, sigma=1.0, L=8.0, V=1.0, seed=0)
+    jadv = JaxAdversary(BY_NAME[name][0](jspec), jnp.asarray(0.25, jnp.float32))
+    want = jax_run_sgd(jprob, JaxConfig(**_cfg("kernel", stats_dtype=sd)),
+                       jax.random.PRNGKey(3), adversary=jadv)
+    _assert_decisions_equal(got, want)
+    for f in ("gaps", "x_final", "x_avg"):
+        np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                   rtol=0, atol=1e-6, err_msg=f)
+

@@ -128,6 +128,43 @@ def test_gen_xi_matches_pallas(m, d, dt, aid):
         _rel_close(a.numpy(), np.asarray(b), tol)
 
 
+@pytest.mark.parametrize("aid", MOMENT_IDS)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_moments_handoff_matches_pallas(dt, aid):
+    """``ops.fused_guard_gen(..., moments=buf)`` leaves ALIE's honest
+    moments in ``buf`` and changes none of its outputs; ``ops.gen_xi``
+    reading them gives its own bits, and both kernels match the Pallas
+    kernels (interpret)."""
+    jdt, tdt, tol = DTYPES[dt]
+    m, d = 16, 555
+    jops, tops = _inputs(m, d, aid, skew=True)
+    rng = np.random.default_rng(7)
+    B = torch.from_numpy((3.0 * rng.normal(size=(m, d))).astype(np.float32)).to(tdt)
+    delta = torch.from_numpy(rng.normal(size=d).astype(np.float32)).to(tdt)
+    mom = torch.full((2, d), float("nan"))
+    got = ops.fused_guard_gen(B, delta, *_gen_args(tops), moments=mom)
+    assert torch.equal(mom, ref.gen_moments_ref(*_gen_args(tops)))
+    assert bool(torch.isfinite(mom).all()) and bool((mom[1] > 0).all())
+    for a, b in zip(got, ops.fused_guard_gen(B, delta, *_gen_args(tops))):
+        assert torch.equal(a, b)
+    want = fused_guard_gen_pallas(jnp.asarray(B.float().numpy()).astype(jdt),
+                                  jnp.asarray(delta.float().numpy()).astype(jdt),
+                                  *_gen_args(jops), d_block=256, interpret=True)
+    for a, b in zip(got[:3], want[:3]):
+        _rel_close(a.numpy(), _f32(b), tol)
+    slot = np.asarray(jops["slot"])
+    w_xi = np.where(slot == 0, 1.0 / m, 0.0).astype(np.float32)
+    w_byz = (slot > 0).astype(np.float32)
+    args = (torch.from_numpy(w_xi), torch.from_numpy(w_byz), *_gen_args(tops))
+    shared = ops.gen_xi(*args, stats_dtype=tdt, moments=mom)
+    for a, b in zip(shared, ops.gen_xi(*args, stats_dtype=tdt)):
+        assert torch.equal(a, b)
+    want_xi = gen_xi_pallas(jnp.asarray(w_xi), jnp.asarray(w_byz), *_gen_args(jops),
+                            d_block=256, interpret=True, stats_dtype=jnp.dtype(jdt).name)
+    for a, b in zip(shared, want_xi):
+        _rel_close(a.numpy(), np.asarray(b), tol)
+
+
 @pytest.mark.parametrize("aid", (1, 4))
 def test_skewed_strip_matches_pallas(aid):
     """The rank-1 skew of JAX's ``heterogenize_generated`` (het_dir, ±1

@@ -67,3 +67,11 @@ def test_port_sources_and_chip_smoke_import_no_jax_or_repro():
         bad = sorted(n for n in _imports(path) if _forbidden(n))
         assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
     assert "repro_torch.core.solver" in _imports(ROOT / "chip_smoke.py")
+
+
+def test_guard_sweep_timing_script_imports_no_jax_or_repro():
+    """scripts/time_guard_sweep.py runs on the GPU machine beside
+    chip_smoke.py, whose helpers it imports, and never JAX."""
+    names = _imports(ROOT / "scripts" / "time_guard_sweep.py")
+    assert [n for n in names if _forbidden(n)] == []
+    assert "importlib" in names and "torch" in names
