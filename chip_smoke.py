@@ -13,7 +13,11 @@ and then no result line is printed):
    and power limit;
 2. build   — compiles ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a
    into ``build/repro_torch_kernels/`` and prints the build seconds and
-   each kernel's registers and spills;
+   each kernel's registers and spills; the order statistics' register
+   path (m ≤ 32): its sort network's size (``rt_sort_network``, the
+   kernels' own constexpr evaluated on the host) is Batcher's at every
+   power of two up to 32 (191 comparators at m = 32; 17 and 31 printed
+   too), and each of its 128 kernels has no stack frame and no spill;
 3. kernels — the guard kernels against their plain versions at m=32,
    d=2^20 and m=17, d=555 (f32, bf16) and m=32, d=2^26+3 (bf16, m·d >
    2^31): ``B_new`` bit-equal, the rest within ‖got−want‖ ≤ tol·‖want‖ +
@@ -109,12 +113,19 @@ and then no result line is printed):
    time in its kernels (``torch.profiler``) and the host's time a call
    beside the median time, the SM clock and power while it runs, and its
    time before the redesign as PERF.md records it (not measured here);
+   the same card and host times for each order statistic (an
+   ``order_stats`` line; its card time counts only the ``sorted_mean``
+   kernels, and every launch must be in the trace); the order statistics'
+   bound counts Batcher's
+   comparators, two min/max each, at 64 ALU instructions a clock per SM
+   (at bf16 one instruction orders two columns), beside the bytes;
    then the split of one materialising and one generating step between
    their parts;
 11. the kernels line (20 entries), the card line and the result line.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -190,15 +201,19 @@ KERNELS = {
 # The bf16 guard sweep (plain, sanitizing, generating) is a kernel of the
 # header that csrc/fused_guard.cu includes.
 SWEEP_HEADER = "src/repro_torch/kernels/csrc/guard_sweep.cuh"
-# Recorded, not measured here: each guard sweep's time before the sweep's
-# redesign at m = 32, d = 2^20 as PERF.md §6 holds it (NVIDIA H100 80GB
-# HBM3 at 700 W), under sign_flip and under ALIE (the generating kernels,
-# each with its own moments pass).  Phase lines print it beside this run's
-# time; the kernels line carries only what this run measured.
+# Recorded, not measured here: each guard sweep's and order statistic's
+# time before its redesign at m = 32, d = 2^20 as PERF.md §6 holds it
+# (NVIDIA H100 80GB HBM3 at 700 W), under sign_flip and under ALIE (the
+# generating kernels, each with its own moments pass).  Phase lines print
+# it beside this run's time; the kernels line carries only what this run
+# measured.
 RECORDED_BEFORE_MS = {("fused_guard", "f32"): 0.1734, ("fused_guard", "bf16"): 0.2415,
                       ("fused_guard_sanitize", "f32"): 0.2028,
                       ("fused_guard_sanitize", "bf16"): 0.2630,
-                      ("fused_guard_gen", "f32"): 0.3748, ("fused_guard_gen", "bf16"): 0.4147}
+                      ("fused_guard_gen", "f32"): 0.3748, ("fused_guard_gen", "bf16"): 0.4147,
+                      ("coordinate_median", "f32"): 0.0850,
+                      ("coordinate_median", "bf16"): 0.0809,
+                      ("trimmed_mean", "f32"): 0.0836, ("trimmed_mean", "bf16"): 0.0808}
 RECORDED_BEFORE_ALIE_MS = {("fused_guard_gen", "f32"): 0.6209,
                            ("fused_guard_gen", "bf16"): 0.6469,
                            ("gen_xi", "f32"): 0.3750, ("gen_xi", "bf16"): 0.3734}
@@ -268,6 +283,39 @@ def read_counts() -> dict:
 def counts(**launched) -> dict:
     """The launch counts of a run that launched only the named kernels."""
     return {name: launched.get(name, 0) for name in COUNTERS}
+
+
+# ---------------------------------------------------------------- phase 2
+
+def sort_network_size(m: int) -> int:
+    """The comparators of the register path's network on m wires
+    (``rt_sort_network``: the kernels' constexpr network evaluated on the
+    host)."""
+    fn = _build.load_function("sorted_reduce", "rt_sort_network",
+                              [ctypes.c_int64, ctypes.c_void_p])
+    return fn(m, None)
+
+
+def sort_network_report() -> dict:
+    """The register path of ``csrc/sorted_reduce.cu`` as built: its network
+    has Batcher's (k² − k + 4)·2^(k−2) − 1 comparators on 2^k wires, k = 1
+    .. 5 (191 at m = 32; two odd m printed too), and every instantiation
+    of its kernels has no stack frame and no spill in ``-Xptxas -v``'s
+    report (the network's values stayed in registers)."""
+    for k in range(1, 6):
+        require(sort_network_size(2 ** k) == (k * k - k + 4) * 2 ** (k - 2) - 1,
+                f"the kernels' sort network on {2 ** k} wires has Batcher's size")
+    kernels = {name: props for name, props in _build.ptxas_report("sorted_reduce").items()
+               if "sorted_mean_kernel" in name or "sorted_mean_bf16x2_kernel" in name}
+    # 32 widths × (median, trimmed mean) × (f32, bf16 pairs)
+    require(len(kernels) == 32 * 2 * 2, f"{len(kernels)} register-path kernels in the build log")
+    costly = [n for n, p in kernels.items()
+              if p["stack"] or p["spill_stores"] or p["spill_loads"]]
+    require(not costly, f"register-path kernels with stack or spills: {costly[:4]}")
+    return {"comparators": {m: sort_network_size(m) for m in (32, 17, 31)},
+            "min_max_a_column_m32": 2 * sort_network_size(32),
+            "register_path_kernels": len(kernels), "stack_or_spill_bytes": 0,
+            "max_registers": max(p["registers"] for p in kernels.values())}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1401,13 +1449,14 @@ def median_ms(fn, batches: int = 7, per_batch: int = 20) -> float:
     return statistics.median(times)
 
 
-def kernel_and_host_ms(fn, calls: int = 20) -> dict:
+def kernel_and_host_ms(fn, calls: int = 20, only: str = "") -> dict:
     """Per call of ``fn``: the host's time to return from it while the card
     works through the queue (``time.perf_counter``, no synchronisation
     between the calls); then, from a ``torch.profiler`` trace of ``calls``
-    more, the card's time in the kernels they launch, the span from the
-    first kernel's start to the last one's end, and each kernel's count
-    (each of the sweep's kernels ``calls`` times when none went unrecorded)."""
+    more, the card's time in the kernels they launch whose names start
+    with ``only``, the span from the first such kernel's start to the last
+    one's end, and each kernel's count (each of them ``calls`` times when
+    none went unrecorded)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1428,19 +1477,37 @@ def kernel_and_host_ms(fn, calls: int = 20) -> dict:
                 fn()
             torch.cuda.synchronize()
             prof.step()
-    if not kern:
-        return {"host_ms": host_ms, "kernel_ms": None, "span_ms": None, "kernels": {}}
     counts: dict = {}
+    named = []
     for e in kern:
         # "void (anonymous namespace)::fused_guard_kernel<true, ...>(...)" -> "fused_guard_kernel"
         name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
         name = name.split("<")[0].split("(")[0].split("::")[-1]
-        counts[name] = counts.get(name, 0) + 1
+        if name.startswith(only):
+            counts[name] = counts.get(name, 0) + 1
+            named.append(e)
+    kern = named
+    if not kern:
+        return {"host_ms": host_ms, "kernel_ms": None, "span_ms": None, "kernels": {},
+                "every_launch_traced": False}
     span = max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)
     return {"host_ms": host_ms,
             "kernel_ms": sum(e.time_range.elapsed_us() for e in kern) / 1e3 / calls,
             "span_ms": span / 1e3 / calls, "kernels": counts,
             "every_launch_traced": all(c % calls == 0 for c in counts.values())}
+
+
+def traced_launches(fn, only: str, calls: int = 20, tries: int = 3) -> dict:
+    """``kernel_and_host_ms`` of a ``fn`` that launches one kernel named
+    ``only``…, traced again, up to ``tries`` times in all, until the trace
+    holds every one of its ``calls`` launches and no other (the tracer can
+    miss launches); ``traces`` is the number of traces taken."""
+    for t in range(1, tries + 1):
+        traced = kernel_and_host_ms(fn, calls, only=only)
+        traced["every_launch_traced"] = sum(traced["kernels"].values()) == calls
+        if traced["every_launch_traced"]:
+            break
+    return {**traced, "traces": t}
 
 
 def ms_of(entries: list, name: str) -> float:
@@ -1472,6 +1539,8 @@ def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
 def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
                  gen_launches, gen_bound) -> list:
     entries = []
+    alu_rate = (torch.cuda.get_device_properties(dev).multi_processor_count
+                * INT_OPS_PER_CLOCK_PER_SM * max_sm_clock_hz())
     for dt in ("f32", "bf16"):
         e = torch.tensor([], dtype=DTYPES[dt]).element_size()
         gen = torch.Generator(device=dev).manual_seed(5)
@@ -1528,11 +1597,14 @@ def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
             "library_ms": median_ms(lambda: g @ g.T),
         })
         emit("bound", kernel=f"gram[{dt}]", shape=[M, D], bytes=gr_bytes, flops=gr_flops)
-        # the sort network's m(m-1)/2 compare-exchanges, two min/max each, on
-        # f32 CUDA cores whatever the input type (no tensor-core min/max)
+        # the register path's network: Batcher's odd-even merge sort on M
+        # wires, two min/max a comparator, each one instruction on the ALU
+        # pipe (64 a clock per SM, as the generator's integer operations);
+        # at bf16 one min.NaN.bf16x2 / max.NaN.bf16x2 orders two columns
         os_bytes = M * D * e + D * 4
-        os_ops = M * (M - 1) * D
-        b_ms, b_by = bound(os_bytes, os_ops, PEAK_FLOPS["f32"])
+        os_comparators = sort_network_size(M)
+        os_ops = 2 * os_comparators * D // (2 if dt == "bf16" else 1)
+        b_ms, b_by = bound(os_bytes, os_ops, alu_rate)
         order_stats = (("coordinate_median", lambda: coordinate_median_cuda(g),
                         lambda: ref.coordinate_median_ref(g)),
                        ("trimmed_mean", lambda: trimmed_mean_cuda(g, N_TRIM),
@@ -1551,7 +1623,16 @@ def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
                 "library_ms": lib_sort,
             })
             emit("bound", kernel=f"{name}[{dt}]", shape=[M, D], bytes=os_bytes,
-                 min_max_ops=os_ops)
+                 bytes_ms=1e3 * os_bytes / HBM_BYTES_PER_S, comparators=os_comparators,
+                 min_max_instructions=os_ops, min_max_per_s=alu_rate,
+                 operations_ms=1e3 * os_ops / alu_rate, bound_ms=b_ms, bound_by=b_by)
+            # the card's time in the kernel apart from the wrapper's host time,
+            # which can pass a bf16 kernel's and then sets the events' reading
+            traced = traced_launches(kernel, only="sorted_mean")
+            emit("order_stats", kernel=f"{name}[{dt}]", ms=entries[-1]["ms"], **traced,
+                 recorded_before_redesign_ms=RECORDED_BEFORE_MS[(name, dt)])
+            require(traced["every_launch_traced"],
+                    f"{name}[{dt}]: every launch in the trace ({traced['kernels']})")
         # the sanitizing variants on input holding 4 non-finite rows; the
         # bytes are the plain variants' (plus nf), the operations add one
         # finiteness test per entry
@@ -1672,8 +1753,9 @@ def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
 # counted at the f32 rate on its own pipe.
 GEN_INT_OPS = 1 + 1 + 20 * 3 + 4 * 2 + 1 + 1
 GEN_FLOPS = 8
-# integer ALU issue rate per SM and clock on Hopper (CUDA C++ Programming
-# Guide, arithmetic instruction throughput, compute capability 9.0)
+# ALU issue rate per SM and clock on Hopper, for 32-bit integer operations
+# and for compare, minimum and maximum (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0)
 INT_OPS_PER_CLOCK_PER_SM = 64
 
 
@@ -1822,7 +1904,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = {stem: [ln.strip() for ln in _build.build_log(stem).splitlines()
                     if "registers" in ln or "spill" in ln] for stem in libs}
-    emit("build", seconds=build_s, libraries=[str(p) for p in libs.values()], ptxas=ptxas)
+    emit("build", seconds=build_s, libraries=[str(p) for p in libs.values()], ptxas=ptxas,
+         sort_network=sort_network_report())
 
     errs = check_kernels(dev)
     check_order_kernels(dev, errs)

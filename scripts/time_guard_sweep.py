@@ -1,23 +1,39 @@
 #!/usr/bin/env python3
-"""Times the guard sweep's kernels of one checkout of the PyTorch/CUDA port
-on one GPU, so two checkouts can be compared in one run on one card.
+"""Times the guard sweep's or the order statistics' kernels of one checkout
+of the PyTorch/CUDA port on one GPU, so two checkouts can be compared in
+one run on one card.
 
     python3 scripts/time_guard_sweep.py [--root DIR] [--label NAME]
+                                        [--kernels guard_sweep|order_stats]
 
 ``--root`` is the root of the checkout whose kernels are built and timed
 (default: this one).  At the main path's shape (m = 32, d = 2^20) it prints
-one JSON line: the plain, sanitizing and generating sweeps at f32 and bf16
-(sanitizing on input holding 4 non-finite rows, generating on the main
-path's step-0 operands under sign_flip and ALIE), ``gen_xi`` under ALIE,
-and, where the checkout's wrappers take ``moments``, ``gen_xi`` reading the
-sweep's moments.  Times are ``chip_smoke.median_ms`` of that checkout:
-median over 7 batches of 20 back-to-back calls, by CUDA events.  Run
-checkouts in turns (A, B, B, A) and compare within one run.  Imports
+one JSON line.  Times are ``chip_smoke.median_ms`` of that checkout: median
+over 7 batches of 20 back-to-back calls, by CUDA events.
+
+``--kernels guard_sweep`` (the default): the plain, sanitizing and
+generating sweeps at f32 and bf16 (sanitizing on input holding 4
+non-finite rows, generating on the main path's step-0 operands under
+sign_flip and ALIE), ``gen_xi`` under ALIE, and, where the checkout's
+wrappers take ``moments``, ``gen_xi`` reading the sweep's moments.
+
+``--kernels order_stats``: ``coordinate_median`` and ``trimmed_mean``
+(n_trim = 8) at f32 and bf16, as ``ms`` (the kernel launched through the
+checkout's C entry point into a preallocated output), ``wrapper_ms`` (the
+same through the Python wrapper, as ``chip_smoke.py``'s kernels line times
+it) and, where the checkout's ``chip_smoke.kernel_and_host_ms`` takes
+``only``, ``card_ms``: the card's time a launch in the ``sorted_mean``
+kernels from a ``torch.profiler`` trace of 20 wrapper calls, with
+``traced_launches`` (the launches in that trace; 20 when none went
+unrecorded, else ``card_ms`` is null).
+
+Run checkouts in turns (A, B, B, A) and compare within one run.  Imports
 nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib
 import inspect
 import json
@@ -26,31 +42,11 @@ import sys
 from pathlib import Path
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
-    ap.add_argument("--label", default=None)
-    args = ap.parse_args()
-    root = Path(args.root).resolve()
-    sys.path.insert(0, str(root))
-    cs = importlib.import_module("chip_smoke")   # puts root/src on sys.path first
+def guard_sweep_ms(cs, dev, out: dict) -> None:
     import torch
-    from repro_torch.kernels import _build
     from repro_torch.kernels.fused_guard import (fused_guard_cuda, fused_guard_gen_cuda,
                                                  gen_xi_cuda)
-    if not torch.cuda.is_available():
-        print("time_guard_sweep: no CUDA device is available", file=sys.stderr)
-        return 1
-    if Path(_build.__file__).resolve().parents[3] != root:
-        print(f"time_guard_sweep: imported {_build.__file__}, not from {root}", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda", 0)
-    _build.build_all()
     shared = "moments" in inspect.signature(gen_xi_cuda).parameters
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True, timeout=60).stdout.strip().splitlines()[0]
-    out = {"label": args.label or str(root), "card": card, "ms": {}}
     ms = out["ms"]
     gen = torch.Generator(device=dev).manual_seed(5)
     for dt in ("f32", "bf16"):
@@ -76,6 +72,70 @@ def main() -> int:
                 lambda: gen_xi_cuda(w_xi, w_byz, *operands, stats_dtype=tdt, moments=mom))
         del g, B, dlt, gp, operands
         torch.cuda.empty_cache()
+
+
+def order_stats_ms(cs, dev, out: dict) -> None:
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.robust_reduce import coordinate_median_cuda, trimmed_mean_cuda
+    i64, ptr = ctypes.c_int64, ctypes.c_void_p
+    entry = {"coordinate_median": _build.load_function(
+                 "sorted_reduce", "rt_coordinate_median", [i64, ptr, ptr, i64, i64, i64, ptr]),
+             "trimmed_mean": _build.load_function(
+                 "sorted_reduce", "rt_trimmed_mean", [i64, ptr, ptr, i64, i64, i64, i64, ptr])}
+    traced = "only" in inspect.signature(cs.kernel_and_host_ms).parameters
+    out.update(n_trim=cs.N_TRIM, wrapper_ms={}, card_ms={}, traced_launches={})
+    gen = torch.Generator(device=dev).manual_seed(5)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    res = torch.empty(cs.D, dtype=torch.float32, device=dev)
+    for code, dt in enumerate(("f32", "bf16")):
+        x = torch.randn(cs.M, cs.D, device=dev, generator=gen, dtype=cs.DTYPES[dt])
+        wrappers = {"coordinate_median": lambda: coordinate_median_cuda(x),
+                    "trimmed_mean": lambda: trimmed_mean_cuda(x, cs.N_TRIM)}
+        for name, fn in entry.items():
+            key = f"{name}[{dt}]"
+            extra = () if name == "coordinate_median" else (cs.N_TRIM,)
+
+            def launch(fn=fn, extra=extra):
+                rc = fn(code, x.data_ptr(), res.data_ptr(), cs.M, cs.D, *extra, dev.index,
+                        stream)
+                if rc != 0:
+                    raise RuntimeError(f"{name}: CUDA error {rc}")
+            out["ms"][key] = cs.median_ms(launch)
+            out["wrapper_ms"][key] = cs.median_ms(wrappers[name])
+            if traced:
+                t = cs.traced_launches(wrappers[name], only="sorted_mean")
+                out["card_ms"][key] = t["kernel_ms"] if t["every_launch_traced"] else None
+                out["traced_launches"][key] = sum(t["kernels"].values())
+        del x
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--kernels", choices=("guard_sweep", "order_stats"), default="guard_sweep")
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    cs = importlib.import_module("chip_smoke")   # puts root/src on sys.path first
+    import torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        print("time_guard_sweep: no CUDA device is available", file=sys.stderr)
+        return 1
+    if Path(_build.__file__).resolve().parents[3] != root:
+        print(f"time_guard_sweep: imported {_build.__file__}, not from {root}", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    _build.build_all()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    out = {"label": args.label or str(root), "card": card, "kernels": args.kernels,
+           "m": cs.M, "d": cs.D, "ms": {}}
+    (guard_sweep_ms if args.kernels == "guard_sweep" else order_stats_ms)(cs, dev, out)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -88,6 +89,28 @@ def build_log(stem: str) -> str:
     so = library_path(CSRC / f"{stem}.cu")
     log = so.with_name(so.name + ".log")
     return log.read_text() if log.exists() else ""
+
+
+def ptxas_report(stem: str) -> dict[str, dict[str, int]]:
+    """Per kernel (entry function, by mangled name) of ``csrc/<stem>.cu``,
+    from the kept ``-Xptxas -v`` output: its ``registers`` and its bytes of
+    ``stack`` frame, ``spill_stores`` and ``spill_loads``."""
+    report: dict[str, dict[str, int]] = {}
+    entry = props = None
+    for line in build_log(stem).splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entry = m.group(1)
+            report[entry] = {}
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = m.group(1)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            if props in report:
+                report[props].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                     spill_loads=int(m.group(3)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry in report:
+            report[entry]["registers"] = int(m.group(1))
+    return report
 
 
 def load_function(stem: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:

@@ -6,24 +6,45 @@
 // both through _sorted_over_workers.  x is (m, d) f32 or bf16, the output
 // is (d,) f32.
 //
-// What bounds it on an H100 (m = 32, d = 2^20, f32): one read of x plus the
-// write of the output, m·d·4 + d·4 B = 138 MB, ~41 µs at 3.35 TB/s, against
-// m(m−1)·d = 1.04 G min/max operations, ~16 µs at the 67 TFLOP/s f32
-// CUDA-core rate.  So it is bound by bytes.
+// What bounds it on an H100 (m = 32, d = 2^20): the bytes, one read of x
+// plus the write of the output — m·d·4 + d·4 B = 138 MB, 41.3 µs at
+// 3.35 TB/s (f32), and 71 MB, 21.3 µs (bf16) — if the sorting network
+// stays below them.  A float min or max is one instruction on the ALU pipe,
+// which issues 64 a clock per SM (CUDA C++ Programming Guide, arithmetic
+// instruction throughput, compute capability 9.0): 132 × 64 × 1980 MHz =
+// 16.7 T a second.  The Pallas kernel's odd-even transposition network
+// needs M(M−1)/2 = 496 compare-exchanges a column, 992 min/max, 1.04 G at
+// d = 2^20: 62 µs, above both byte times, and both dtypes took the same
+// ~0.08 ms.  So the network, not the bytes, bound the first design.
 //
-// Design: one thread owns one column.  It loads the column's m values,
-// upcast to f32, into registers (neighbouring threads read neighbouring
-// columns of a row, so a warp's loads are coalesced, and all m loads are in
-// flight at once), sorts them with the odd-even transposition network of
-// the Pallas kernel (m rounds of compare-exchange, fully unrolled, so the
-// values never leave registers), and writes the mean of the sorted values
-// lo .. hi−1: the middle one or two for the median, n_trim .. m−n_trim−1
-// for the trimmed mean, summed in order in f32.  The network needs m as a
-// compile-time constant, so the kernel is instantiated for every m from 1
-// to MAX_M.  min/max propagate NaN as jnp.minimum/jnp.maximum do (fminf
-// and fmaxf would drop it); one NaN spreads through the m rounds to the
-// whole column, so a column holding a NaN gives NaN.  Any d is taken with
-// no padding; offsets are int64 (m·d may pass 2^31).
+// Design, m <= MAX_M = 32 (the register path): each column's values sit in
+// registers and are sorted by Batcher's odd-even merge sort
+// (sort_network.cuh), 191 comparators at M = 32, 382 min/max a column,
+// 0.40 G in all: 24 µs at f32, below the bytes.  The network is unrolled at
+// compile time for each M from 1 to 32 (v's indices are constants, so it
+// never leaves registers).  The kernel then writes the mean of the sorted
+// values lo .. hi−1 — the middle one or two for the median, n_trim ..
+// m−n_trim−1 for the trimmed mean — summed in order in f32.
+// * f32: one thread owns one column; neighbouring threads read neighbouring
+//   columns of a row, so a warp reads 128 contiguous bytes a row, and all m
+//   loads are in flight at once.
+// * bf16: one thread owns columns c and c + 1 as one 32-bit word a row
+//   (a warp again reads 128 contiguous bytes a row) and sorts both with
+//   min.NaN.bf16x2 / max.NaN.bf16x2, two columns an instruction: 12 µs of
+//   network at d = 2^20, below the 21.3 µs of bytes.  bf16 order is the
+//   order of the exact f32 upcasts, and only the kept positions are
+//   upcast, so the kept values are the same f32 bits as one column a
+//   thread gives.  A word load needs every row start 4-byte aligned: d
+//   even and x aligned; otherwise each row's two halves are loaded apart
+//   and packed, and an odd last column is masked (its half read as 0 and
+//   its result not written).
+// Any correct sorting network yields the same sorted sequence, so the
+// median is bit-equal to the plain version (torch.sort); the trimmed mean
+// differs from it only in the order of its sum.  min/max propagate NaN as
+// jnp.minimum/jnp.maximum do (fminf and fmaxf would drop it); every input of
+// a sorting network reaches every output, so a column holding a NaN gives
+// NaN.  Any d is taken with no padding; offsets are int64 (m·d may pass
+// 2^31).
 //
 // Past MAX_M = 32 workers a column no longer fits one thread's registers,
 // and the wide path (sorted_mean_wide_kernel) takes m up to
@@ -37,65 +58,111 @@
 // lo .. hi−1: lane l takes lo + l, lo + l + 32, ... in order, then a fixed
 // shuffle tree.  For the median (one or two values) that is exactly the
 // register path's v[lo] (+ v[lo + 1]), so it stays bit-equal to the plain
-// version.  The register path for m ≤ 32 is unchanged.
+// version.
 
 #include "common.cuh"
+#include "sort_network.cuh"
 
 namespace {
 
 constexpr int MAX_M = 32;  // one column's values stay in registers (the register path)
 constexpr int NT = 128;
 
-// One instruction each (sm_80+): NaN when either input is NaN, as
-// jnp.minimum/jnp.maximum.  The NaN tests and selects written out in C took
-// ~3 instructions a side and left the network bound by instruction issue.
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
+using sortnet::max_nan;
+using sortnet::min_nan;
+
+// The mean of the sorted values lo .. hi−1, value(i) being the i-th in f32,
+// summed in order in f32.  The sum starts from −0, the exact identity of
+// IEEE addition, so a lone kept value comes out as it is (a −0 median stays
+// −0).  The median's window is a function of M, so its indices are
+// constants; the trimmed mean's is chosen by predicates.
+template <int M, bool MEDIAN, typename Value>
+__device__ __forceinline__ float window_mean(Value value, int lo, int hi) {
+  if constexpr (MEDIAN) {
+    lo = (M - 1) / 2;
+    hi = M / 2 + 1;
+  }
+  float s = -0.f;
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+    if (i >= lo && i < hi) s += value(i);
+  return s / (float)(hi - lo);
 }
 
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-template <typename T, int M>
+// f32: one column a thread.
+template <int M, bool MEDIAN>
 __global__ void __launch_bounds__(NT)
-sorted_mean_kernel(const T* __restrict__ x, float* __restrict__ out, int64_t d, int lo,
+sorted_mean_kernel(const float* __restrict__ x, float* __restrict__ out, int64_t d, int lo,
                    int hi) {
   const int64_t c = (int64_t)blockIdx.x * NT + threadIdx.x;
   if (c >= d) return;
   float v[M];
 #pragma unroll
-  for (int i = 0; i < M; ++i) v[i] = rt::to_f32(x[(int64_t)i * d + c]);
-#pragma unroll
-  for (int r = 0; r < M; ++r) {
-#pragma unroll
-    for (int i = r & 1; i + 1 < M; i += 2) {
-      const float a = v[i], b = v[i + 1];
-      v[i] = min_nan(a, b);
-      v[i + 1] = max_nan(a, b);
-    }
-  }
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-    if (i >= lo && i < hi) s = i == lo ? v[i] : s + v[i];
-  out[c] = s / (float)(hi - lo);
+  for (int i = 0; i < M; ++i) v[i] = x[(int64_t)i * d + c];
+  sortnet::sort<M>(v);
+  out[c] = window_mean<M, MEDIAN>([&](int i) { return v[i]; }, lo, hi);
 }
 
-template <typename T, int M>
-cudaError_t launch(int m, const T* x, float* out, int64_t d, int lo, int hi,
-                   cudaStream_t stream) {
+// Two bf16 columns a thread (c, c + 1), sorted packed.  word: every row
+// start is 4-byte aligned (d even, x aligned), so a row's pair is one load.
+template <int M, bool MEDIAN>
+__global__ void __launch_bounds__(NT)
+sorted_mean_bf16x2_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ out,
+                          int64_t d, int lo, int hi, bool word) {
+  const int64_t c = 2 * ((int64_t)blockIdx.x * NT + threadIdx.x);
+  if (c >= d) return;
+  const bool pair = c + 1 < d;
+  uint32_t v[M];
+  if (word) {
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+      v[i] = __ldg(reinterpret_cast<const unsigned int*>(x + (int64_t)i * d + c));
+  } else {
+    const unsigned short* bits = reinterpret_cast<const unsigned short*>(x);
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      const int64_t e = (int64_t)i * d + c;
+      v[i] = (uint32_t)__ldg(bits + e) | (pair ? (uint32_t)__ldg(bits + e + 1) << 16 : 0u);
+    }
+  }
+  sortnet::sort<M>(v);
+  // bf16 → f32 is a 16-bit shift: exact and order-keeping
+  const float lo_col = window_mean<M, MEDIAN>(
+      [&](int i) { return __uint_as_float(v[i] << 16); }, lo, hi);
+  const float hi_col = window_mean<M, MEDIAN>(
+      [&](int i) { return __uint_as_float(v[i] & 0xffff0000u); }, lo, hi);
+  if (pair) {
+    *reinterpret_cast<float2*>(out + c) = make_float2(lo_col, hi_col);
+  } else {
+    out[c] = lo_col;
+  }
+}
+
+// dtype: 0 = f32, 1 = bf16 (in packed pairs).
+template <int M, bool MEDIAN>
+cudaError_t launch_width(int64_t dtype, const void* x, float* out, int64_t d, int lo, int hi,
+                         cudaStream_t stream) {
+  if (dtype == 0) {
+    sorted_mean_kernel<M, MEDIAN><<<(unsigned)((d + NT - 1) / NT), NT, 0, stream>>>(
+        static_cast<const float*>(x), out, d, lo, hi);
+  } else {
+    const bool word = d % 2 == 0 && rt::aligned(x, 4);
+    sorted_mean_bf16x2_kernel<M, MEDIAN><<<(unsigned)(((d + 1) / 2 + NT - 1) / NT), NT, 0,
+                                           stream>>>(
+        static_cast<const __nv_bfloat16*>(x), out, d, lo, hi, word);
+  }
+  return cudaGetLastError();
+}
+
+template <int M>
+cudaError_t launch(int m, int64_t dtype, const void* x, float* out, int64_t d, int lo, int hi,
+                   bool median, cudaStream_t stream) {
   if constexpr (M > MAX_M) {
     return cudaErrorInvalidValue;
   } else {
-    if (m != M) return launch<T, M + 1>(m, x, out, d, lo, hi, stream);
-    const int64_t blocks = (d + NT - 1) / NT;
-    sorted_mean_kernel<T, M><<<(unsigned)blocks, NT, 0, stream>>>(x, out, d, lo, hi);
-    return cudaGetLastError();
+    if (m != M) return launch<M + 1>(m, dtype, x, out, d, lo, hi, median, stream);
+    return median ? launch_width<M, true>(dtype, x, out, d, lo, hi, stream)
+                  : launch_width<M, false>(dtype, x, out, d, lo, hi, stream);
   }
 }
 
@@ -179,25 +246,19 @@ cudaError_t launch_wide(const T* x, float* out, int64_t m, int64_t d, int lo, in
 }
 
 int run(int64_t dtype, const void* x, void* out, int64_t m, int64_t d, int64_t lo,
-        int64_t hi, int64_t device, void* stream) {
+        int64_t hi, bool median, int64_t device, void* stream) {
   if (m < 1 || m > rt::MAX_WORKERS || d < 1 || (d + NT - 1) / NT > 0x7fffffff || lo < 0 ||
-      hi > m || lo >= hi)
+      hi > m || lo >= hi || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
-  if (dtype == 0) {
-    const float* xf = static_cast<const float*>(x);
-    return m <= MAX_M ? (int)launch<float, 1>((int)m, xf, o, d, (int)lo, (int)hi, s)
-                      : (int)launch_wide<float>(xf, o, m, d, (int)lo, (int)hi, s);
-  }
-  if (dtype == 1) {
-    const __nv_bfloat16* xh = static_cast<const __nv_bfloat16*>(x);
-    return m <= MAX_M ? (int)launch<__nv_bfloat16, 1>((int)m, xh, o, d, (int)lo, (int)hi, s)
-                      : (int)launch_wide<__nv_bfloat16>(xh, o, m, d, (int)lo, (int)hi, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (m <= MAX_M) return (int)launch<1>((int)m, dtype, x, o, d, (int)lo, (int)hi, median, s);
+  if (dtype == 0)
+    return (int)launch_wide<float>(static_cast<const float*>(x), o, m, d, (int)lo, (int)hi, s);
+  return (int)launch_wide<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), o, m, d,
+                                         (int)lo, (int)hi, s);
 }
 
 }  // namespace
@@ -210,7 +271,7 @@ int run(int64_t dtype, const void* x, void* out, int64_t m, int64_t d, int64_t l
 // two middle values for even m (as jnp.median).
 extern "C" int rt_coordinate_median(int64_t dtype, const void* x, void* out, int64_t m,
                                     int64_t d, int64_t device, void* stream) {
-  return run(dtype, x, out, m, d, (m - 1) / 2, m / 2 + 1, device, stream);
+  return run(dtype, x, out, m, d, (m - 1) / 2, m / 2 + 1, true, device, stream);
 }
 
 // The mean of each column's sorted values n_trim .. m − n_trim − 1
@@ -218,5 +279,20 @@ extern "C" int rt_coordinate_median(int64_t dtype, const void* x, void* out, int
 extern "C" int rt_trimmed_mean(int64_t dtype, const void* x, void* out, int64_t m,
                                int64_t d, int64_t n_trim, int64_t device, void* stream) {
   if (n_trim < 0 || 2 * n_trim >= m) return (int)cudaErrorInvalidValue;
-  return run(dtype, x, out, m, d, n_trim, m - n_trim, device, stream);
+  return run(dtype, x, out, m, d, n_trim, m - n_trim, false, device, stream);
+}
+
+// The register path's network on m wires (1 <= m <= 32), evaluated on the
+// host by the same constexpr function the kernels unroll: writes its
+// comparators to pairs[2t], pairs[2t + 1] when pairs is not null and
+// returns their number, or −1 for m out of range.
+extern "C" int rt_sort_network(int64_t m, int32_t* pairs) {
+  if (m < 1 || m > MAX_M) return -1;
+  const int n = sortnet::batcher_size((int)m);
+  for (int t = 0; pairs && t < n; ++t) {
+    const sortnet::Comparator c = sortnet::batcher((int)m, t);
+    pairs[2 * t] = c.lo;
+    pairs[2 * t + 1] = c.hi;
+  }
+  return n;
 }

@@ -36,6 +36,11 @@ a ValueError naming the cap above it; the kernels are held to their plain
 versions past the first version's 32 (order statistics) and 128 (the
 rest) workers.  The Gram repeats bit for bit from call to call and is
 exactly symmetric.
+
+Order statistics: every m of the register path (1 to 32) at odd and even
+d, f32 and bf16 (packed pairs), with one NaN in each row position in turn.
+The network the kernels unroll is held to its Python mirror in
+``tests/test_torch_sortnet.py``.
 """
 import pytest
 import torch
@@ -151,16 +156,44 @@ def test_gram_matches_plain_and_repeats_bit_for_bit(cuda_device, m, dt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [9, 40])
-def test_order_statistics_spread_nan_and_refuse_over_trim(cuda_device, m):
-    x = torch.randn(m, 300, device=cuda_device)
-    x[4, 7] = float("nan")
-    for got, want in ((coordinate_median_cuda(x), ref.coordinate_median_ref(x)),
-                      (trimmed_mean_cuda(x, 3), ref.trimmed_mean_ref(x, 3))):
-        assert torch.equal(torch.isnan(got), torch.isnan(want))
-        assert bool(torch.isnan(got[7])) and int(torch.isnan(got).sum()) == 1
+@pytest.mark.parametrize("m", [*range(1, 33), 40])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_order_statistics_spread_nan_and_refuse_over_trim(cuda_device, m, dt):
+    """One NaN in each row position in turn, in column 7 and in the last
+    column: at d = 300 the last column is the upper half of a packed bf16
+    pair, at d = 301 the lone, masked one."""
+    n_trim = min(3, (m - 1) // 2)
+    for d in (300, 301):
+        gen = torch.Generator(device=cuda_device).manual_seed(m * 7 + d)
+        base = torch.randn(m, d, device=cuda_device, generator=gen).to(DTYPES[dt][0])
+        for r in range(m):
+            x = base.clone()
+            x[r, 7] = float("nan")
+            x[r, d - 1] = float("nan")
+            for got, want in ((coordinate_median_cuda(x), ref.coordinate_median_ref(x)),
+                              (trimmed_mean_cuda(x, n_trim), ref.trimmed_mean_ref(x, n_trim))):
+                nan = torch.isnan(got)
+                assert torch.equal(nan, torch.isnan(want))
+                assert bool(nan[7]) and bool(nan[d - 1]) and int(nan.sum()) == 2
     with pytest.raises(ValueError, match="trims everything"):
-        trimmed_mean_cuda(x, (m + 1) // 2)
+        trimmed_mean_cuda(base, (m + 1) // 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 555, 4096, 4099])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_order_statistics_match_plain_at_every_register_width(cuda_device, d, dt):
+    """Every m of the register path (1 .. 32), odd and even d: the median
+    bit-equal, the trimmed mean within tol."""
+    tdt, tol = DTYPES[dt]
+    for m in range(1, 33):
+        gen = torch.Generator(device=cuda_device).manual_seed(m * 131 + d)
+        x = torch.randn(m, d, device=cuda_device, generator=gen).to(tdt)
+        med = coordinate_median_cuda(x)
+        assert torch.equal(med, ref.coordinate_median_ref(x)), m
+        for n_trim in {0, (m - 1) // 2, min(8, (m - 1) // 2)}:
+            got = trimmed_mean_cuda(x, n_trim)
+            _within(got, ref.trimmed_mean_ref(x, n_trim), tol)
 
 
 @pytest.mark.cuda

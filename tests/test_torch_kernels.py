@@ -97,6 +97,25 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         filtered_mean_cuda(g, torch.ones(4), 1.0)
 
 
+def test_ptxas_report_reads_registers_stack_and_spills(monkeypatch):
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z3fooILi2EEvPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3fooILi2EEvPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers, 380 bytes cmem[0]
+ptxas info    : Function properties for __internal_slowpath
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_Z3barPf' for 'sm_90a'
+ptxas info    : Function properties for _Z3barPf
+    16 bytes stack frame, 12 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 380 bytes cmem[0]
+"""
+    monkeypatch.setattr(_build, "build_log", lambda stem: log)
+    assert _build.ptxas_report("sorted_reduce") == {
+        "_Z3fooILi2EEvPf": {"registers": 40, "stack": 0, "spill_stores": 0, "spill_loads": 0},
+        "_Z3barPf": {"registers": 255, "stack": 16, "spill_stores": 12, "spill_loads": 4}}
+
+
 def test_build_names_libraries_by_source_hash():
     paths = {p.stem: _build.library_path(p) for p in _build.sources()}
     assert set(paths) == {"fused_guard", "filtered_mean", "gram", "sorted_reduce", "countsketch"}
