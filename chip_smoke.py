@@ -17,7 +17,10 @@ and then no result line is printed):
    path (m ≤ 32): its sort network's size (``rt_sort_network``, the
    kernels' own constexpr evaluated on the host) is Batcher's at every
    power of two up to 32 (191 comparators at m = 32; 17 and 31 printed
-   too), and each of its 128 kernels has no stack frame and no spill;
+   too), and each of its 128 kernels has no stack frame and no spill; the
+   CountSketch's instantiations (dtype × vector or scalar loads × 32- or
+   64-bit offsets) print their registers and have no stack frame and no
+   spill;
 3. kernels — the guard kernels against their plain versions at m=32,
    d=2^20 and m=17, d=555 (f32, bf16) and m=32, d=2^26+3 (bf16, m·d >
    2^31): ``B_new`` bit-equal, the rest within ‖got−want‖ ≤ tol·‖want‖ +
@@ -58,9 +61,11 @@ and then no result line is printed):
    each kernel launched once); then both on the card and on the CPU at
    d=4099, m=8, T=16 (decisions equal, ξ and ``x_avg`` within 1e-5);
 7. dp — ``countsketch`` against its plain version at m=32, d=2^20, k=4096
-   (f32, bf16), m=17, d=555, k=8; m=16, d=16, k=4096 (k > d); m=8, d=4099,
-   k=64 and m=32, d=2^26+3, k=4096 (bf16, m·d > 2^31), salts 0 and 7,
-   within the same tol, and its signs bit-equal to ``ref.sketch_sign``;
+   (f32, bf16; ``launch_plan`` takes the 16-byte vector path there, with
+   no scratch), m=17, d=555, k=8; m=16, d=16, k=4096 (k > d); m=8, d=4099,
+   k=64; m=33, d=4099, k=63 (scalar loads, a row tile cut short) and
+   m=32, d=2^26+3, k=4096 (bf16, m·d > 2^31), salts 0 and 7, within the
+   same tol, and its signs bit-equal to ``ref.sketch_sign``;
    then ``run_sgd`` at the main path's shape with ``dp_exact@f32``,
    ``dp_exact@bf16``, ``dp_sketch@f32``, ``dp_sketch@bf16`` (sketch_dim
    4096) and ``dp_exact@f32`` with ``auto_v=False``: every run finite,
@@ -118,7 +123,14 @@ and then no result line is printed):
    kernels, and every launch must be in the trace); the order statistics'
    bound counts Batcher's
    comparators, two min/max each, at 64 ALU instructions a clock per SM
-   (at bf16 one instruction orders two columns), beside the bytes;
+   (at bf16 one instruction orders two columns), beside the bytes; for
+   ``countsketch`` at f32 and bf16 a ``countsketch`` line: two calls give
+   the same bits, the card's time in the ``countsketch`` kernels (every
+   one of the 20 launches in the trace) and the host's time a call beside
+   the median time, and its time before the redesign as PERF.md records
+   it; its bound counts one hash (9 integer operations) a coordinate at
+   the same ALU rate beside the bytes, and its library call is
+   ``torch.einsum`` of x's (m, J, k) view with the (J, k) signs;
    then the split of one materialising and one generating step between
    their parts;
 11. the kernels line (20 entries), the card line and the result line.
@@ -127,6 +139,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -149,7 +162,7 @@ from repro_torch.core.solver import (  # noqa: E402
 )
 from repro_torch.data.problems import make_generated_problem  # noqa: E402
 from repro_torch.kernels import _build, gradgen, ref  # noqa: E402
-from repro_torch.kernels.countsketch import countsketch_cuda  # noqa: E402
+from repro_torch.kernels.countsketch import countsketch_cuda, launch_plan  # noqa: E402
 from repro_torch.kernels.fused_guard import (  # noqa: E402
     MAX_WORKERS,
     fused_guard_cuda,
@@ -201,8 +214,8 @@ KERNELS = {
 # The bf16 guard sweep (plain, sanitizing, generating) is a kernel of the
 # header that csrc/fused_guard.cu includes.
 SWEEP_HEADER = "src/repro_torch/kernels/csrc/guard_sweep.cuh"
-# Recorded, not measured here: each guard sweep's and order statistic's
-# time before its redesign at m = 32, d = 2^20 as PERF.md §6 holds it
+# Recorded, not measured here: each guard sweep's, order statistic's and
+# CountSketch's time before its redesign at m = 32, d = 2^20 as PERF.md §6 holds it
 # (NVIDIA H100 80GB HBM3 at 700 W), under sign_flip and under ALIE (the
 # generating kernels, each with its own moments pass).  Phase lines print
 # it beside this run's time; the kernels line carries only what this run
@@ -213,7 +226,8 @@ RECORDED_BEFORE_MS = {("fused_guard", "f32"): 0.1734, ("fused_guard", "bf16"): 0
                       ("fused_guard_gen", "f32"): 0.3748, ("fused_guard_gen", "bf16"): 0.4147,
                       ("coordinate_median", "f32"): 0.0850,
                       ("coordinate_median", "bf16"): 0.0809,
-                      ("trimmed_mean", "f32"): 0.0836, ("trimmed_mean", "bf16"): 0.0808}
+                      ("trimmed_mean", "f32"): 0.0836, ("trimmed_mean", "bf16"): 0.0808,
+                      ("countsketch", "f32"): 0.0518, ("countsketch", "bf16"): 0.0574}
 RECORDED_BEFORE_ALIE_MS = {("fused_guard_gen", "f32"): 0.6209,
                            ("fused_guard_gen", "bf16"): 0.6469,
                            ("gen_xi", "f32"): 0.3750, ("gen_xi", "bf16"): 0.3734}
@@ -316,6 +330,29 @@ def sort_network_report() -> dict:
             "min_max_a_column_m32": 2 * sort_network_size(32),
             "register_path_kernels": len(kernels), "stack_or_spill_bytes": 0,
             "max_registers": max(p["registers"] for p in kernels.values())}
+
+
+def countsketch_report() -> dict:
+    """The CountSketch's kernels of ``csrc/countsketch.cu`` as built: each
+    instantiation's registers (dtype/loads/offsets), none with a stack
+    frame or a spill in ``-Xptxas -v``'s report."""
+    kernels = {}
+    for name, props in _build.ptxas_report("countsketch").items():
+        if "countsketch" not in name:
+            continue
+        t = re.search(r"countsketch_kernelI(f|13__nv_bfloat16)Lb([01])E([jl])E", name)
+        key = ("/".join(("f32" if t[1] == "f" else "bf16", "vector" if t[2] == "1" else "scalar",
+                         "u32" if t[3] == "j" else "i64")) if t
+               else "reduce" if "reduce" in name else name)
+        kernels[key] = props
+    # dtype × loads × offsets, and the scratch sum
+    require(len(kernels) == 2 * 2 * 2 + 1,
+            f"{len(kernels)} countsketch kernels in the build log: {sorted(kernels)}")
+    costly = [n for n, p in kernels.items()
+              if p["stack"] or p["spill_stores"] or p["spill_loads"]]
+    require(not costly, f"countsketch kernels with stack or spills: {costly}")
+    return {"registers": {n: p["registers"] for n, p in sorted(kernels.items())},
+            "stack_or_spill_bytes": 0}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -831,11 +868,13 @@ def quarantine_reference(dev) -> None:
 
 SKETCH_K = 4096   # the dp guards' default sketch_dim
 # (m, d, k, dtype, salt): the main path's shape, k not dividing d, k > d (the
-# reference's default at tiny d), a small strided fold, m·d > 2^31
+# reference's default at tiny d), a small strided fold, scalar loads with a
+# row tile cut short, m·d > 2^31
 SKETCH_CASES = [(M, D, SKETCH_K, "f32", 0), (M, D, SKETCH_K, "bf16", 0),
                 (M, D, SKETCH_K, "f32", 7), (17, 555, 8, "f32", 0), (17, 555, 8, "bf16", 7),
                 (16, 16, SKETCH_K, "f32", 7), (16, 16, SKETCH_K, "bf16", 0),
                 (8, 4099, 64, "f32", 7), (8, 4099, 64, "bf16", 0),
+                (33, 4099, 63, "f32", 0), (33, 4099, 63, "bf16", 7),
                 (M, 2 ** 26 + 3, SKETCH_K, "bf16", 7)]
 DP_RUNS = [
     ("dp_exact@f32", dict(guard_backend="dp_exact", stats_dtype="f32")),
@@ -860,14 +899,18 @@ def check_countsketch(dev, errs: dict) -> None:
     for m, d, k, dt, salt in SKETCH_CASES:
         gen = torch.Generator(device=dev).manual_seed(m * 7411 + d + k + salt)
         x = torch.randn(m, d, device=dev, generator=gen, dtype=DTYPES[dt])
+        plan = launch_plan(m, d, k, x.dtype, x.data_ptr() % 16 == 0)
         got = countsketch_cuda(x, k, salt)
         torch.cuda.synchronize()
         want = ref.countsketch_ref(x, k, salt)
         err = rel_err(got, want)
         emit("dp", check="countsketch", m=m, d=d, k=k, dtype=dt, salt=salt, rel_abs=err,
-             tol=TOL[dt])
+             tol=TOL[dt], plan=plan._asdict())
         require(got.shape == (m, k) and within(got, want, TOL[dt]),
                 f"countsketch within {TOL[dt]} at m={m} d={d} k={k} {dt} salt={salt}")
+        if (m, d, k) == (M, D, SKETCH_K):
+            require(plan.vec and plan.chunks == 1,
+                    f"countsketch at the main shape ({dt}): vector path, no scratch")
         if (m, d, k, salt) == (M, D, SKETCH_K, 0):
             errs[("countsketch", dt)] = err[1]
         del x, got, want
@@ -1666,23 +1709,43 @@ def time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
         emit("bound", kernel=f"filtered_mean_sanitize[{dt}]", shape=[M, D], bytes=fm_bytes,
              flops=sm_ops)
         # one read of x, one write of the (m, k) f32 sketch; a sign and an add
-        # per entry on f32 CUDA cores whatever the input type
+        # per entry on f32 CUDA cores whatever the input type, and one hash a
+        # coordinate (HASH_OPS integer operations) on the ALU pipe
         cs_bytes = M * D * e + M * SKETCH_K * 4
-        cs_ops = 2 * M * D
-        b_ms, b_by = bound(cs_bytes, cs_ops, PEAK_FLOPS["f32"])
+        cs_flops, cs_hash = 2 * M * D, HASH_OPS * D
+        cs_ops_ms = 1e3 * (cs_flops / PEAK_FLOPS["f32"] + cs_hash / alu_rate)
+        b_ms = max(1e3 * cs_bytes / HBM_BYTES_PER_S, cs_ops_ms)
+        b_by = "bytes" if b_ms > cs_ops_ms else "operations"
+        sketch = lambda: countsketch_cuda(g, SKETCH_K)  # noqa: E731
+        # the library's yardstick: one einsum of x's (m, J, k) view with the
+        # (J, k) signs, made once here; it reads d sign values more than the
+        # kernel, which makes them in registers
+        sgn = ref.sketch_sign(D, 0, dev).to(DTYPES[dt]).view(-1, SKETCH_K)
+        gv = g.view(M, -1, SKETCH_K)
         entries.append({
             "name": f"countsketch[{dt}]", "route": "cuda",
             "source": source_of("countsketch", dt), "replaces": KERNELS["countsketch"][1],
             "launches": dp_launches[f"dp_sketch@{dt}"]["countsketch"],
             "max_abs_err": errs[("countsketch", dt)],
-            "ms": median_ms(lambda: countsketch_cuda(g, SKETCH_K)),
+            "ms": median_ms(sketch),
             "plain_ms": median_ms(lambda: ref.countsketch_ref(g, SKETCH_K)),
             "bound_ms": b_ms, "bound_by": b_by,
-            # no single PyTorch call computes a hashed-sign stride fold
-            "library_ms": None,
+            "library_ms": median_ms(lambda: torch.einsum("mjk,jk->mk", gv, sgn)),
         })
         emit("bound", kernel=f"countsketch[{dt}]", shape=[M, D, SKETCH_K], bytes=cs_bytes,
-             flops=cs_ops)
+             bytes_ms=1e3 * cs_bytes / HBM_BYTES_PER_S, flops=cs_flops,
+             hash_operations=cs_hash, hash_operations_per_s=alu_rate,
+             operations_ms=cs_ops_ms, bound_ms=b_ms, bound_by=b_by)
+        del sgn, gv
+        same = torch.equal(sketch(), sketch())
+        traced = traced_launches(sketch, only="countsketch")
+        emit("countsketch", kernel=f"countsketch[{dt}]", repeat_bit_equal=same,
+             plan=launch_plan(M, D, SKETCH_K, g.dtype, g.data_ptr() % 16 == 0)._asdict(),
+             ms=entries[-1]["ms"], **traced,
+             recorded_before_redesign_ms=RECORDED_BEFORE_MS[("countsketch", dt)])
+        require(same, f"countsketch[{dt}]: two calls give the same bits at the main shape")
+        require(traced["every_launch_traced"],
+                f"countsketch[{dt}]: every launch in the trace ({traced['kernels']})")
         guard_sweep_line("fused_guard", dt, lambda: fused_guard_cuda(g, B, dlt),
                          ms_of(entries, f"fused_guard[{dt}]"))
         guard_sweep_line("fused_guard_sanitize", dt,
@@ -1757,6 +1820,10 @@ GEN_FLOPS = 8
 # and for compare, minimum and maximum (CUDA C++ Programming Guide,
 # arithmetic instruction throughput, compute capability 9.0)
 INT_OPS_PER_CLOCK_PER_SM = 64
+# integer operations of the CountSketch's sign hash a coordinate: the add of
+# the salt, two multiplies, two shift-xors (two each) and the sign bit's
+# shift and or
+HASH_OPS = 9
 
 
 def max_sm_clock_hz() -> float:
@@ -1905,7 +1972,7 @@ def main() -> int:
     ptxas = {stem: [ln.strip() for ln in _build.build_log(stem).splitlines()
                     if "registers" in ln or "spill" in ln] for stem in libs}
     emit("build", seconds=build_s, libraries=[str(p) for p in libs.values()], ptxas=ptxas,
-         sort_network=sort_network_report())
+         sort_network=sort_network_report(), countsketch=countsketch_report())
 
     errs = check_kernels(dev)
     check_order_kernels(dev, errs)

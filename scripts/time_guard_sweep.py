@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Times the guard sweep's or the order statistics' kernels of one checkout
-of the PyTorch/CUDA port on one GPU, so two checkouts can be compared in
-one run on one card.
+"""Times the guard sweep's, the order statistics' or the CountSketch's
+kernels of one checkout of the PyTorch/CUDA port on one GPU, so two
+checkouts can be compared in one run on one card.
 
     python3 scripts/time_guard_sweep.py [--root DIR] [--label NAME]
-                                        [--kernels guard_sweep|order_stats]
+                                        [--kernels guard_sweep|order_stats|countsketch]
 
 ``--root`` is the root of the checkout whose kernels are built and timed
 (default: this one).  At the main path's shape (m = 32, d = 2^20) it prints
@@ -26,6 +26,15 @@ it) and, where the checkout's ``chip_smoke.kernel_and_host_ms`` takes
 kernels from a ``torch.profiler`` trace of 20 wrapper calls, with
 ``traced_launches`` (the launches in that trace; 20 when none went
 unrecorded, else ``card_ms`` is null).
+
+``--kernels countsketch``: ``countsketch`` at f32 and bf16 into k = 4096
+buckets (``chip_smoke.SKETCH_K``), salt 0, as ``ms`` (the kernel launched
+through the checkout's C entry point into a preallocated sketch: by its
+launch plan, ``kernels.countsketch.run_plan``, where the checkout has one,
+else with ``n_chunks``) and ``card_ms``: the card's time a launch in the
+``countsketch`` kernels from a ``torch.profiler`` trace of 20 such
+launches, with ``traced_launches`` (20 when none went unrecorded, else
+``card_ms`` is null); ``plan`` is the launch plan where there is one.
 
 Run checkouts in turns (A, B, B, A) and compare within one run.  Imports
 nothing of JAX.
@@ -111,11 +120,48 @@ def order_stats_ms(cs, dev, out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def countsketch_ms(cs, dev, out: dict) -> None:
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import countsketch as ck
+    out.update(k=cs.SKETCH_K, card_ms={}, traced_launches={}, plan={})
+    gen = torch.Generator(device=dev).manual_seed(5)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    res = torch.empty((cs.M, cs.SKETCH_K), dtype=torch.float32, device=dev)
+    for code, dt in enumerate(("f32", "bf16")):
+        key = f"countsketch[{dt}]"
+        x = torch.randn(cs.M, cs.D, device=dev, generator=gen, dtype=cs.DTYPES[dt])
+        if hasattr(ck, "launch_plan"):
+            plan = ck.launch_plan(cs.M, cs.D, cs.SKETCH_K, x.dtype, x.data_ptr() % 16 == 0)
+            out["plan"][key] = plan._asdict()
+            part = (torch.empty((plan.chunks, cs.M, cs.SKETCH_K), device=dev)
+                    if plan.chunks > 1 else None)
+
+            def launch(plan=plan, part=part, x=x):
+                ck.run_plan(x, cs.SKETCH_K, 0, plan, res, part)
+        else:   # a checkout from before the launch plan: rt_countsketch takes n_chunks
+            chunks = ck.n_chunks(cs.M, cs.D, cs.SKETCH_K)
+            part = torch.empty((chunks, cs.M, cs.SKETCH_K) if chunks > 1 else (0,), device=dev)
+            fn = _build.load_function("countsketch", "rt_countsketch", ck._ARGTYPES)
+
+            def launch(chunks=chunks, part=part, x=x, code=code):
+                rc = fn(code, x.data_ptr(), part.data_ptr(), res.data_ptr(), cs.M, cs.D,
+                        cs.SKETCH_K, chunks, 1, dev.index, stream)
+                if rc != 0:
+                    raise RuntimeError(f"countsketch: CUDA error {rc}")
+        out["ms"][key] = cs.median_ms(launch)
+        t = cs.traced_launches(launch, only="countsketch")
+        out["card_ms"][key] = t["kernel_ms"] if t["every_launch_traced"] else None
+        out["traced_launches"][key] = sum(t["kernels"].values())
+        del x, part
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default=None)
-    ap.add_argument("--kernels", choices=("guard_sweep", "order_stats"), default="guard_sweep")
+    ap.add_argument("--kernels", choices=tuple(TIMERS), default="guard_sweep")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -135,9 +181,13 @@ def main() -> int:
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     out = {"label": args.label or str(root), "card": card, "kernels": args.kernels,
            "m": cs.M, "d": cs.D, "ms": {}}
-    (guard_sweep_ms if args.kernels == "guard_sweep" else order_stats_ms)(cs, dev, out)
+    TIMERS[args.kernels](cs, dev, out)
     print(json.dumps(out), flush=True)
     return 0
+
+
+TIMERS = {"guard_sweep": guard_sweep_ms, "order_stats": order_stats_ms,
+          "countsketch": countsketch_ms}
 
 
 if __name__ == "__main__":

@@ -18,8 +18,9 @@ value or averages two, with no sum whose order could differ.  The
 sanitizing variants' ``nf`` counts are equal exactly, and on finite input
 their shared outputs equal the plain kernels' bit for bit.  The
 CountSketch's signs are bit-equal to ``ref.sketch_sign``, and its sums are
-held to the same tolerance.  The generating kernels (``fused_guard_gen``,
-``gen_xi``) against their plain versions run on the card: ``B_new`` is
+held to the same tolerance; its vector path's plan gives the same bits
+with scalar loads, with 64-bit offsets and on a misaligned x.  The
+generating kernels (``fused_guard_gen``, ``gen_xi``) against their plain versions run on the card: ``B_new`` is
 bit-equal wherever no row depends on a sum over rows (every attack id but
 ALIE's 4 and 8, whose honest moments sum in another order), the rest
 within the same tolerance; and given the rows they generated, materialised,
@@ -52,7 +53,7 @@ from repro_torch.core.solver import SolverConfig, run_sgd
 from repro_torch.scenarios import ScenarioAdversary, scenario_static
 from repro_torch.data.problems import make_generated_problem
 from repro_torch.kernels import gradgen, ops, ref
-from repro_torch.kernels.countsketch import countsketch_cuda
+from repro_torch.kernels.countsketch import countsketch_cuda, launch_plan, run_plan
 from repro_torch.kernels.fused_guard import (
     MAX_WORKERS,
     fused_guard_cuda,
@@ -307,9 +308,15 @@ def test_quarantine_guard_on_the_card_matches_the_cpu(cuda_device, sd):
 
 
 # chip_smoke.py's shapes: the main path's, k not dividing d, k > d, a small
-# strided fold, and m·d > 2^31
+# strided fold, and m·d > 2^31; then one for each of the kernel's paths and
+# edges: k = 63 and k = 5 (scalar loads), k = d, d < V, row tiles cut short
+# (m = 17, 33) on the vector path, odd d at bf16 (scalar loads), and a
+# small k on the vector path whose terms are cut into chunks (scratch)
 SKETCH_SHAPES = [(32, 2 ** 20, 4096), (17, 555, 8), (16, 16, 4096), (8, 4099, 64),
-                 (32, 2 ** 26 + 3, 4096), (129, 4099, 64), (1000, 555, 8)]
+                 (32, 2 ** 26 + 3, 4096), (129, 4099, 64), (1000, 555, 8),
+                 (33, 4099, 63), (17, 2 ** 16, 5), (8, 4096, 4096), (4, 3, 8),
+                 (17, 2 ** 16, 256), (33, 2 ** 16, 4096), (17, 2 ** 18 + 1, 4096),
+                 (32, 2 ** 20, 8)]
 
 
 @pytest.mark.cuda
@@ -325,6 +332,33 @@ def test_countsketch_matches_plain(cuda_device, m, d, k, dt, salt):
     assert got.shape == (m, k) and got.dtype == torch.float32
     _within(got, ref.countsketch_ref(x, k, salt), tol)
     assert torch.equal(got, countsketch_cuda(x, k, salt))   # fixed-order sums
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,k", [(33, 2 ** 16, 4096), (32, 2 ** 20, 8), (17, 4096, 64)])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_countsketch_instantiations_give_the_same_bits(cuda_device, m, d, k, dt):
+    """The vector path's plan run with scalar loads, with 64-bit offsets, and
+    on a misaligned copy of x (which the plan sends to the scalar loads):
+    the same tiling sums in the same order, so the bits are the same."""
+    tdt, tol = DTYPES[dt]
+    gen = torch.Generator(device=cuda_device).manual_seed(m + d + k)
+    x = torch.randn(m, d, device=cuda_device, generator=gen).to(tdt)
+    plan = launch_plan(m, d, k, x.dtype, x.data_ptr() % 16 == 0)
+    assert plan.vec
+    got = countsketch_cuda(x, k, 3)
+    _within(got, ref.countsketch_ref(x, k, 3), tol)
+    for variant in (plan._replace(vec=False), plan._replace(wide=True),
+                    plan._replace(vec=False, wide=True)):
+        out = torch.empty_like(got)
+        part = (torch.empty((variant.chunks, m, k), device=cuda_device)
+                if variant.chunks > 1 else None)
+        run_plan(x, k, 3, variant, out, part)
+        assert torch.equal(out, got), variant
+    shifted = torch.empty(m * d + 1, device=cuda_device, dtype=tdt)[1:].view(m, d)
+    shifted.copy_(x)
+    assert not launch_plan(m, d, k, tdt, shifted.data_ptr() % 16 == 0).vec
+    assert torch.equal(countsketch_cuda(shifted, k, 3), got)
 
 
 @pytest.mark.cuda
