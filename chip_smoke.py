@@ -133,7 +133,25 @@ and then no result line is printed):
    ``torch.einsum`` of x's (m, J, k) view with the (J, k) signs;
    then the split of one materialising and one generating step between
    their parts;
-11. the kernels line (20 entries), the card line and the result line.
+11. profiles and faults — ``run_sgd`` at the main path's shape under
+   ``scenario_static("sign_flip")`` with worker profiles: a skewed fleet
+   (``heterogenize_generated`` with ``profile_linear_skew(32, 0.5)``) at
+   fused@f32 and fused@bf16, ``generate="kernel"`` against ``"off"``
+   (decisions equal at every step, gaps bit-equal, launches T each); a
+   fleet whose last 8 workers straggle (delay 3, ``max_delay=3``) and
+   whose honest workers report with probability 0.75
+   (``partial_participation=True``) at fused@f32, fused@bf16 and
+   dense@f32 (fused decisions and ``n_reporting`` equal dense's at every
+   step, every sign-flipper filtered and no honest worker); the
+   degenerate profile, every axis armed, bit-equal to no profile (T =
+   32); ms/step and peak memory of each run; then ``fault_main_path``:
+   each fault plan of phase 6 on the adversary through ``run_sgd`` with
+   ``sanitize="quarantine"`` at fused@f32 (the n_alive series equal to
+   phase 6's loop step for step, every victim in ``byz_mask``, the
+   sanitizing kernels T times each); then ``profile_reference``: the
+   skewed (both paths), straggling and partial runs on the card against
+   the CPU at d=4099, m=8, T=40 (decisions equal, ``x_avg`` within 1e-5);
+12. the kernels line (20 entries), the card line and the result line.
 """
 from __future__ import annotations
 
@@ -160,7 +178,10 @@ from repro_torch.core.solver import (  # noqa: E402
     make_aggregator,
     run_sgd,
 )
-from repro_torch.data.problems import make_generated_problem  # noqa: E402
+from repro_torch.data.problems import (  # noqa: E402
+    heterogenize_generated,
+    make_generated_problem,
+)
 from repro_torch.kernels import _build, gradgen, ref  # noqa: E402
 from repro_torch.kernels.countsketch import countsketch_cuda, launch_plan  # noqa: E402
 from repro_torch.kernels.fused_guard import (  # noqa: E402
@@ -175,7 +196,14 @@ from repro_torch.kernels.robust_reduce import (  # noqa: E402
     filtered_mean_cuda,
     trimmed_mean_cuda,
 )
-from repro_torch.scenarios import ScenarioAdversary, faults, scenario_static  # noqa: E402
+from repro_torch.scenarios import (  # noqa: E402
+    ScenarioAdversary,
+    faults,
+    profile_iid,
+    profile_linear_skew,
+    scenario_static,
+    worker_profile,
+)
 
 M, D, T = 32, 2 ** 20, 128
 # Kernel against plain version on the card: both upcast bf16 to f32 exactly
@@ -768,8 +796,10 @@ def quarantine_checks(fault: str, runs: dict) -> None:
         require(same_count, f"{fault}: {fused} and {dense} see the same poisoned rows")
 
 
-def quarantine(dev) -> None:
+def quarantine(dev) -> dict:
+    """Returns each plan's series, by plan and run."""
     problem = make_generated_problem(d=D, seed=0, device=dev)
+    series = {}
     for fault, plan in FAULT_PLANS.items():
         runs = {}
         for name, backend, sd in GUARD_RUNS:
@@ -784,6 +814,8 @@ def quarantine(dev) -> None:
                     if backend == "fused" else counts())
             require(got == want, f"{fault} {name}: launches {got}, expected {want}")
         quarantine_checks(fault, runs)
+        series[fault] = runs
+    return series
 
 
 def poisoned_batch(problem, m: int, dev) -> tuple[torch.Tensor, list]:
@@ -1168,6 +1200,20 @@ def check_gen_kernels(dev, errs: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def profiled_run(problem, cfg, adv, dev) -> tuple:
+    """One ``run_sgd``: (result, ms/step, launch counts, peak bytes), the
+    counts set to 0 just before and read just after."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_sgd(problem, cfg, prng.PRNGKey(0), adversary=adv, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return res, 1e3 * seconds / cfg.T, read_counts(), torch.cuda.max_memory_allocated(dev)
+
+
 GEN_RUNS = [(f"{attack}@{sd}", attack, sd) for attack in ("sign_flip", "alie")
             for sd in ("f32", "bf16")]
 
@@ -1182,20 +1228,9 @@ def gen_main_path(dev) -> dict:
     n_byz = int(BASE["alpha"] * M)
     for name, attack, sd in GEN_RUNS:
         adv = ScenarioAdversary(scenario_static(attack), BASE["alpha"])
-        out = {}
-        for generate in ("off", "kernel"):
-            cfg = SolverConfig(**{**BASE, "guard_backend": "fused", "stats_dtype": sd,
-                                  "generate": generate})
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(dev)
-            reset_counts()
-            t0 = time.perf_counter()
-            res = run_sgd(problem, cfg, prng.PRNGKey(0), adversary=adv, device=dev)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            out[generate] = (res, 1e3 * seconds / T, read_counts(),
-                             torch.cuda.max_memory_allocated(dev))
+        out = {generate: profiled_run(problem, SolverConfig(**{
+            **BASE, "guard_backend": "fused", "stats_dtype": sd, "generate": generate}), adv, dev)
+            for generate in ("off", "kernel")}
         (off, off_ms, off_n, off_mem), (gen, gen_ms, gen_n, gen_mem) = out["off"], out["kernel"]
         gen_launches[name] = gen_n
         decisions = all(torch.equal(getattr(off, f), getattr(gen, f))
@@ -1955,6 +1990,208 @@ def step_split(dev) -> None:
              total_ms=sum(ms.values()))
 
 
+# ---------------------------------------------------------------- phase 11
+
+SKEW_MAX = 0.5
+SLOW_DELAY = 3
+N_SLOW = 8            # the last 8 workers straggle
+P_REPORT = 0.75
+DEGENERATE_T = 32
+# (run, config over BASE) of the straggling, partially participating fleet;
+# dense@f32 is the oracle
+FLEET_RUNS = (("fused@f32", dict(guard_backend="fused", stats_dtype="f32")),
+              ("fused@bf16", dict(guard_backend="fused", stats_dtype="bf16")),
+              ("dense@f32", dict(guard_backend="dense", stats_dtype="f32")))
+FLEET_OPTS = dict(max_delay=SLOW_DELAY, partial_participation=True)
+
+
+def fleet_profile(m: int, dev):
+    """The last N_SLOW/32 of the workers refresh every SLOW_DELAY + 1 steps;
+    each honest worker reports with probability P_REPORT a step."""
+    n_slow = m * N_SLOW // M
+    return worker_profile(m, delay=[0] * (m - n_slow) + [SLOW_DELAY] * n_slow,
+                          p_report=P_REPORT, device=dev)
+
+
+def require_clean_filter(name: str, res, n_byz: int) -> None:
+    """Every sign-flipper filtered and no honest worker."""
+    require(int(res.byz_mask.sum()) == n_byz
+            and not bool((res.final_alive & res.byz_mask).any()),
+            f"{name}: all {n_byz} sign-flippers filtered")
+    require(not bool(res.ever_filtered_good), f"{name}: no honest worker filtered")
+
+
+def profile_main_path(dev) -> None:
+    """``run_sgd`` with worker profiles at the main path's shape under
+    ``scenario_static("sign_flip")``: a skewed fleet on the materialising and
+    the generating path, a straggling and partially participating fleet on
+    the fused guard at f32 and bf16 against dense@f32, and the degenerate
+    profile, armed, against no profile."""
+    n_byz = int(BASE["alpha"] * M)
+    sign_flip = scenario_static("sign_flip")
+    het = heterogenize_generated(make_generated_problem(d=D, seed=0, device=dev), m=M,
+                                 skew_max=SKEW_MAX)
+    skewed = ScenarioAdversary(sign_flip, BASE["alpha"],
+                               profile=profile_linear_skew(M, SKEW_MAX, device=dev))
+    for sd in ("f32", "bf16"):
+        out = {}
+        for generate in ("off", "kernel"):
+            cfg = SolverConfig(**{**BASE, "guard_backend": "fused", "stats_dtype": sd,
+                                  "generate": generate})
+            out[generate] = profiled_run(het, cfg, skewed, dev)
+        (off, off_ms, off_n, off_mem), (gen, gen_ms, gen_n, gen_mem) = out["off"], out["kernel"]
+        decisions = all(torch.equal(getattr(off, f), getattr(gen, f))
+                        for f in ("n_alive", "final_alive", "byz_mask"))
+        gaps_equal = torch.equal(off.gaps, gen.gaps)
+        finite = all(bool(torch.isfinite(r.x_avg).all() and torch.isfinite(r.gaps).all())
+                     for r in (off, gen))
+        emit("profile_main_path", run=f"linear_skew@{sd}", skew_max=SKEW_MAX, V=het.V,
+             ms_per_step={"off": off_ms, "kernel": gen_ms},
+             max_memory_allocated_bytes={"off": off_mem, "kernel": gen_mem},
+             final_gap={"off": float(off.gaps[-1]), "kernel": float(gen.gaps[-1])},
+             n_alive_first_last=[int(off.n_alive[0]), int(off.n_alive[-1])],
+             launches={"off": off_n, "kernel": gen_n},
+             decisions_equal_at_every_step=decisions, gaps_bit_equal=gaps_equal,
+             gaps_max_abs_diff=float((off.gaps - gen.gaps).abs().max()),
+             x_avg_rel_abs=rel_err(gen.x_avg, off.x_avg), finite=finite)
+        require(finite, f"linear_skew@{sd}: finite x_avg and gaps on both paths")
+        require(gen_n == counts(fused_guard_gen=T, gen_xi=T),
+                f"linear_skew@{sd} generate='kernel': launches {gen_n}")
+        require(off_n == counts(fused_guard=T, filtered_mean=T),
+                f"linear_skew@{sd} generate='off': launches {off_n}")
+        require(decisions, f"linear_skew@{sd}: generating run decides as the materialising "
+                           "run at every step")
+        # (skew·sign)·het_dir in the kernels is skew·(sign·het_dir) on the
+        # host (sign is ±1), so the generated rows are the sampled ones
+        require(gaps_equal, f"linear_skew@{sd}: gaps bit-equal to the materialising run's")
+        for r, path in ((off, "off"), (gen, "kernel")):
+            require_clean_filter(f"linear_skew@{sd} {path}", r, n_byz)
+        del off, gen, out
+
+    problem = make_generated_problem(d=D, seed=0, device=dev)
+    fleet = ScenarioAdversary(sign_flip, BASE["alpha"], profile=fleet_profile(M, dev))
+    runs = {}
+    for name, over in FLEET_RUNS:
+        cfg = SolverConfig(**{**BASE, **over, **FLEET_OPTS})
+        res, ms, got, mem = profiled_run(problem, cfg, fleet, dev)
+        runs[name] = res
+        finite = bool(torch.isfinite(res.x_avg).all() and torch.isfinite(res.gaps).all())
+        emit("profile_main_path", run=f"stragglers_partial {name}", n_slow=N_SLOW,
+             delay=SLOW_DELAY, p_report=P_REPORT, ms_per_step=ms,
+             max_memory_allocated_bytes=mem, final_gap=float(res.gaps[-1]),
+             n_alive_first_last=[int(res.n_alive[0]), int(res.n_alive[-1])],
+             n_reporting_min_mean_max=[int(res.n_reporting.min()),
+                                       float(res.n_reporting.float().mean()),
+                                       int(res.n_reporting.max())],
+             launches=got, finite=finite)
+        require(finite, f"stragglers_partial {name}: finite x_avg and gaps")
+        want = counts(fused_guard=T, filtered_mean=T) if name.startswith("fused") else counts()
+        require(got == want, f"stragglers_partial {name}: launches {got}, expected {want}")
+        require_clean_filter(f"stragglers_partial {name}", res, n_byz)
+    dense = runs["dense@f32"]
+    for name in ("fused@f32", "fused@bf16"):
+        same = {f: torch.equal(getattr(runs[name], f), getattr(dense, f))
+                for f in ("n_alive", "final_alive", "byz_mask", "n_reporting")}
+        emit("profile_main_path", check="fleet_equal_to_dense", run=name, equal=same)
+        require(all(same.values()), f"stragglers_partial {name}: decisions and n_reporting "
+                                    f"equal dense@f32's at every step: {same}")
+    del runs, dense
+
+    cfg = SolverConfig(**{**BASE, "guard_backend": "fused", "T": DEGENERATE_T, **FLEET_OPTS})
+    armed, armed_ms, armed_n, armed_mem = profiled_run(
+        het, cfg, ScenarioAdversary(sign_flip, BASE["alpha"], profile=profile_iid(M, device=dev)),
+        dev)
+    plain, plain_ms, _, plain_mem = profiled_run(het, cfg, ScenarioAdversary(sign_flip,
+                                                                             BASE["alpha"]), dev)
+    same = {f: torch.equal(getattr(armed, f), getattr(plain, f))
+            for f in ("x_final", "x_avg", "gaps", "n_alive", "final_alive", "byz_mask")}
+    reporting = bool((armed.n_reporting == M).all())
+    emit("profile_main_path", run="degenerate fused@f32", T=DEGENERATE_T,
+         ms_per_step={"profile_iid": armed_ms, "none": plain_ms},
+         max_memory_allocated_bytes={"profile_iid": armed_mem, "none": plain_mem},
+         bit_equal_to_no_profile=same, n_reporting_all_m=reporting, launches=armed_n)
+    require(all(same.values()), f"degenerate profile equals no profile bit for bit: {same}")
+    require(reporting and plain.n_reporting is None, "degenerate profile: every worker reports")
+    require(armed_n == counts(fused_guard=DEGENERATE_T, filtered_mean=DEGENERATE_T),
+            f"degenerate profile: launches {armed_n}")
+
+
+def fault_main_path(dev, series: dict) -> None:
+    """Each plan of FAULT_PLANS on the adversary through ``run_sgd`` with
+    ``sanitize="quarantine"`` at fused@f32: the n_alive series equals the
+    one ``guard_loop`` gave for the plan, every victim is in ``byz_mask``,
+    and only the sanitizing kernels run, T times each."""
+    problem = make_generated_problem(d=D, seed=0, device=dev)
+    steps = QUARANTINE_STEPS
+    cfg = SolverConfig(**QUARANTINE_BASE, m=M, T=steps, guard_backend="fused",
+                       stats_dtype="f32")
+    for fault, plan in FAULT_PLANS.items():
+        adv = ScenarioAdversary(scenario_static("sign_flip"), BASE["alpha"], faults=plan)
+        res, ms, got, mem = profiled_run(problem, cfg, adv, dev)
+        loop = series[fault]["fused@f32"]
+        want_alive = loop["alive"].sum(dim=1)
+        same = torch.equal(res.n_alive.cpu().to(want_alive.dtype), want_alive)
+        victims = loop["victims"]
+        held = bool(res.byz_mask.cpu()[victims].all())
+        x_avg_equal = torch.equal(res.x_avg.cpu(), loop["x_avg"])
+        emit("fault_main_path", fault=fault, run="fused@f32", T=steps, ms_per_step=ms,
+             max_memory_allocated_bytes=mem, n_alive_at={k: int(res.n_alive[k]) for k in (
+                 0, FAULT_START - 1, FAULT_START, steps - 1)},
+             n_alive_equal_to_guard_loop=same, x_avg_bit_equal_to_guard_loop=x_avg_equal,
+             victims=int(victims.sum()), victims_in_byz_mask=held,
+             n_byz_mask=int(res.byz_mask.sum()),
+             ever_filtered_good=bool(res.ever_filtered_good),
+             xi_finite=bool(torch.isfinite(res.x_avg).all()), launches=got)
+        require(same, f"fault_main_path {fault}: n_alive equals guard_loop's at every step")
+        require(held and int(victims.sum()) > 0, f"fault_main_path {fault}: every victim in "
+                                                 "byz_mask")
+        require(bool(torch.isfinite(res.x_avg).all()), f"fault_main_path {fault}: finite x_avg")
+        want = counts(fused_guard_sanitize=steps, filtered_mean_sanitize=steps)
+        require(got == want, f"fault_main_path {fault}: launches {got}, expected {want}")
+
+
+PROFILE_REF = [("linear_skew", "off"), ("linear_skew", "kernel"), ("stragglers", "off"),
+               ("partial", "off")]
+
+
+def profile_reference(dev) -> None:
+    """The skewed (both paths), straggling and partial runs on the card
+    against the CPU's plain-version runs on a small input."""
+    m, d, steps = 8, 4099, 40
+    for name, generate in PROFILE_REF:
+        over = {"stragglers": dict(max_delay=SLOW_DELAY),
+                "partial": dict(partial_participation=True)}.get(name, {})
+        kw = dict(m=m, T=steps, eta=0.05, alpha=0.25, aggregator="byzantine_sgd",
+                  guard_backend="fused", generate=generate, **over)
+        out = {}
+        for where in (dev, "cpu"):
+            problem = make_generated_problem(d=d, seed=1, device=where)
+            if name == "linear_skew":
+                problem = heterogenize_generated(problem, m=m, skew_max=SKEW_MAX)
+                profile = profile_linear_skew(m, SKEW_MAX, device=where)
+            else:
+                profile = fleet_profile(m, where)
+            adv = ScenarioAdversary(scenario_static("sign_flip"), 0.25, profile=profile)
+            reset_counts()
+            out[where] = run_sgd(problem, SolverConfig(**kw), prng.PRNGKey(1), adversary=adv,
+                                 device=where)
+            if where == dev:
+                launched = read_counts()
+        got, want = out[dev], out["cpu"]
+        fields = ["n_alive", "final_alive", "byz_mask"] + (
+            ["n_reporting"] if name == "partial" else [])
+        same = all(torch.equal(getattr(got, f).cpu(), getattr(want, f)) for f in fields)
+        err = rel_err(got.x_avg.cpu(), want.x_avg)
+        emit("profile_reference", run=f"{name} generate={generate}", decisions_equal=same,
+             x_avg_rel_abs=err, launches=launched)
+        require(same, f"{name} generate={generate}: card and CPU decisions equal")
+        require(within(got.x_avg.cpu(), want.x_avg, 1e-5),
+                f"{name} generate={generate}: card and CPU x_avg within 1e-5")
+        per = (dict(fused_guard_gen=steps, gen_xi=steps) if generate == "kernel"
+               else dict(fused_guard=steps, filtered_mean=steps))
+        require(launched == counts(**per), f"{name} generate={generate}: launches {launched}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1982,7 +2219,7 @@ def main() -> int:
     small_reference(dev)
     base_launches = baselines(dev)
     baselines_reference(dev)
-    quarantine(dev)
+    q_series = quarantine(dev)
     quarantine_baselines(dev)
     quarantine_reference(dev)
     check_countsketch(dev, errs)
@@ -2000,6 +2237,9 @@ def main() -> int:
                            gen_launches, gen_bounds(dev))
     require(len(entries) == 2 * len(KERNELS), f"{len(entries)} kernel entries")
     step_split(dev)
+    profile_main_path(dev)
+    fault_main_path(dev, q_series)
+    profile_reference(dev)
 
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -1,8 +1,8 @@
 """Carry state between the JAX package and the port as numpy arrays.
 
 The port never imports JAX; a caller holding the JAX package's
-``Problem``, ``GuardState``, ``DPGuardState``, ``Scenario`` or
-``AdvState`` passes its arrays through
+``Problem``, ``GuardState``, ``DPGuardState``, ``Scenario``, ``AdvState``,
+``WorkerProfile`` or ``FaultPlan`` passes its arrays through
 ``numpy.asarray`` and hands them here.  bf16 arrays arrive with numpy's ``bfloat16`` extension
 dtype (two bytes per element) and are reinterpreted bit for bit.
 """
@@ -17,7 +17,8 @@ from repro_torch.core.solver import Problem
 from repro_torch.data.problems import generated_problem
 from repro_torch.distributed.byzantine_dp import DPGuardState
 from repro_torch.scenarios.adversary import AdvState
-from repro_torch.scenarios.spec import Scenario
+from repro_torch.scenarios.faults import FaultPlan
+from repro_torch.scenarios.spec import Scenario, WorkerProfile
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -103,3 +104,22 @@ def scenario_from_numpy(attack_a, attack_b, switch_step, coalition_frac, churn_p
 def adv_state_from_numpy(adapt_scale, device="cuda") -> AdvState:
     """The port's ``AdvState`` from the JAX package's ``adapt_scale``."""
     return AdvState(adapt_scale=tensor_from_numpy(np.float32(adapt_scale), device))
+
+
+def profile_from_numpy(skew, delay, p_report, device="cuda") -> WorkerProfile:
+    """The port's ``WorkerProfile`` from the JAX package's (m,) leaves, in
+    its field order (``profile_from_numpy(*map(np.asarray, jax_profile))``),
+    on ``device``."""
+    return WorkerProfile(
+        skew=tensor_from_numpy(np.asarray(skew, np.float32), device),
+        delay=tensor_from_numpy(np.asarray(delay, np.int32), device),
+        p_report=tensor_from_numpy(np.asarray(p_report, np.float32), device))
+
+
+def fault_plan_from_numpy(mode, frac, start_step, period, magnitude) -> FaultPlan:
+    """The port's ``FaultPlan`` from the JAX package's 0-d leaves, in its
+    field order (``fault_plan_from_numpy(*map(np.asarray, jax_plan))``):
+    ids and steps as Python ints, ``frac`` and ``magnitude`` as numpy f32."""
+    i, f = (lambda a: int(np.asarray(a))), (lambda a: np.float32(np.asarray(a)))
+    return FaultPlan(mode=i(mode), frac=f(frac), start_step=i(start_step), period=i(period),
+                     magnitude=f(magnitude))

@@ -168,10 +168,13 @@ def counting_median_index(sq_dists: torch.Tensor, radius, report=None):
 
 def scalar_median(x: torch.Tensor) -> torch.Tensor:
     """``jnp.median``: the mean of the two middle values when the length is
-    even (``torch.median`` would return the lower one)."""
+    even (``torch.median`` would return the lower one), and NaN when any
+    entry is NaN (a sort would put the NaNs last and take the median of
+    the rest)."""
     s = torch.sort(x).values
     n = s.shape[0]
-    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+    med = (s[(n - 1) // 2] + s[n // 2]) * 0.5
+    return torch.where(torch.any(torch.isnan(x)), math.nan, med)
 
 
 def masked_quantile(x: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:

@@ -38,10 +38,21 @@ parameters, and the two generating kernels rebuild the rows.  The key
 chain is the materialising path's, ``akey`` included, so both paths see
 the same noise step for step.
 
-Not ported yet (they raise NotImplementedError): telemetry, and on the
-adversary worker profiles and fault plans.  Staleness (``max_delay``) and
-partial participation are armed only by a worker profile, as in the JAX
-package, so without one (and without an adversary) both are ignored.
+A :class:`~repro_torch.scenarios.spec.WorkerProfile` on the adversary
+(DESIGN.md §13) arms three axes, each only where its switch is set, as in
+the JAX package: heterogeneous sampling through ``Problem.het_grad`` (on
+the generating path the rank-1 ``skew·het_sign`` goes to the kernels),
+staleness (``cfg.max_delay > 0``: an (m, d) f32 buffer holds each
+worker's last fresh row between its refreshes) and partial participation
+(``cfg.partial_participation``: the step's reporting mask, drawn from
+``fold_in(akey, 7919)``, goes to the aggregator, and
+``SolverResult.n_reporting`` counts the reporters).  Without a profile
+``max_delay`` and ``partial_participation`` are ignored.  A
+:class:`~repro_torch.scenarios.faults.FaultPlan` on the adversary
+corrupts rows after the attack, keyed by ``fold_in(akey,
+FAULT_KEY_TAG)``, and its victims join ``byz_mask``.
+
+Not ported yet (it raises NotImplementedError): telemetry.
 """
 from __future__ import annotations
 
@@ -57,6 +68,7 @@ from repro_torch.core import aggregators as agg_lib
 from repro_torch.core import attacks as attack_lib
 from repro_torch.core.guard_backends import make_guard_backend
 from repro_torch.kernels import gradgen
+from repro_torch.scenarios import faults as faults_mod
 
 
 class Problem(NamedTuple):
@@ -64,8 +76,11 @@ class Problem(NamedTuple):
 
     Unlike the JAX ``Problem``, ``stoch_grad(worker_keys, x) -> (m, d)``
     takes the (m, 2) worker keys of one step and returns the whole batch
-    (the JAX solver ``vmap``s a per-key sampler).  Every tensor lives on
-    one device."""
+    (the JAX solver ``vmap``s a per-key sampler), and so does the non-iid
+    sampler ``het_grad(worker_keys, x, skew) -> (m, d)`` with ``skew`` the
+    (m,) per-worker magnitudes (:func:`repro_torch.data.problems.
+    heterogenize_problem`); ``het`` is its provenance ``{'V0', 'cmax',
+    'skew_max'}``.  Every tensor lives on one device."""
 
     d: int
     f: Callable[[torch.Tensor], torch.Tensor]
@@ -77,6 +92,8 @@ class Problem(NamedTuple):
     V: float
     L: float = 1.0
     sigma: float = 0.0
+    het_grad: Callable | None = None  # (worker_keys, x, skew) -> (m, d), non-iid
+    het: dict | None = None           # {'V0', 'cmax', 'skew_max'} provenance
     gen: object = None   # kernels.gradgen.GenSpec on a counter-generatable problem
 
 
@@ -135,6 +152,8 @@ class SolverResult(NamedTuple):
     byz_mask: torch.Tensor         # (m,) workers that were ever Byzantine
     ever_filtered_good: torch.Tensor  # () bool
     final_alive: torch.Tensor      # (m,) bool
+    n_reporting: torch.Tensor | None = None  # (T,) int32 reporters a step under
+    #                                          partial participation, else None
 
 
 def byz_rank(key: torch.Tensor, m: int) -> torch.Tensor:
@@ -272,9 +291,8 @@ def make_aggregator(problem: Problem, cfg: SolverConfig, device="cuda"):
 
 
 def _check_supported(problem: Problem, cfg: SolverConfig, adversary, telemetry) -> None:
-    """The JAX package's ``ValueError`` gates of ``generate="kernel"`` that
-    apply without profiles and faults, then NotImplementedError for what
-    is not ported."""
+    """The JAX package's ``ValueError`` gates of ``generate="kernel"``, then
+    NotImplementedError for what is not ported."""
     if cfg.generate not in ("off", "kernel"):
         raise ValueError(f"generate must be 'off' or 'kernel', got {cfg.generate!r}")
     if cfg.generate == "kernel":
@@ -292,22 +310,21 @@ def _check_supported(problem: Problem, cfg: SolverConfig, adversary, telemetry) 
         if cfg.max_delay or cfg.partial_participation:
             raise ValueError("generate='kernel' does not compose with staleness buffers or "
                              "partial participation (both need the materialized batch)")
-        if cfg.sanitize != "off":
+        if getattr(adversary, "faults", None) is not None or cfg.sanitize != "off":
             raise ValueError("generate='kernel' does not compose with fault injection or "
                              "sanitize='quarantine' (both need the materialized batch)")
+        if (getattr(adversary, "profile", None) is not None and problem.het_grad is not None
+                and problem.gen.het_sign is None):
+            raise ValueError("generate='kernel' with a heterogeneous profile needs "
+                             "heterogenize_generated (rank-1 skew); heterogenize_problem's "
+                             "dense bias cannot stream through a strip")
         ids = (adversary.scenario.attack_a, adversary.scenario.attack_b)
         bad = [i for i in ids if i not in gradgen.GEN_SUPPORTED_IDS]
         if bad:
             raise ValueError(f"attack ids {bad} are not in-kernel generatable "
                              f"(supported: {gradgen.GEN_SUPPORTED_IDS})")
-    unported = {
-        "telemetry": telemetry is not None,
-        "worker profiles": getattr(adversary, "profile", None) is not None,
-        "fault plans on the adversary": getattr(adversary, "faults", None) is not None,
-    }
-    missing = [name for name, on in unported.items() if on]
-    if missing:
-        raise NotImplementedError(f"not ported yet (ROADMAP.md §1): {', '.join(missing)}")
+    if telemetry is not None:
+        raise NotImplementedError("not ported yet (ROADMAP.md §1): telemetry")
 
 
 def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
@@ -320,6 +337,15 @@ def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
     dev = resolve_device(device)
     if problem.x1.device.type != dev.type:
         raise ValueError(f"problem lives on {problem.x1.device}, run asked for {dev}")
+    # the per-worker and fault axes, each a host decision as in the JAX
+    # package: a run without its switch never touches its machinery
+    profile = getattr(adversary, "profile", None)
+    if profile is not None and profile.skew.device.type != dev.type:
+        raise ValueError(f"worker profile lives on {profile.skew.device}, run asked for {dev}")
+    het_on = profile is not None and problem.het_grad is not None
+    stale_on = profile is not None and cfg.max_delay > 0
+    part_on = profile is not None and cfg.partial_participation
+    fault_plan = getattr(adversary, "faults", None)
     gen_on = cfg.generate == "kernel"
     key = key.to(dev)
     key, mask_key = prng.split(key)
@@ -344,10 +370,15 @@ def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
     prev_n_alive = torch.tensor(cfg.m, device=dev)
     f_star = problem.f(problem.x_star)
     if gen_on:
-        # the rank-1 skew of worker profiles, which are not ported: zero
-        no_skew = torch.zeros((cfg.m,), dtype=torch.float32, device=dev)
+        # the rank-1 skew of a heterogeneous profile, zero for an iid fleet
+        skewsign = (profile.skew * problem.gen.het_sign if het_on
+                    else torch.zeros((cfg.m,), dtype=torch.float32, device=dev))
+    if stale_on:
+        # each worker's last fresh row; every schedule fires at k = 0, so
+        # the zeros are never read
+        buf = torch.zeros((cfg.m, problem.d), dtype=torch.float32, device=dev)
     rng = key
-    gaps, n_alive_series = [], []
+    gaps, n_alive_series, n_reporting = [], [], []
     for k in range(cfg.T):
         rng, gkey, akey = prng.split(rng, 3)
         worker_keys = prng.split(gkey, cfg.m)
@@ -360,21 +391,43 @@ def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
             mask_k = adversary.mask_at(rank, k)
             slot, params, w_byz = adversary.gen_attack_ctx(mask_k, ctx, adv_state,
                                                            problem.gen.noise_scale)
-            genctx = gradgen.GenStepCtx(worker_keys=worker_keys, skewsign=no_skew, slot=slot,
+            genctx = gradgen.GenStepCtx(worker_keys=worker_keys, skewsign=skewsign, slot=slot,
                                         params=params, w_byz=w_byz)
             agg_state, xi, n_alive, alive, byz_sum = agg_step(agg_state, genctx, x, x1)
             byz_row = byz_sum / torch.clamp(torch.sum(mask_k), min=1)
             adv_state = adversary.update_state_from_byz_row(adv_state, mask_k, byz_row, xi,
                                                             alive, n_alive, ctx)
         else:
-            grads = problem.stoch_grad(worker_keys, x)
+            if het_on:
+                # worker w draws around ∇f + skew[w]·C[w], from the iid
+                # sampler's stream: skew 0 gives its rows bit for bit
+                grads = problem.het_grad(worker_keys, x, profile.skew)
+            else:
+                grads = problem.stoch_grad(worker_keys, x)
+            if stale_on:
+                # between refreshes a worker reports the row it computed
+                # at an older iterate
+                buf = torch.where(adversary.refresh_at(k, cfg.max_delay)[:, None], grads, buf)
+                grads = buf
             if adversary is None:
                 mask_k = static_mask
                 grads = attack_fn(akey, grads, mask_k, ctx, **attack_kwargs)
             else:
                 mask_k = adversary.mask_at(rank, k)
                 grads = adversary.attack(akey, grads, mask_k, ctx, adv_state)
-            agg_state, xi, n_alive, alive = agg_step(agg_state, grads, x, x1)
+            if fault_plan is not None:
+                # machine faults land after the attack, on the top ranks;
+                # fold_in leaves the gkey/akey streams as they are
+                fkey = prng.fold_in(akey, faults_mod.FAULT_KEY_TAG)
+                grads = faults_mod.apply_fault_plan(fault_plan, fkey, grads, rank, k)
+                ever_byz = ever_byz | faults_mod.fault_rows(fault_plan, rank, k)
+            report = None
+            if part_on:
+                # who reports is drawn apart from the Byzantine mask:
+                # Byzantine workers always report
+                report = adversary.report_at(prng.fold_in(akey, 7919), mask_k)
+                n_reporting.append(torch.sum(report, dtype=torch.int32))
+            agg_state, xi, n_alive, alive = agg_step(agg_state, grads, x, x1, report)
             if adversary is not None:
                 adv_state = adversary.update_state(adv_state, mask_k, grads, xi, alive,
                                                    n_alive, ctx)
@@ -388,6 +441,8 @@ def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
         # the gap is taken at x_k, before the update
         gaps.append(problem.f(x) - f_star)
         n_alive_series.append(n_alive)
+        # fault victims count as Byzantine (folded in above), so the
+        # sanitizer killing them is not an honest worker filtered
         ever_byz = ever_byz | mask_k
         any_good_filtered = any_good_filtered | torch.any((~alive) & (~ever_byz))
         prev_xi, prev_alive, prev_n_alive = xi, alive, n_alive
@@ -408,4 +463,5 @@ def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
         # not a membership
         final_alive=(agg_state.alive if hasattr(agg_state, "alive")
                      else torch.ones((cfg.m,), dtype=torch.bool, device=dev)),
+        n_reporting=torch.stack(n_reporting) if part_on else None,
     )

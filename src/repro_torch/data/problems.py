@@ -8,10 +8,15 @@ noise, noiseⱼ = (V/√d)·uniform(−1, 1) from threefry counters keyed on
 ``default_rng(seed)`` exactly as in the JAX package, and the noise stream
 is the same threefry stream, so the port samples the reference's batches.
 ``Problem.gen`` holds the :class:`~repro_torch.kernels.gradgen.GenSpec`
-that ``SolverConfig.generate="kernel"`` regenerates the batch from
-(``het_dir`` zeros: ``heterogenize_generated`` waits for worker profiles).
-The quadratic problem with sphere noise draws ``jax.random.normal`` and is
-not ported.
+that ``SolverConfig.generate="kernel"`` regenerates the batch from.
+
+``heterogenize_problem`` and ``heterogenize_generated`` give a problem
+non-iid workers (DESIGN.md §13): worker w's gradient is biased by
+``skew·C[w]`` for a zero-sum direction matrix C drawn from numpy's
+``default_rng(seed)`` as in the JAX package, so C is the reference's bit
+for bit.  The generated form keeps C rank 1 (``sign[w]·dir``), which the
+generating kernels fold in as one scalar a worker.  The quadratic problem
+with sphere noise draws ``jax.random.normal`` and is not ported.
 """
 from __future__ import annotations
 
@@ -67,3 +72,68 @@ def make_generated_problem(d: int = 16, sigma: float = 1.0, L: float = 10.0,
     noise_scale = np.float32(V) / np.sqrt(np.float32(d))
     return generated_problem(h, x_star, np.zeros((d,), np.float32), D, V, L,
                              sigma, noise_scale, device)
+
+
+def _het_sampler(base, C: torch.Tensor):
+    """``het_grad(worker_keys, x, skew)``: the base batch plus ``skew[w]·C[w]``
+    on every row with a non-zero skew; a zero-skew row passes through bit
+    for bit (``g + 0.0`` would turn −0.0 into +0.0)."""
+
+    def het_grad(worker_keys, x, skew):
+        g = base(worker_keys, x)
+        s = skew[:, None]
+        return torch.where(s != 0.0, g + s * C, g)
+
+    return het_grad
+
+
+def heterogenize_problem(problem: Problem, m: int, skew_max: float, seed: int = 0) -> Problem:
+    """Non-iid per-worker gradients with the base problem's optimum: rows
+    of C are centred, normalised and centred again (row sum exactly zero),
+    ``V`` grows by ``skew_max·cmax`` (cmax the largest row norm) and
+    ``het`` keeps ``{'V0', 'cmax', 'skew_max'}``."""
+    if skew_max < 0:
+        raise ValueError(f"skew_max must be >= 0, got {skew_max}")
+    rng = np.random.default_rng(seed)
+    C = rng.normal(size=(m, problem.d))
+    C -= C.mean(axis=0, keepdims=True)
+    C /= np.maximum(np.linalg.norm(C, axis=1, keepdims=True), 1e-12)
+    C -= C.mean(axis=0, keepdims=True)
+    cmax = float(np.linalg.norm(C, axis=1).max())
+    C_t = torch.tensor(C.astype(np.float32), device=problem.x1.device)
+    return problem._replace(
+        V=problem.V + skew_max * cmax,
+        het_grad=_het_sampler(problem.stoch_grad, C_t),
+        het={"V0": float(problem.V), "cmax": cmax, "skew_max": float(skew_max)},
+    )
+
+
+def heterogenize_generated(problem: Problem, m: int, skew_max: float,
+                           seed: int = 0) -> Problem:
+    """:func:`heterogenize_problem` with C of rank 1, ``C[w] = sign[w]·dir``
+    (a unit direction, signs alternating +1, −1, so the fleet sum is exactly
+    zero), for a generated problem: ``GenSpec.het_dir`` is ``dir`` and
+    ``GenSpec.het_sign`` the signs.  Since ``sign`` is ±1, ``skew·(sign·dir)``
+    here and ``(skew·sign)·dir`` in the kernels give the same bits."""
+    if problem.gen is None:
+        raise ValueError("heterogenize_generated needs a generated problem "
+                         "(make_generated_problem); use heterogenize_problem "
+                         "for dense bias matrices")
+    if skew_max < 0:
+        raise ValueError(f"skew_max must be >= 0, got {skew_max}")
+    if m % 2:
+        raise ValueError(f"rank-1 zero-sum signs need even m, got {m}")
+    dev = problem.x1.device
+    rng = np.random.default_rng(seed)
+    dvec = rng.normal(size=problem.d)
+    dvec /= max(np.linalg.norm(dvec), 1e-12)
+    dir_t = torch.tensor(dvec.astype(np.float32), device=dev)
+    sign = torch.tensor(np.where(np.arange(m) % 2 == 0, 1.0, -1.0).astype(np.float32),
+                        device=dev)
+    cmax = float(np.linalg.norm(dvec))
+    return problem._replace(
+        V=problem.V + skew_max * cmax,
+        het_grad=_het_sampler(problem.stoch_grad, sign[:, None] * dir_t[None, :]),
+        het={"V0": float(problem.V), "cmax": cmax, "skew_max": float(skew_max)},
+        gen=problem.gen._replace(het_dir=dir_t, het_sign=sign),
+    )

@@ -88,8 +88,9 @@ def noise_row(k0, k1, j: torch.Tensor, noise_scale: float) -> torch.Tensor:
 class GenSpec(NamedTuple):
     """What a kernel needs to regenerate a worker's row: the coordinate-wise
     problem data, the noise scale and the rank-1 heterogeneity direction
-    (zeros for a homogeneous fleet).  ``het_sign`` stays ``None`` until the
-    profile slice ports ``heterogenize_generated``."""
+    (zeros for a homogeneous fleet).  ``het_sign`` holds the workers' ±1
+    signs once :func:`repro_torch.data.problems.heterogenize_generated` has
+    set them, else ``None``."""
 
     h: torch.Tensor             # (d,) diagonal curvature
     x_star: torch.Tensor        # (d,) optimum

@@ -43,7 +43,8 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     data = int(data)
     if not 0 <= data <= MASK32:
         raise ValueError(f"fold_in data must lie in [0, 2**32), got {data}")
-    c = torch.tensor(data, dtype=torch.int64, device=key.device)
+    # a fill on the key's device, not a copy from the host
+    c = torch.full((), data, dtype=torch.int64, device=key.device)
     x0, x1 = threefry2x32(key[0], key[1], torch.zeros_like(c), c)
     return torch.stack([x0, x1])
 
@@ -82,8 +83,8 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     shifted in f32, and held at or above ``minval``."""
     mant = (_bits(key, shape) >> 9) | 0x3F800000
     floats = mant.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

@@ -6,8 +6,10 @@ constructors), :mod:`repro_torch.scenarios.adversary` (the
 the generating path) and :mod:`repro_torch.scenarios.faults`, the fault
 plans that poison worker gradients with NaN, ±Inf, finite garbage or bit
 flips (the input of the ``sanitize="quarantine"`` stage, DESIGN.md §15).
-Worker profiles, fault plans on the adversary and the campaign runner are
-not ported yet.
+The adversary carries a worker profile (``WorkerProfile`` and its
+constructors: skewed, straggling and partially participating fleets) and
+a fault plan, both driven by ``run_sgd``.  The campaign runner is not
+ported yet.
 """
 from repro_torch.scenarios.adversary import (
     ATTACK_TABLE,
@@ -34,13 +36,20 @@ from repro_torch.scenarios.faults import (
 from repro_torch.scenarios.spec import (
     NEVER,
     Scenario,
+    WorkerProfile,
     make_scenario,
+    profile_iid,
+    profile_knobs,
+    profile_linear_skew,
+    profile_partial,
+    profile_stragglers,
     scenario_adaptive,
     scenario_churn,
     scenario_coalition,
     scenario_late_join,
     scenario_lie_low_then_strike,
     scenario_static,
+    worker_profile,
 )
 
 __all__ = [
@@ -50,5 +59,6 @@ __all__ = [
     "fault_none", "fault_rows", "make_fault_plan", "n_faulty",
     "NEVER", "Scenario", "make_scenario", "scenario_adaptive", "scenario_churn",
     "scenario_coalition", "scenario_late_join", "scenario_lie_low_then_strike",
-    "scenario_static",
+    "scenario_static", "WorkerProfile", "profile_iid", "profile_knobs",
+    "profile_linear_skew", "profile_partial", "profile_stragglers", "worker_profile",
 ]

@@ -13,18 +13,23 @@ Scenario` bound to its Byzantine fraction, as ``run_sgd`` drives it.
   ``lax.switch``; the port branches in Python on the scenario's host id.
   ``random_gaussian`` (id 2) raises NotImplementedError: it draws
   ``jax.random.normal``, and ``prng.normal`` is not ported
-  (``ROADMAP.md`` §1, item 2);
+  (``ROADMAP.md`` §1, item 4);
 * **feedback** — :class:`AdvState` carries the multiplicative-weights
   magnitude, updated after each aggregation from the filter decision and
   the realized ξ.  With ``adapt_rate = 0`` the update is the identity, and
-  the port skips it.
+  the port skips it;
+* **per-worker schedules** — with a :class:`~repro_torch.scenarios.spec.
+  WorkerProfile`, :meth:`ScenarioAdversary.refresh_at` says which workers
+  recompute their gradient at a step (the others report a stale one) and
+  :meth:`ScenarioAdversary.report_at` which report at all (Byzantine
+  workers always do);
+* **machine faults** — a :class:`~repro_torch.scenarios.faults.FaultPlan`
+  in ``faults`` is applied by ``run_sgd`` after the attack.
 
 :meth:`ScenarioAdversary.gen_attack_ctx` is the O(m) form of the attack
 for ``generate="kernel"``: per-worker slots and the parameter vector of
 :mod:`repro_torch.kernels.gradgen`, expression for expression as
-:meth:`attack` computes the rows.  Worker profiles and fault plans are
-not ported yet (``ROADMAP.md`` §1): passing one raises
-NotImplementedError.
+:meth:`attack` computes the rows.
 """
 from __future__ import annotations
 
@@ -33,8 +38,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core import attacks as attack_lib
-from repro_torch.scenarios.spec import Scenario
+from repro_torch.scenarios.faults import FaultPlan
+from repro_torch.scenarios.spec import Scenario, WorkerProfile
 
 # name → (knob, default): the generic scale multiplies the knob's default.
 # The order is the JAX package's ATTACK_TABLE (ids are stored in scenarios).
@@ -78,7 +85,7 @@ def _dispatch(aid: int, key, grads, mask, ctx, scale: torch.Tensor) -> torch.Ten
     if name == "random_gaussian":
         raise NotImplementedError(
             "random_gaussian draws jax.random.normal; prng.normal is not ported "
-            "yet (ROADMAP.md §1, item 2)")
+            "yet (ROADMAP.md §1, item 4)")
     fn = attack_lib.get_attack(name)
     knob = _SCALE_KNOBS[name]
     if knob is None:
@@ -96,26 +103,44 @@ class AdvState(NamedTuple):
 class ScenarioAdversary:
     """A Scenario bound to its Byzantine fraction ``alpha`` (f32).
 
-    ``profile`` and ``faults`` are the JAX adversary's per-worker profile
-    and fault plan; neither is ported yet, and anything but ``None``
-    raises NotImplementedError."""
+    ``profile`` (a :class:`~repro_torch.scenarios.spec.WorkerProfile`, its
+    leaves on the run's device) parameterizes the honest workers; ``faults``
+    (a :class:`~repro_torch.scenarios.faults.FaultPlan`) the machine faults
+    ``run_sgd`` injects after the attack.  ``None`` leaves either out of
+    the run entirely."""
 
-    def __init__(self, scenario: Scenario, alpha, profile=None, faults=None):
-        if profile is not None:
-            raise NotImplementedError("worker profiles (and with them heterogenize_generated, "
-                                      "staleness and partial participation) are not ported "
-                                      "yet (ROADMAP.md §1)")
-        if faults is not None:
-            raise NotImplementedError("fault plans on the scenario adversary are not ported "
-                                      "yet (ROADMAP.md §1)")
+    def __init__(self, scenario: Scenario, alpha, profile: WorkerProfile | None = None,
+                 faults: FaultPlan | None = None):
         self.scenario = scenario
         self.alpha = np.float32(alpha)
-        self.profile = None
-        self.faults = None
+        self.profile = profile
+        self.faults = faults
 
     def n_byz(self, m: int) -> int:
         """floor(α·m + 1e-6) in f32, as the JAX package computes it."""
         return int(np.floor(self.alpha * np.float32(m) + np.float32(1e-6)))
+
+    # -- per-worker schedules (need a profile) ------------------------------
+    def stale_period(self, max_delay: int) -> torch.Tensor:
+        """(m,) int32: worker w refreshes its gradient every ``period[w]``
+        steps; ``max_delay`` caps the schedule."""
+        return torch.clamp(self.profile.delay, max=max_delay) + 1
+
+    def refresh_at(self, k: int, max_delay: int) -> torch.Tensor:
+        """(m,) bool: the workers that compute a fresh gradient at step
+        ``k`` (delay 0 refreshes every step)."""
+        return (k % self.stale_period(max_delay)) == 0
+
+    def staleness_at(self, k: int, max_delay: int) -> torch.Tensor:
+        """(m,) int32: the age in steps of the gradient worker w reports at
+        step ``k``."""
+        return k % self.stale_period(max_delay)
+
+    def report_at(self, key: torch.Tensor, mask_k: torch.Tensor) -> torch.Tensor:
+        """(m,) bool: who reports this step.  Honest worker w reports with
+        probability ``p_report[w]``; Byzantine workers always do."""
+        p = self.profile.p_report
+        return (prng.uniform(key, p.shape) < p) | mask_k
 
     # -- mask schedule -----------------------------------------------------
     def mask_at(self, rank: torch.Tensor, k: int) -> torch.Tensor:

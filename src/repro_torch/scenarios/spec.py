@@ -15,17 +15,102 @@ The fields are host scalars: ids and steps Python ints, fractions and
 magnitudes numpy f32 as the JAX scenario's f32 leaves, so every schedule
 is decided on the host and a step never waits for the device.  The JAX
 package stacks scenarios into one ``jit(vmap)``; the port runs one
-scenario per run.  ``WorkerProfile``, ``CampaignGrid`` and ``expand_grid``
-are not ported yet.
+scenario per run.  ``CampaignGrid`` and ``expand_grid`` are not ported
+yet.
+
+A :class:`WorkerProfile` parameterizes the honest side of a run, per
+worker: data skew, a staleness period and a reporting probability.  Its
+leaves are (m,) tensors on the run's device, so the step's refresh and
+reporting masks are device ops that need no copy from the host.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
+
+from repro_torch import resolve_device
 
 # sentinel for "this schedule never fires"
 NEVER = 1 << 30
+
+
+class WorkerProfile(NamedTuple):
+    """Per-worker state, three (m,) leaves (meanings as in the JAX
+    ``WorkerProfile``): worker w's gradient is biased by ``skew[w]·C[w]``
+    (:func:`repro_torch.data.problems.heterogenize_problem`), refreshed only
+    on steps with ``k % (min(delay[w], max_delay) + 1) == 0``, and reported
+    with probability ``p_report[w]`` a step.  The degenerate profile (skew
+    0, delay 0, p_report 1) runs bit for bit as no profile."""
+
+    skew: torch.Tensor      # (m,) f32 data-skew magnitude
+    delay: torch.Tensor     # (m,) int32 staleness period − 1
+    p_report: torch.Tensor  # (m,) f32 participation probability a step
+
+
+def worker_profile(m: int, *, skew=0.0, delay=0, p_report=1.0,
+                   device="cuda") -> WorkerProfile:
+    """Scalars broadcast to (m,), sequences are taken per worker; the
+    defaults give the degenerate profile."""
+    dev = resolve_device(device)
+
+    def vec(x, dtype):
+        if isinstance(x, torch.Tensor):
+            x = x.cpu().numpy()
+        arr = np.asarray(x, dtype)
+        arr = np.full((m,), arr, dtype) if arr.ndim == 0 else arr.reshape((m,)).astype(dtype)
+        return torch.from_numpy(arr).to(dev)
+
+    return WorkerProfile(skew=vec(skew, np.float32), delay=vec(delay, np.int32),
+                         p_report=vec(p_report, np.float32))
+
+
+def profile_iid(m: int, device="cuda") -> WorkerProfile:
+    """The degenerate profile: runs bit for bit as ``profile=None``."""
+    return worker_profile(m, device=device)
+
+
+def linspace_f32(stop: float, m: int) -> np.ndarray:
+    """``jnp.linspace(0.0, stop, m)`` bit for bit as the JAX package gets it
+    on the CPU: XLA turns the division by m − 1 into a product with its f32
+    reciprocal and reassociates, so element i is ``(stop · (1/(m−1))) · i``
+    (rounded at each product) and the last is ``stop``; ``i · stop / (m−1)``
+    would differ by an ulp at some i."""
+    if m <= 1:
+        return np.zeros((m,), np.float32)
+    i = np.arange(m - 1, dtype=np.float32)
+    ramp = (np.float32(stop) * (np.float32(1.0) / np.float32(m - 1))) * i
+    return np.concatenate([ramp, [np.float32(stop)]]).astype(np.float32)
+
+
+def profile_linear_skew(m: int, skew_max: float, device="cuda") -> WorkerProfile:
+    """Worker w's bias ramps linearly from 0 to ``skew_max`` across the fleet."""
+    return worker_profile(m, skew=linspace_f32(skew_max, m), device=device)
+
+
+def profile_stragglers(m: int, frac: float, delay: int, device="cuda") -> WorkerProfile:
+    """The last ``min(max(round(frac·m), 1 if frac > 0 else 0), m)`` workers
+    refresh their gradient only every ``delay + 1`` steps."""
+    n_slow = min(max(int(round(frac * m)), 1 if frac > 0 else 0), m)
+    delays = np.zeros((m,), np.int32)
+    if n_slow:
+        delays[m - n_slow:] = delay
+    return worker_profile(m, delay=delays, device=device)
+
+
+def profile_partial(m: int, p: float, device="cuda") -> WorkerProfile:
+    """Every worker reports independently with probability ``p`` a step."""
+    return worker_profile(m, p_report=p, device=device)
+
+
+def profile_knobs(profile: WorkerProfile | None) -> dict:
+    """Summary knobs of a profile, for result rows."""
+    if profile is None:
+        return {"skew": 0.0, "max_delay": 0, "participation": 1.0}
+    return {"skew": float(torch.max(profile.skew)),
+            "max_delay": int(torch.max(profile.delay)),
+            "participation": float(torch.min(profile.p_report))}
 
 
 class Scenario(NamedTuple):

@@ -13,9 +13,8 @@ against the JAX package and against itself.
   decisions equal and values within 1e-6.
 * The generating path never builds the batch (``stoch_grad`` is never
   called) and runs only the two generating ops, once each per step.
-* Every ``ValueError`` gate of the reference's ``generate="kernel"`` that
-  applies without profiles and faults, and NotImplementedError for what
-  is not ported.
+* Every ``ValueError`` gate of the reference's ``generate="kernel"``, and
+  NotImplementedError for what is not ported.
 * Staleness and partial participation without a worker profile: ignored,
   as in the reference, on the dense and the fused guard.
 """
@@ -32,9 +31,9 @@ from repro.scenarios import spec as jspec
 from repro.scenarios.adversary import ScenarioAdversary as JaxAdversary
 from repro_torch import convert, prng
 from repro_torch.core.solver import SolverConfig, run_sgd
-from repro_torch.data.problems import make_generated_problem
+from repro_torch.data.problems import heterogenize_problem, make_generated_problem
 from repro_torch.kernels import ops
-from repro_torch.scenarios import adversary, spec
+from repro_torch.scenarios import adversary, faults, spec
 
 M, D, T = 16, 16, 40
 
@@ -140,9 +139,10 @@ def test_generating_path_builds_no_batch(monkeypatch):
     assert torch.isfinite(res.x_avg).all()
 
 
-def _gen_run(attack="alie", problem=None, telemetry=None, **over):
+def _gen_run(attack="alie", problem=None, telemetry=None, profile=None, faults=None, **over):
     prob = problem or make_generated_problem(d=D, seed=0, device="cpu")
-    adv = adversary.ScenarioAdversary(spec.scenario_static(attack), 0.25) if attack else None
+    adv = (adversary.ScenarioAdversary(spec.scenario_static(attack), 0.25, profile=profile,
+                                       faults=faults) if attack else None)
     return run_sgd(prob, SolverConfig(**_cfg(over.pop("generate", "kernel"), T=4, **over)),
                    prng.PRNGKey(0), adversary=adv, telemetry=telemetry, device="cpu")
 
@@ -158,8 +158,12 @@ def _gen_run(attack="alie", problem=None, telemetry=None, **over):
     (dict(partial_participation=True), "partial participation"),
     (dict(sanitize="quarantine"), "sanitize='quarantine'"),
     (dict(attack="random_gaussian"), "not in-kernel generatable"),
+    (dict(faults=faults.fault_none()), "fault injection"),
+    (dict(profile=spec.profile_linear_skew(M, 0.5, device="cpu"),
+          problem=heterogenize_problem(make_generated_problem(d=D, seed=0, device="cpu"),
+                                       m=M, skew_max=0.5)), "heterogenize_generated"),
 ], ids=["generate", "problem", "adversary", "backend", "aggregator", "staleness",
-        "partial", "sanitize", "attack_id"])
+        "partial", "sanitize", "attack_id", "faults", "het_sign"])
 def test_generate_gates_raise_value_error(over, match):
     with pytest.raises(ValueError, match=match):
         _gen_run(**over)
@@ -175,10 +179,16 @@ def test_unported_parts_raise_not_implemented(over, match):
 
 
 def test_worker_profile_still_raises_not_implemented():
-    """Profiles (which arm staleness and partial participation) are not
-    ported: an adversary that carries one is refused."""
-    with pytest.raises(NotImplementedError, match="worker profiles"):
-        adversary.ScenarioAdversary(spec.scenario_static("sign_flip"), 0.25, profile=object())
+    """Worker profiles are ported, so an adversary carrying one is no
+    longer refused with NotImplementedError; a profile with ``max_delay``
+    under ``generate="kernel"`` raises the reference's ValueError (the
+    stale buffer needs the materialised batch)."""
+    adv = adversary.ScenarioAdversary(spec.scenario_static("sign_flip"), 0.25,
+                                      profile=spec.profile_stragglers(M, 0.25, 3, device="cpu"))
+    prob = make_generated_problem(d=D, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="does not compose with staleness buffers"):
+        run_sgd(prob, SolverConfig(**_cfg("kernel", T=4, max_delay=3)), prng.PRNGKey(0),
+                adversary=adv, device="cpu")
 
 
 STALE_PARTIAL = {"staleness": dict(max_delay=3),

@@ -26,7 +26,7 @@ from repro_torch import convert, prng
 from repro_torch.core.solver import SolverConfig, byz_rank, run_sgd
 from repro_torch.data.problems import make_generated_problem
 from repro_torch.kernels import gradgen
-from repro_torch.scenarios import adversary, spec
+from repro_torch.scenarios import adversary, faults, spec
 
 M, D = 16, 33
 IDS = [i for i, name in enumerate(adversary.ATTACK_TABLE) if name != "random_gaussian"]
@@ -213,13 +213,20 @@ def test_unported_parts_raise():
     scn = spec.scenario_static("random_gaussian")
     adv = adversary.ScenarioAdversary(scn, 0.25)
     _, tctx = _ctx()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
         adv.attack(prng.PRNGKey(0), torch.ones(M, D), torch.from_numpy(_mask()), tctx,
                    adv.init_state(M, D, device="cpu"))
-    with pytest.raises(NotImplementedError, match="profiles"):
-        adversary.ScenarioAdversary(scn, 0.25, profile=jspec.profile_iid(M))
-    with pytest.raises(NotImplementedError, match="fault plans"):
-        adversary.ScenarioAdversary(scn, 0.25, faults=jfaults.fault_nan_rows(0.1))
+    # worker profiles and fault plans are ported: the adversary carries
+    # the JAX package's leaves as they were
+    jprofile = jspec.profile_stragglers(M, 0.25, 3)
+    jplan = jfaults.fault_nan_rows(0.1, start_step=2)
+    carried = adversary.ScenarioAdversary(
+        scn, 0.25, profile=convert.profile_from_numpy(*map(np.asarray, jprofile), device="cpu"),
+        faults=convert.fault_plan_from_numpy(*map(np.asarray, jplan)))
+    for field in ("skew", "delay", "p_report"):
+        np.testing.assert_array_equal(getattr(carried.profile, field).numpy(),
+                                      np.asarray(getattr(jprofile, field)), err_msg=field)
+    assert carried.faults == faults.fault_nan_rows(0.1, start_step=2)
 
 
 def test_static_scenario_is_the_static_attack():
