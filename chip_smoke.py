@@ -34,7 +34,11 @@ and then no result line is printed):
    versions at the guard kernels' shapes, on input holding a whole NaN
    row, a ±Inf row and single NaN/Inf entries (one in the last column):
    ``nf`` equal, ``B_new`` bit-equal, the rest within tol; and on finite
-   input bit-equal to the plain kernels;
+   input bit-equal to the plain kernels; then ``small_width_kernels``:
+   every kernel of the convex harness's paths (the guard kernels plain and
+   sanitizing, ``gram``, the order statistics, ``countsketch`` at k = 4096
+   and 8) at m = 16, d = 16 and 10, f32 and bf16, the same way (a bf16
+   row of d = 10 is 20 bytes, so rows start off 16-byte boundaries);
 4. main path — ``run_sgd`` on ``make_generated_problem(d=2^20, seed=0)``,
    m=32, T=128, α=0.25, ``sign_flip``: ``fused@f32``, ``fused@bf16``,
    ``dense@f32`` and the ``mean`` baseline, each with the launch counts
@@ -151,12 +155,55 @@ and then no result line is printed):
    sanitizing kernels T times each); then ``profile_reference``: the
    skewed (both paths), straggling and partial runs on the card against
    the CPU at d=4099, m=8, T=40 (decisions equal, ``x_avg`` within 1e-5);
-12. the kernels line (20 entries), the card line and the result line.
+12. random_gaussian_main_path (after ``step_split``) — ``run_sgd`` at
+   the main path's shape under ``scenario_static("random_gaussian")``:
+   fused@f32 and fused@bf16 decide as dense@f32 at every step, every
+   attacker filtered and no honest worker, ms/step and peak memory;
+   ``generate="kernel"`` refuses id 2 with the reference's ValueError;
+13. the convex harness, after every phase above.  ``convex_step_alone``:
+   with nothing else on the card or the host, 200 steps of each of
+   mean, krum, coordinate_median, the dense, fused and dp_sketch guards
+   (quickstart's problem) and the logistic run, in a fresh process on
+   the card and then on the CPU (one thread), and on the card in this
+   process: ms/step of each; then the lower bound's experiments on the
+   card.  ``convex_pool``: the full-length runs below
+   on the card, then the same runs on the CPU, in a pool of
+   POOL_PROCESSES processes that share the card and the host (their
+   steps are host-bound, ~1200 tiny launches at d = 16; no time is read
+   from them but each run's seconds); each card run with the launch
+   counts set to 0 just before it and read just after.  The phase lines
+   print once the results are in:
+   quickstart — ``examples/quickstart.py``:
+   ``make_quadratic_problem(d=16, σ=1, L=8, V=1)`` (sphere noise from
+   ``prng.normal``), m = 16, α = 0.25, ``PRNGKey(0)``: mean, krum,
+   coordinate_median and byzantine_sgd (fused guard) under sign_flip at T
+   = 2000, the dense, fused and dp_sketch guards at T = 500, hidden_shift
+   at T = 2000; each run's launches exact, its decisions equal to the same
+   run on the CPU at every step and its final gap within 1e-3 relative of
+   it; mean's gap above 0.1, the guard 12/16 alive with no honest worker
+   filtered, the three backends deciding alike at every step;
+14. detection_latency — ``bench_filtering.bench_detection_latency``'s
+   loop (fused guard): per attack (sign_flip, random_gaussian, alie,
+   constant_drift, inner_product, hidden_shift; the first and last are
+   quickstart's runs) the first step the alive count reaches m − n_byz,
+   the final alive count, whether an honest worker was filtered and the
+   gap; each below 2e-2 with no honest worker filtered, deciding as its
+   CPU run;
+15. convex_harness — least squares (d = 16) and logistic regression (d =
+   10, n = 256, reg 1e-2, seed 2) under sign_flip through the fused guard
+   at T = 2000 (gap below 3·αDV/√T, no honest worker filtered, decisions
+   as the CPU's); ``solve_strongly_convex`` on the seed-1 quadratic (ε
+   2e-3, t_scale 0.05, 4000 steps an epoch at most; last gap below
+   5e-3); both distinguishing experiments at m = 16, α = 0.3, 48 trials,
+   T = 2 and 1024 (success as the CPU's, below 0.75 and above 0.9);
+16. the kernels line (20 entries), the card line and the result line.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
+import multiprocessing
 import re
 import statistics
 import subprocess
@@ -164,6 +211,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -171,7 +219,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import prng  # noqa: E402
 from repro_torch.core import aggregators, attacks  # noqa: E402
 from repro_torch.core.attacks import alie_z_max  # noqa: E402
+from repro_torch.core.epoch_solver import EpochSolverConfig, solve_strongly_convex  # noqa: E402
 from repro_torch.core.guard_backends import make_guard_backend  # noqa: E402
+from repro_torch.core.lower_bound import (  # noqa: E402
+    distinguishing_experiment_linear,
+    distinguishing_experiment_strongly_convex,
+)
 from repro_torch.core.solver import (  # noqa: E402
     SolverConfig,
     byz_rank,
@@ -181,6 +234,9 @@ from repro_torch.core.solver import (  # noqa: E402
 from repro_torch.data.problems import (  # noqa: E402
     heterogenize_generated,
     make_generated_problem,
+    make_least_squares_problem,
+    make_logistic_problem,
+    make_quadratic_problem,
 )
 from repro_torch.kernels import _build, gradgen, ref  # noqa: E402
 from repro_torch.kernels.countsketch import countsketch_cuda, launch_plan  # noqa: E402
@@ -1462,6 +1518,11 @@ def workers_main_path(dev) -> None:
 
 
 GRAM_FIRST_DESIGN_MS = {"f32": 0.0818, "bf16": 0.0826}   # PERF.md §6, the first design
+# The profiler keeps only the kernels whose card timestamps, mapped to the
+# host's clock, fall inside its window; a trace whose window closed right
+# after the synchronisation held 11 of 20 launches three times in a row
+# (PERF.md §7), so the window opens and closes this far from the calls.
+TRACE_MARGIN_S = 0.01
 
 
 def clocks_during(fn, seconds: float = 1.0) -> dict:
@@ -1527,14 +1588,16 @@ def median_ms(fn, batches: int = 7, per_batch: int = 20) -> float:
     return statistics.median(times)
 
 
-def kernel_and_host_ms(fn, calls: int = 20, only: str = "") -> dict:
+def kernel_and_host_ms(fn, calls: int = 20, only: str = "",
+                       margin_s: float = TRACE_MARGIN_S) -> dict:
     """Per call of ``fn``: the host's time to return from it while the card
     works through the queue (``time.perf_counter``, no synchronisation
     between the calls); then, from a ``torch.profiler`` trace of ``calls``
     more, the card's time in the kernels they launch whose names start
     with ``only``, the span from the first such kernel's start to the last
     one's end, and each kernel's count (each of them ``calls`` times when
-    none went unrecorded)."""
+    none went unrecorded).  The trace's window opens ``margin_s`` before
+    the first traced call and closes ``margin_s`` after the card is done."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1551,9 +1614,11 @@ def kernel_and_host_ms(fn, calls: int = 20, only: str = "") -> dict:
             on_trace_ready=lambda p: kern.extend(
                 e for e in p.events() if e.device_type == torch.autograd.DeviceType.CUDA)) as prof:
         for _ in range(2):
+            time.sleep(margin_s)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(margin_s)
             prof.step()
     counts: dict = {}
     named = []
@@ -2192,6 +2257,409 @@ def profile_reference(dev) -> None:
         require(launched == counts(**per), f"{name} generate={generate}: launches {launched}")
 
 
+# ---------------------------------------------------------------- phase 12
+
+# quickstart's d, and the logistic problem's (a bf16 row of 20 bytes: every
+# row after the first starts off a 16-byte boundary)
+SMALL_WIDTHS = ((16, 16), (16, 10))
+SMALL_SKETCH_K = (4096, 8)   # the dp guards' default sketch_dim (k > d), and k < d
+
+
+def small_width_kernels(dev) -> None:
+    """Every kernel of the convex harness's paths against its plain version
+    at m = 16 and d = 16 and 10, f32 and bf16: the median and ``B_new``
+    bit-equal, the rest within TOL; the sanitizing guard kernels on
+    poisoned input, as in phase 3."""
+    t0 = time.perf_counter()
+    for m, d in SMALL_WIDTHS:
+        n_trim = min(N_TRIM, (m - 1) // 2)
+        for dt in ("f32", "bf16"):
+            tol = TOL[dt]
+            gen = torch.Generator(device=dev).manual_seed(m * 613 + d)
+            g = torch.randn(m, d, device=dev, generator=gen, dtype=DTYPES[dt])
+            B = torch.randn(m, d, device=dev, generator=gen, dtype=DTYPES[dt]).mul_(3)
+            dlt = torch.randn(d, device=dev, generator=gen, dtype=DTYPES[dt])
+            w = (torch.rand(m, device=dev, generator=gen) > 0.3).float() / m
+            ok, err = {}, {}
+
+            def close(name, got, want):
+                ok[name] = bool(got.shape == want.shape) and within(got, want, tol)
+                err[name] = rel_err(got, want)[1]
+
+            got, want = fused_guard_cuda(g, B, dlt), ref.fused_guard_ref(g, B, dlt)
+            ok["fused_guard B_new bit-equal"] = torch.equal(got[3], want[3])
+            for name, a, b in zip(("gram_g", "cross", "a_inc"), got[:3], want[:3]):
+                close(f"fused_guard {name}", a, b)
+            close("filtered_mean", filtered_mean_cuda(g, w, 1.0), ref.filtered_mean_ref(g, w, 1.0))
+            close("gram", gram_cuda(g), ref.gram_ref(g))
+            ok["coordinate_median bit-equal"] = torch.equal(coordinate_median_cuda(g),
+                                                            ref.coordinate_median_ref(g))
+            close("trimmed_mean", trimmed_mean_cuda(g, n_trim), ref.trimmed_mean_ref(g, n_trim))
+            for k in SMALL_SKETCH_K:
+                close(f"countsketch k={k}", countsketch_cuda(g, k), ref.countsketch_ref(g, k))
+            p = poison(g.clone())
+            got = fused_guard_cuda(p, B, dlt, sanitize=True)
+            want = ref.fused_guard_sanitize_ref(p, B, dlt)
+            ok["fused_guard_sanitize nf equal"] = torch.equal(got[4], want[4])
+            ok["fused_guard_sanitize B_new bit-equal"] = torch.equal(got[3], want[3])
+            for name, a, b in zip(("gram_g", "cross", "a_inc"), got[:3], want[:3]):
+                close(f"fused_guard_sanitize {name}", a, b)
+            xi = filtered_mean_cuda(p, w, 1.0, sanitize=True)
+            close("filtered_mean_sanitize", xi, ref.filtered_mean_sanitize_ref(p, w, 1.0))
+            ok["filtered_mean_sanitize finite"] = bool(torch.isfinite(xi).all())
+            torch.cuda.synchronize()
+            failed = [name for name, good in ok.items() if not good]
+            emit("small_width_kernels", m=m, d=d, dtype=dt, n_trim=n_trim, tol=tol,
+                 checks=len(ok), failed=failed, max_abs_err=err)
+            require(not failed, f"small widths m={m} d={d} {dt}: {failed}")
+    emit("small_width_kernels", seconds=time.perf_counter() - t0)
+
+
+# The convex harness: the problems of the paper's own experiments, each
+# configuration as its source in the JAX package sets it.
+CONVEX_PROBLEMS = {
+    # examples/quickstart.py and benchmarks/bench_filtering.bench_detection_latency
+    "quadratic": lambda dev: make_quadratic_problem(d=16, sigma=1.0, L=8.0, V=1.0, seed=0,
+                                                    device=dev),
+    # tests/test_convergence.py's fixture (the epoch solver's problem)
+    "quadratic_seed1": lambda dev: make_quadratic_problem(d=16, sigma=1.0, L=8.0, V=1.0,
+                                                          seed=1, device=dev),
+    "least_squares": lambda dev: make_least_squares_problem(d=16, seed=0, device=dev),
+    # tests/test_convergence.py::test_logistic_regression_under_attack
+    "logistic": lambda dev: make_logistic_problem(d=10, n_data=256, reg=1e-2, seed=2,
+                                                  device=dev),
+}
+CONVEX_BASE = dict(m=16, eta=0.05, alpha=0.25, attack="sign_flip", aggregator="byzantine_sgd")
+# name -> (problem, config over CONVEX_BASE, the kernels a step launches)
+FUSED = {"fused_guard": 1, "filtered_mean": 1}
+QUICKSTART_RUNS = {
+    "mean": ("quadratic", dict(aggregator="mean", T=2000), {}),
+    "krum": ("quadratic", dict(aggregator="krum", T=2000), {"gram": 1}),
+    "coordinate_median": ("quadratic", dict(aggregator="coordinate_median", T=2000),
+                          {"coordinate_median": 1}),
+    "byzantine_sgd": ("quadratic", dict(guard_backend="fused", T=2000), FUSED),
+    "guard_backend=dense": ("quadratic", dict(guard_backend="dense", T=500), {}),
+    "guard_backend=fused": ("quadratic", dict(guard_backend="fused", T=500), FUSED),
+    "guard_backend=dp_sketch": ("quadratic", dict(guard_backend="dp_sketch", T=500),
+                                {"countsketch": 1, "filtered_mean": 1}),
+    "hidden_shift": ("quadratic", dict(attack="hidden_shift", guard_backend="fused", T=2000),
+                     FUSED),
+}
+DETECTION_ATTACKS = ("sign_flip", "random_gaussian", "alie", "constant_drift",
+                     "inner_product", "hidden_shift")
+# the detection loop's runs; sign_flip and hidden_shift are quickstart's
+DETECTION_SAME_AS = {"sign_flip": "byzantine_sgd", "hidden_shift": "hidden_shift"}
+DETECTION_RUNS = {f"detection {a}": ("quadratic", dict(attack=a, guard_backend="fused",
+                                                       T=2000), FUSED)
+                  for a in DETECTION_ATTACKS if a not in DETECTION_SAME_AS}
+HARNESS_RUNS = {
+    "least_squares": ("least_squares", dict(guard_backend="fused", T=2000), FUSED),
+    "logistic": ("logistic", dict(guard_backend="fused", T=2000, eta=0.1), FUSED),
+}
+CONVEX_RUNS = {**QUICKSTART_RUNS, **DETECTION_RUNS, **HARNESS_RUNS}
+# tests/test_convergence.py::TestScaling::test_epoch_solver_reaches_epsilon
+EPOCH_CFG = dict(m=16, alpha=0.25, epsilon=2e-3, attack="sign_flip", t_scale=0.05,
+                 max_t_per_epoch=4000)
+EPOCH = "epoch_solver"
+# the lower bound's experiments as tests/test_lower_bound.py runs them
+LOWER_BOUND = {"linear": (distinguishing_experiment_linear, 0, dict(eps=0.05)),
+               "strongly_convex": (distinguishing_experiment_strongly_convex, 1,
+                                   dict(eps_hat=0.05))}
+LOWER_BOUND_T = (2, 1024)
+LOWER_BOUND_TRIALS = 48
+# the card's final gap against the CPU's: both sum in another order
+GAP_RTOL, GAP_ATOL = 1e-3, 1e-7
+# the runs whose step is timed alone, on the card and on the CPU, and their T
+STEP_ALONE_RUNS = ("mean", "krum", "coordinate_median", "guard_backend=dense",
+                   "guard_backend=fused", "guard_backend=dp_sketch", "logistic")
+STEP_ALONE_T = 200
+# the pool of the convex runs: the epoch solver in one process, the rest
+# (the card runs, then their CPU references) in the others
+POOL_PROCESSES = 3
+POOL_WAIT_S = 600
+
+
+@functools.lru_cache(maxsize=None)
+def convex_problem(name: str, device: str):
+    return CONVEX_PROBLEMS[name](device)
+
+
+def convex_run(name: str, device: str, T: int | None = None) -> dict:
+    """One run of CONVEX_RUNS on ``device`` from PRNGKey(0) (``T`` steps
+    if given): host copies of its decisions, its final gap f(x̄) − f(x*)
+    and its seconds."""
+    problem_name, over, _ = CONVEX_RUNS[name]
+    problem = convex_problem(problem_name, device)
+    cfg = SolverConfig(**{**CONVEX_BASE, **over, **({"T": T} if T else {})})
+    t0 = time.perf_counter()
+    res = run_sgd(problem, cfg, prng.PRNGKey(0), device=device)
+    gap = float(problem.f(res.x_avg) - problem.f(problem.x_star))
+    seconds = time.perf_counter() - t0
+    # numpy, so the result pickles across processes as plain bytes
+    return {"n_alive": res.n_alive.cpu().numpy(), "final_alive": res.final_alive.cpu().numpy(),
+            "byz_mask": res.byz_mask.cpu().numpy(),
+            "ever_filtered_good": bool(res.ever_filtered_good),
+            "gap": gap, "finite": bool(torch.isfinite(res.x_avg).all()
+                                       and torch.isfinite(res.gaps).all()),
+            "T": cfg.T, "D": problem.D, "V": problem.V, "seconds": seconds}
+
+
+def lower_bound_run(kind: str, T: int, device: str) -> dict:
+    fn, seed, kw = LOWER_BOUND[kind]
+    t0 = time.perf_counter()
+    res = fn(prng.PRNGKey(seed), m=16, T=T, n_trials=LOWER_BOUND_TRIALS, alpha=0.3,
+             device=device, **kw)
+    return {"success_rate": res.success_rate, "threshold_T": res.threshold_T,
+            "seconds": time.perf_counter() - t0}
+
+
+def _pool_init() -> None:
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def step_alone_runs(device: str) -> dict:
+    """STEP_ALONE_T steps of each of STEP_ALONE_RUNS on ``device``, one
+    after another: {name: ms a step}."""
+    convex_run("mean", device, T=10)   # the first run's one-time costs
+    out = {}
+    for name in STEP_ALONE_RUNS:
+        got = convex_run(name, device, T=STEP_ALONE_T)
+        require(got["finite"], f"{name} alone on {device}: finite x_avg and gaps")
+        out[name] = 1e3 * got["seconds"] / STEP_ALONE_T
+    return out
+
+
+def convex_step_alone(dev) -> dict:
+    """The convex harness's step with nothing else on the card or the
+    host: STEP_ALONE_RUNS in a fresh process on the card, then on the CPU
+    (one thread, as the pool's CPU runs), while this process waits; then
+    the same card runs in this process, which has run every phase above
+    (torch.profiler's traces among them); then the lower bound's
+    experiments on the card, whose results the pool's CPU runs check
+    later.  Returns those results."""
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(1, initializer=_pool_init) as pool:
+        fresh = pool.apply(step_alone_runs, ("cuda:0",))
+        cpu = pool.apply(step_alone_runs, ("cpu",))
+    here = step_alone_runs(str(dev))
+    for name in STEP_ALONE_RUNS:
+        emit("convex_step_alone", run=name, T=STEP_ALONE_T, ms_per_step=fresh[name],
+             cpu_ms_per_step=cpu[name], main_process_ms_per_step=here[name])
+    lower = {(kind, T_lb): lower_bound_run(kind, T_lb, str(dev))
+             for kind in LOWER_BOUND for T_lb in LOWER_BOUND_T}
+    emit("convex_step_alone", seconds=time.perf_counter() - t0)
+    return lower
+
+
+def card_task(name: str, dev: str) -> dict:
+    """One card run of the pool, the launch counts set to 0 just before
+    it and read just after."""
+    torch.cuda.synchronize()
+    reset_counts()
+    if name == EPOCH:
+        t0 = time.perf_counter()
+        res = solve_strongly_convex(convex_problem("quadratic_seed1", dev),
+                                    EpochSolverConfig(**EPOCH_CFG), prng.PRNGKey(0), device=dev)
+        torch.cuda.synchronize()
+        out = {"per_epoch_T": res.per_epoch_T, "per_epoch_gap": res.per_epoch_gap,
+               "epochs": res.epochs, "T": res.total_iters,
+               "seconds": time.perf_counter() - t0}
+    else:
+        out = convex_run(name, dev)
+        torch.cuda.synchronize()
+    out["launches"] = read_counts()
+    return out
+
+
+def convex_pool() -> tuple[dict, dict]:
+    """The convex runs at full length: the epoch solver and every run of
+    CONVEX_RUNS on the card, then each run and the lower bound's
+    experiments on the CPU, in POOL_PROCESSES processes that share the
+    card and the host (no step is timed here: ``convex_step_alone``
+    times it alone).  Returns ({name: card result}, {name: CPU result});
+    the pool's processes are gone when it returns."""
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(POOL_PROCESSES, initializer=_pool_init) as pool:
+        card = {name: pool.apply_async(card_task, (name, "cuda:0"))
+                for name in (EPOCH, *CONVEX_RUNS)}
+        cpu = {name: pool.apply_async(convex_run, (name, "cpu")) for name in CONVEX_RUNS}
+        for kind in LOWER_BOUND:
+            for T_lb in LOWER_BOUND_T:
+                cpu[(kind, T_lb)] = pool.apply_async(lower_bound_run, (kind, T_lb, "cpu"))
+        deadline = time.monotonic() + POOL_WAIT_S
+        card, cpu = ({name: job.get(max(1.0, deadline - time.monotonic()))
+                      for name, job in jobs.items()} for jobs in (card, cpu))
+    emit("convex_pool", processes=POOL_PROCESSES, seconds=time.perf_counter() - t0,
+         card_seconds={name: res["seconds"] for name, res in card.items()})
+    return card, cpu
+
+
+def check_card_run(name: str, got: dict) -> None:
+    per_step = CONVEX_RUNS[name][2]
+    want = counts(**{k: got["T"] * v for k, v in per_step.items()})
+    require(got["launches"] == want, f"{name}: launches {got['launches']}, expected {want}")
+    require(got["finite"], f"{name}: finite x_avg and gaps")
+
+
+def same_as_cpu(name: str, got: dict, cpu: dict) -> dict:
+    """Decisions equal to the CPU run's at every step and the final gap
+    within GAP_RTOL; returns what the phase line prints."""
+    decisions = all(np.array_equal(got[f], cpu[f]) for f in ("n_alive", "final_alive", "byz_mask"))
+    decisions = decisions and got["ever_filtered_good"] == cpu["ever_filtered_good"]
+    gap_ok = abs(got["gap"] - cpu["gap"]) <= GAP_RTOL * abs(cpu["gap"]) + GAP_ATOL
+    require(decisions, f"{name}: decisions equal to the CPU run's at every step")
+    require(gap_ok, f"{name}: final gap {got['gap']} within {GAP_RTOL} of the CPU's {cpu['gap']}")
+    return {"decisions_equal_to_cpu": decisions, "cpu_gap": cpu["gap"]}
+
+
+def run_line(got: dict) -> dict:
+    return {"T": got["T"], "gap": got["gap"], "n_alive_last": int(got["n_alive"][-1]),
+            "byzantine_alive": int((got["final_alive"] & got["byz_mask"]).sum()),
+            "good_filtered": got["ever_filtered_good"], "launches": got["launches"]}
+
+
+def quickstart(card: dict, cpu: dict) -> None:
+    """examples/quickstart.py on the card: the four aggregators under
+    sign_flip (T = 2000; the guard fused), the three guard backends (T =
+    500) and hidden_shift; each against its CPU run."""
+    for name in QUICKSTART_RUNS:
+        got = card[name]
+        check_card_run(name, got)
+        emit("quickstart", run=name, **run_line(got), **same_as_cpu(name, got, cpu[name]))
+    n_byz = 4
+    require(card["mean"]["gap"] > 0.1, "quickstart: the mean's gap above 0.1 under sign_flip")
+    for name in ("byzantine_sgd", "hidden_shift"):
+        got = card[name]
+        require(int(got["n_alive"][-1]) == 16 - n_byz and not got["ever_filtered_good"]
+                and not bool((got["final_alive"] & got["byz_mask"]).any()),
+                f"quickstart {name}: 12/16 alive, every attacker filtered, no honest worker")
+    backends = [card[f"guard_backend={b}"] for b in ("dense", "fused", "dp_sketch")]
+    alike = all(np.array_equal(b["n_alive"], backends[0]["n_alive"])
+                and np.array_equal(b["final_alive"], backends[0]["final_alive"])
+                for b in backends)
+    emit("quickstart", check="backends_decide_alike_at_every_step", equal=alike,
+         seconds_in_pool=sum(card[name]["seconds"] for name in QUICKSTART_RUNS))
+    require(alike, "quickstart: dense, fused and dp_sketch decide alike at every step")
+
+
+def detection_latency(card: dict, cpu: dict) -> None:
+    """bench_filtering.bench_detection_latency's loop on the card: per
+    attack the first step at which the alive count reaches m − n_byz, the
+    final alive count, whether an honest worker was filtered and the gap;
+    each guarded run below 2e-2 with no honest worker filtered and deciding
+    as its CPU run."""
+    for attack in DETECTION_ATTACKS:
+        name = DETECTION_SAME_AS.get(attack, f"detection {attack}")
+        got = card[name]
+        check_card_run(name, got)
+        cmp = same_as_cpu(name, got, cpu[name])
+        n_alive = got["n_alive"]
+        detected = np.flatnonzero(n_alive <= 16 - int(got["byz_mask"].sum()))
+        latency = int(detected[0]) + 1 if detected.size else -1
+        emit("detection_latency", attack=attack, detect_iter=latency,
+             final_alive=int(n_alive[-1]), good_filtered=got["ever_filtered_good"],
+             gap=got["gap"], launches=got["launches"], **cmp,
+             **({"same_run_as": f"quickstart {name}"} if name in QUICKSTART_RUNS else {}))
+        require(got["gap"] < 2e-2 and not got["ever_filtered_good"],
+                f"detection {attack}: gap {got['gap']} < 2e-2, no honest worker filtered")
+    emit("detection_latency", seconds_in_pool=sum(card[name]["seconds"]
+                                                  for name in DETECTION_RUNS))
+
+
+RG_RUNS = (("fused@f32", dict(guard_backend="fused", stats_dtype="f32")),
+           ("fused@bf16", dict(guard_backend="fused", stats_dtype="bf16")),
+           ("dense@f32", dict(guard_backend="dense", stats_dtype="f32")))
+
+
+def random_gaussian_main_path(dev) -> None:
+    """``run_sgd`` at the main path's shape under
+    ``scenario_static("random_gaussian")``: fused@f32 and fused@bf16
+    deciding as dense@f32 at every step, every attacker filtered and no
+    honest worker; the generating path refuses id 2 with the reference's
+    ValueError."""
+    t0 = time.perf_counter()
+    problem = make_generated_problem(d=D, seed=0, device=dev)
+    adv = ScenarioAdversary(scenario_static("random_gaussian"), BASE["alpha"])
+    n_byz = int(BASE["alpha"] * M)
+    runs = {}
+    for name, over in RG_RUNS:
+        cfg = SolverConfig(**{**BASE, **over})
+        res, ms, got, mem = profiled_run(problem, cfg, adv, dev)
+        runs[name] = res
+        finite = bool(torch.isfinite(res.x_avg).all() and torch.isfinite(res.gaps).all())
+        emit("random_gaussian_main_path", run=name, ms_per_step=ms,
+             max_memory_allocated_bytes=mem, final_gap=float(res.gaps[-1]),
+             n_alive_first_last=[int(res.n_alive[0]), int(res.n_alive[-1])],
+             launches=got, finite=finite)
+        require(finite, f"random_gaussian {name}: finite x_avg and gaps")
+        want = counts(fused_guard=T, filtered_mean=T) if name.startswith("fused") else counts()
+        require(got == want, f"random_gaussian {name}: launches {got}, expected {want}")
+        require_clean_filter(f"random_gaussian {name}", res, n_byz)
+    dense = runs["dense@f32"]
+    for name in ("fused@f32", "fused@bf16"):
+        same = {f: torch.equal(getattr(runs[name], f), getattr(dense, f))
+                for f in ("n_alive", "final_alive", "byz_mask")}
+        emit("random_gaussian_main_path", check="decisions_equal_to_dense", run=name,
+             equal=same)
+        require(all(same.values()), f"random_gaussian {name}: decides as dense@f32: {same}")
+    del runs, dense
+    try:
+        run_sgd(problem, SolverConfig(**{**BASE, "guard_backend": "fused", "T": 1,
+                                         "generate": "kernel"}),
+                prng.PRNGKey(0), adversary=adv, device=dev)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    emit("random_gaussian_main_path", check="generate_kernel_refused", message=refused,
+         seconds=time.perf_counter() - t0)
+    require("not in-kernel generatable" in refused,
+            "generate='kernel' refuses random_gaussian with the reference's ValueError")
+
+
+def convex_harness(card: dict, cpu: dict, lower: dict) -> None:
+    """Least squares and logistic regression under sign_flip through the
+    fused guard (each within 3·αDV/√T, Theorem 3.9's term as the reference
+    test reads it, and no honest worker filtered), the Section-4 epoch
+    solver (last gap below 5e-3) and both Section-5 distinguishing
+    experiments (``lower``, run alone on the card: success as the CPU's,
+    below 0.75 at T = 2 and above 0.9 at T = 1024)."""
+    for name in HARNESS_RUNS:
+        got = card[name]
+        check_card_run(name, got)
+        bound = 3.0 * CONVEX_BASE["alpha"] * got["D"] * got["V"] / got["T"] ** 0.5
+        emit("convex_harness", run=name, **run_line(got), bound=bound,
+             **same_as_cpu(name, got, cpu[name]))
+        require(got["gap"] < bound and not got["ever_filtered_good"],
+                f"{name}: gap {got['gap']} below {bound}, no honest worker filtered")
+
+    ep = card[EPOCH]
+    emit("convex_harness", run=EPOCH, per_epoch_T=ep["per_epoch_T"],
+         per_epoch_gap=ep["per_epoch_gap"], epochs=ep["epochs"], total_iters=ep["T"],
+         seconds_in_pool=ep["seconds"], launches=ep["launches"])
+    require(ep["launches"] == counts(), "epoch solver (dense guard): no kernel launched")
+    require(ep["per_epoch_gap"][-1] < 5e-3, f"epoch solver: last gap {ep['per_epoch_gap'][-1]}")
+
+    for kind in LOWER_BOUND:
+        rates = {}
+        for T_lb in LOWER_BOUND_T:
+            got, want = lower[(kind, T_lb)], cpu[(kind, T_lb)]
+            rates[T_lb] = got["success_rate"]
+            emit("convex_harness", run=f"lower_bound {kind}", T=T_lb, m=16, alpha=0.3,
+                 n_trials=LOWER_BOUND_TRIALS, success_rate=got["success_rate"],
+                 cpu_success_rate=want["success_rate"], threshold_T=got["threshold_T"],
+                 seconds=got["seconds"])
+            require(got["success_rate"] == want["success_rate"],
+                    f"lower bound {kind} T={T_lb}: success as the CPU's")
+        lo, hi = rates[LOWER_BOUND_T[0]], rates[LOWER_BOUND_T[-1]]
+        require(lo < 0.75 and hi > 0.9,
+                f"lower bound {kind}: success {rates} (< 0.75 at T=2, > 0.9 at T=1024)")
+    emit("convex_harness", seconds_in_pool=sum(card[name]["seconds"]
+                                               for name in (*HARNESS_RUNS, EPOCH)),
+         lower_bound_seconds=sum(res["seconds"] for res in lower.values()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2206,14 +2674,14 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = {stem: [ln.strip() for ln in _build.build_log(stem).splitlines()
-                    if "registers" in ln or "spill" in ln] for stem in libs}
-    emit("build", seconds=build_s, libraries=[str(p) for p in libs.values()], ptxas=ptxas,
+    emit("build", seconds=build_s, libraries=[str(p) for p in libs.values()],
+         ptxas={stem: [ln.strip() for ln in _build.build_log(stem).splitlines()
+                       if "registers" in ln or "spill" in ln] for stem in libs},
          sort_network=sort_network_report(), countsketch=countsketch_report())
-
     errs = check_kernels(dev)
     check_order_kernels(dev, errs)
     check_sanitize_kernels(dev, errs)
+    small_width_kernels(dev)
     launches, off = main_path(dev)
     q_launches = quarantine_main_path(dev, off)
     small_reference(dev)
@@ -2237,9 +2705,15 @@ def main() -> int:
                            gen_launches, gen_bounds(dev))
     require(len(entries) == 2 * len(KERNELS), f"{len(entries)} kernel entries")
     step_split(dev)
+    random_gaussian_main_path(dev)
     profile_main_path(dev)
     fault_main_path(dev, q_series)
     profile_reference(dev)
+    lower = convex_step_alone(dev)
+    convex, cpu = convex_pool()
+    quickstart(convex, cpu)
+    detection_latency(convex, cpu)
+    convex_harness(convex, cpu, lower)
 
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -1,10 +1,12 @@
 """Carry state between the JAX package and the port as numpy arrays.
 
 The port never imports JAX; a caller holding the JAX package's
-``Problem``, ``GuardState``, ``DPGuardState``, ``Scenario``, ``AdvState``,
+``Problem`` (generated, quadratic, least squares or logistic),
+``GuardState``, ``DPGuardState``, ``Scenario``, ``AdvState``,
 ``WorkerProfile`` or ``FaultPlan`` passes its arrays through
-``numpy.asarray`` and hands them here.  bf16 arrays arrive with numpy's ``bfloat16`` extension
-dtype (two bytes per element) and are reinterpreted bit for bit.
+``numpy.asarray`` and hands them here.  bf16 arrays arrive with numpy's
+``bfloat16`` extension dtype (two bytes per element) and are
+reinterpreted bit for bit.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.byzantine_sgd import GuardState
 from repro_torch.core.solver import Problem
-from repro_torch.data.problems import generated_problem
+from repro_torch.data import problems
 from repro_torch.distributed.byzantine_dp import DPGuardState
 from repro_torch.scenarios.adversary import AdvState
 from repro_torch.scenarios.faults import FaultPlan
@@ -36,7 +38,27 @@ def problem_from_numpy(h, x_star, x1, D, V, L, sigma, noise_scale,
     ``make_generated_problem`` (``problem.gen.h``, ``problem.x_star``, …);
     ``noise_scale`` (``problem.gen.noise_scale``) is both the sampler's
     and the ``GenSpec``'s."""
-    return generated_problem(h, x_star, x1, D, V, L, sigma, noise_scale, device)
+    return problems.generated_problem(h, x_star, x1, D, V, L, sigma, noise_scale, device)
+
+
+def quadratic_problem_from_numpy(H, x_star, x1, D, V, L, sigma, device="cuda") -> Problem:
+    """The port's quadratic problem from the JAX package's
+    ``make_quadratic_problem`` arrays (H, x*, x1) and scalars."""
+    return problems.quadratic_problem(H, x_star, x1, D, V, L, sigma, device)
+
+
+def least_squares_problem_from_numpy(A, b, x_star, x1, D, V, L, sigma,
+                                     device="cuda") -> Problem:
+    """The port's least-squares problem from the JAX package's
+    ``make_least_squares_problem`` arrays (A, b, x*, x1) and scalars."""
+    return problems.least_squares_problem(A, b, x_star, x1, D, V, L, sigma, device)
+
+
+def logistic_problem_from_numpy(A, y, reg, x_star, x1, D, V, L, device="cuda") -> Problem:
+    """The port's logistic problem from the JAX package's
+    ``make_logistic_problem`` arrays (A, y, x*, x1) and scalars: its x*
+    is the reference's, not the port's own descent."""
+    return problems.logistic_problem(A, y, reg, x_star, x1, D, V, L, device)
 
 
 def guard_state_from_numpy(A, B, alive, k, gram_B, device="cuda") -> GuardState:

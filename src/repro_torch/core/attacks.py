@@ -1,5 +1,6 @@
-"""The key-free attacks of :mod:`repro.core.attacks`, ALIE and the
-filter-feedback ``retreat_on_filter`` included.
+"""The attack zoo of :mod:`repro.core.attacks`: every attack, ALIE and the
+filter-feedback ``retreat_on_filter`` included, and the ``phase_switch``
+and ``coalition`` combinators.
 
 All share the signature ``attack(key, grads, byz_mask, ctx, **kwargs) ->
 grads'``: ``grads`` is (m, d) with honest rows everywhere, ``byz_mask`` is
@@ -9,8 +10,9 @@ solver adds the previous step's feedback: ``step``, ``alive`` (m,) bool,
 ``n_alive`` and ``prev_xi`` (d,).  A magnitude knob may be a Python float,
 a numpy f32 scalar or a 0-d f32 tensor (the scenario adversary's scaled
 knob); each expression rounds in f32 in the JAX package's order.
-``random_gaussian`` (it draws ``jax.random.normal``) and ``mirror`` (it
-needs a second problem) are not ported yet.
+``random_gaussian`` draws :func:`repro_torch.prng.normal` from its key;
+``mirror`` (the Section-5 adversary) reads the honest rows of the mirror
+objective from ``ctx["mirror_grads"]``.  The rest are key-free.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from repro_torch import prng
 
 
 def _overwrite(grads: torch.Tensor, byz_mask: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -40,6 +44,12 @@ def attack_none(key, grads, byz_mask, ctx):
 def attack_sign_flip(key, grads, byz_mask, ctx, scale: float = 3.0):
     """Classic reversed-gradient attack: send −scale · (own gradient)."""
     return _overwrite(grads, byz_mask, -scale * grads)
+
+
+def attack_random_gaussian(key, grads, byz_mask, ctx, scale: float = 100.0):
+    """Large iid Gaussian noise: crashes the naive mean, trivially filtered."""
+    noise = scale * prng.normal(key, grads.shape, grads.dtype)
+    return _overwrite(grads, byz_mask, noise)
 
 
 def attack_constant_drift(key, grads, byz_mask, ctx, scale: float = 10.0):
@@ -110,6 +120,12 @@ def attack_hidden_shift(key, grads, byz_mask, ctx, c: float = 0.9):
     return _overwrite(grads, byz_mask, row[None, :])
 
 
+def attack_mirror(key, grads, byz_mask, ctx):
+    """Section-5 lower-bound adversary: Byzantine workers behave as honest
+    workers of the mirror objective (``ctx["mirror_grads"]``)."""
+    return _overwrite(grads, byz_mask, ctx["mirror_grads"])
+
+
 def attack_retreat_on_filter(key, grads, byz_mask, ctx, scale: float = 1.0):
     """Strike with the inner-product row while the whole coalition is alive
     per the previous filter decision (``ctx["alive"]``), else send honest
@@ -123,16 +139,53 @@ def attack_retreat_on_filter(key, grads, byz_mask, ctx, scale: float = 1.0):
 ATTACKS: dict[str, Callable] = {
     "none": attack_none,
     "sign_flip": attack_sign_flip,
+    "random_gaussian": attack_random_gaussian,
     "constant_drift": attack_constant_drift,
     "alie": attack_alie,
     "alie_update": attack_alie_update,
     "inner_product": attack_inner_product,
     "hidden_shift": attack_hidden_shift,
+    "mirror": attack_mirror,
     "retreat_on_filter": attack_retreat_on_filter,
 }
 
 
 def get_attack(name: str) -> Callable:
     if name not in ATTACKS:
-        raise KeyError(f"unknown or unported attack {name!r}; have {sorted(ATTACKS)}")
+        raise KeyError(f"unknown attack {name!r}; have {sorted(ATTACKS)}")
     return ATTACKS[name]
+
+
+# combinators: scheduled and split adversaries from the primitives above.
+# Each draws ``ka, kb = split(key)`` for its two attacks, as the JAX
+# package does; the closed-over parameters may be Python numbers or 0-d
+# tensors.
+
+def phase_switch(attack_a: Callable, attack_b: Callable, switch_step) -> Callable:
+    """Play ``attack_a`` while ``step < switch_step``, then ``attack_b``."""
+
+    def attack(key, grads, byz_mask, ctx, **kwargs):
+        ka, kb = prng.split(key)
+        ga = attack_a(ka, grads, byz_mask, ctx, **kwargs)
+        gb = attack_b(kb, grads, byz_mask, ctx, **kwargs)
+        late = ctx["step"] >= switch_step
+        if isinstance(late, torch.Tensor):
+            return torch.where(late, gb, ga)
+        return gb if late else ga
+
+    return attack
+
+
+def coalition(attack_a: Callable, attack_b: Callable, frac) -> Callable:
+    """The first ⌈frac·n_byz⌉ Byzantine workers (by index) play
+    ``attack_a``, the rest ``attack_b``."""
+
+    def attack(key, grads, byz_mask, ctx, **kwargs):
+        ka, kb = prng.split(key)
+        ga = attack_a(ka, grads, byz_mask, ctx, **kwargs)
+        gb = attack_b(kb, grads, byz_mask, ctx, **kwargs)
+        rank = torch.cumsum(byz_mask, dim=0) - 1      # 0-based index among byz
+        in_a = byz_mask & (rank < torch.ceil(torch.sum(byz_mask) * frac))
+        return torch.where(in_a[:, None], ga, gb)
+
+    return attack

@@ -465,3 +465,22 @@ def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
                      else torch.ones((cfg.m,), dtype=torch.bool, device=dev)),
         n_reporting=torch.stack(n_reporting) if part_on else None,
     )
+
+
+class ByzantineSGDSolver:
+    """Convenience wrapper: ``run(seed)`` is :func:`run_sgd` from
+    ``PRNGKey(seed)``, made on the solver's device (the card unless the
+    caller asks for the CPU)."""
+
+    def __init__(self, problem: Problem, cfg: SolverConfig, device="cuda"):
+        self.problem = problem
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    def run(self, seed: int = 0) -> SolverResult:
+        return run_sgd(self.problem, self.cfg, prng.PRNGKey(seed, device=self.device),
+                       device=self.device)
+
+    def suboptimality(self, seed: int = 0) -> float:
+        res = self.run(seed)
+        return float(self.problem.f(res.x_avg) - self.problem.f(self.problem.x_star))

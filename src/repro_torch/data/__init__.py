@@ -1,1 +1,2 @@
-"""repro_torch.data — the port of :mod:`repro.data` (the generated problem)."""
+"""repro_torch.data — the port of :mod:`repro.data.problems`: the
+generated, quadratic, least-squares and logistic problems."""

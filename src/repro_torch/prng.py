@@ -1,6 +1,6 @@
 """The JAX key chain on torch tensors: ``PRNGKey``, ``split``,
-``fold_in``, ``permutation``, ``uniform`` and ``randint`` with
-``jax.random``'s threefry semantics under
+``fold_in``, ``permutation``, ``uniform``, ``randint``, ``normal`` and
+``bernoulli`` with ``jax.random``'s threefry semantics under
 ``jax_threefry_partitionable=True``.
 
 A key is an ``int64[2]`` tensor holding two uint32 words.  ``split`` is
@@ -10,13 +10,22 @@ random keys, once per shuffle round (one round for any m below ~1600);
 the round's keys are ``b0 ^ b1`` of threefry on ``(0, arange(m))`` under
 ``split(key)[1]``.  ``fold_in(key, data)`` is ``threefry2x32(k0, k1, 0,
 data)``.  ``uniform`` and ``randint`` draw ``b0 ^ b1`` of threefry on the
-flat element index, as ``jax.random.bits`` does for 32-bit words.  All
-functions stay on the key's device and never sync with the host.
+flat element index, as ``jax.random.bits`` does for 32-bit words.
+``normal`` is ``√2·erf_inv(u)`` of a uniform u on (nextafter(−1, 0), 1),
+with ``erf_inv`` Giles' single-precision polynomial as XLA evaluates it
+(:func:`erf_inv`); ``bernoulli`` is ``uniform < p``.
+
+``split``, ``uniform``, ``randint``, ``normal`` and ``bernoulli`` also take
+a batch of keys, an ``(..., 2)`` tensor, and then draw once per key, as
+``jax.vmap`` of the single-key call does: the result has the keys' batch
+shape in front (``split(keys, n)`` is ``(..., n, 2)``).  All functions stay
+on the key's device and never sync with the host.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.gradgen import MASK32, threefry2x32
@@ -31,11 +40,19 @@ def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
     return torch.tensor([0, seed], dtype=torch.int64, device=device)
 
 
+def _words(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two words of a key, or of a batch of keys (..., 2), shaped to
+    broadcast against a trailing counter axis."""
+    return key[..., 0, None], key[..., 1, None]
+
+
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)``: an ``(num, 2)`` int64 tensor of keys."""
+    """``jax.random.split(key, num)``: an ``(num, 2)`` int64 tensor of keys
+    (``(..., num, 2)`` for a batch of keys)."""
     counters = torch.arange(num, dtype=torch.int64, device=key.device)
-    x0, x1 = threefry2x32(key[0], key[1], torch.zeros_like(counters), counters)
-    return torch.stack([x0, x1], dim=1)
+    k0, k1 = _words(key)
+    x0, x1 = threefry2x32(k0, k1, torch.zeros_like(counters), counters)
+    return torch.stack([x0, x1], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
@@ -51,9 +68,10 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
 
 def _random_bits32(key: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.bits(key, (n,), uint32)``: ``b0 ^ b1`` of threefry on
-    the counters (0, i)."""
+    the counters (0, i); ``(..., n)`` for a batch of keys."""
     counters = torch.arange(n, dtype=torch.int64, device=key.device)
-    b0, b1 = threefry2x32(key[0], key[1], torch.zeros_like(counters), counters)
+    k0, k1 = _words(key)
+    b0, b1 = threefry2x32(k0, k1, torch.zeros_like(counters), counters)
     return b0 ^ b1
 
 
@@ -71,9 +89,10 @@ def permutation(key: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def _bits(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.bits(key, shape, uint32)`` as int64 words."""
+    """``jax.random.bits(key, shape, uint32)`` as int64 words, after the
+    keys' batch shape."""
     shape = tuple(int(n) for n in shape)
-    return _random_bits32(key, math.prod(shape)).reshape(shape)
+    return _random_bits32(key, math.prod(shape)).reshape(key.shape[:-1] + shape)
 
 
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
@@ -96,10 +115,57 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
     if not -2 ** 31 <= minval < maxval <= 2 ** 31 - 1:
         raise ValueError(f"randint needs int32 bounds with minval < maxval, "
                          f"got {minval}, {maxval}")
-    k1, k2 = split(key)
-    higher, lower = _bits(k1, shape), _bits(k2, shape)
+    keys = split(key)
+    higher, lower = _bits(keys[..., 0, :], shape), _bits(keys[..., 1, :], shape)
     span = maxval - minval
     mult = (2 ** 16 % span) ** 2 % span
     offset = (((higher % span) * mult) & MASK32) + lower % span
     offset = (offset & MASK32) % span
     return (minval + offset).to(torch.int32)
+
+
+# Giles, "Approximating the erfinv function" (GPU Computing Gems, 2011):
+# the single-precision coefficients, highest order first, for w < 5 (at
+# w − 2.5) and otherwise (at √w − 3), as XLA's f32 erf_inv holds them
+_ERFINV_LOW = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_HIGH = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``erf_inv``: w = −log1p(−x²); Giles' polynomial at w − 2.5
+    for w < 5, else at √w − 3, by Horner steps that are fused
+    multiply-adds; times x (±1 gives ±inf).  Each step is taken in f64 and
+    rounded once to f32: an f32 product is exact in f64 and the sum rounds
+    once more, which gives the FMA's bits but where the f64 sum sits exactly
+    on an f32 rounding midpoint.  ``torch.log1p`` and ``torch.sqrt`` stand
+    in for XLA's own on the CPU, which differ from them by an ulp on some
+    inputs (ROADMAP.md, "Documented differences")."""
+    w = -torch.log1p(-(x * x))
+    low = w < 5.0
+    w = torch.where(low, w - 2.5, torch.sqrt(w) - 3.0).to(torch.float64)
+    p = torch.where(low, _ERFINV_LOW[0], _ERFINV_HIGH[0]).to(torch.float64)
+    for c_low, c_high in zip(_ERFINV_LOW[1:], _ERFINV_HIGH[1:]):
+        c = torch.where(low, float(np.float32(c_low)), float(np.float32(c_high))).to(w.dtype)
+        p = torch.addcmul(c, p, w).to(torch.float32).to(torch.float64)
+    return torch.where(torch.abs(x) == 1.0, x * math.inf, p.to(torch.float32) * x)
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal(key: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: √2·erf_inv(u) for u
+    uniform on (nextafter(−1, 0), 1).  Only float32 is ported: jax draws
+    another dtype from other bits."""
+    if dtype != torch.float32:
+        raise ValueError(f"normal draws float32 only, got {dtype}")
+    return _SQRT2 * erf_inv(uniform(key, shape, _NORMAL_LO, 1.0))
+
+
+def bernoulli(key: torch.Tensor, p: float = 0.5, shape=()) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` in its default ``mode="low"``:
+    ``uniform(key, shape) < p`` in f32, a bool tensor."""
+    return uniform(key, shape) < float(np.float32(p))

@@ -11,9 +11,9 @@ Scenario` bound to its Byzantine fraction, as ``run_sgd`` drives it.
   ``scale`` on the attack's own knob (``default · scale``: scale = 1
   reproduces the static zoo).  The JAX package dispatches through
   ``lax.switch``; the port branches in Python on the scenario's host id.
-  ``random_gaussian`` (id 2) raises NotImplementedError: it draws
-  ``jax.random.normal``, and ``prng.normal`` is not ported
-  (``ROADMAP.md`` §1, item 4);
+  The two phases draw from ``ka, kb = split(key)`` as in the JAX package;
+  only ``random_gaussian`` (id 2) reads its key, so a scenario without it
+  skips the split and, when both phases name one attack, computes it once;
 * **feedback** — :class:`AdvState` carries the multiplicative-weights
   magnitude, updated after each aggregation from the filter decision and
   the realized ξ.  With ``adapt_rate = 0`` the update is the identity, and
@@ -59,6 +59,9 @@ _SCALE_KNOBS: dict[str, tuple[str, float] | None] = {
 
 ATTACK_TABLE: tuple[str, ...] = tuple(_SCALE_KNOBS)
 
+# the one attack that draws from its key (random_gaussian)
+_KEYED_ID = ATTACK_TABLE.index("random_gaussian")
+
 # default magnitude knob per id ("none" pads with 1.0)
 _KNOB_DEFAULTS = tuple(1.0 if knob is None else knob[1] for knob in _SCALE_KNOBS.values())
 
@@ -82,10 +85,6 @@ def _dispatch(aid: int, key, grads, mask, ctx, scale: torch.Tensor) -> torch.Ten
     """Attack ``aid`` with its knob at ``default · scale``, in the input
     gradients' dtype."""
     name = ATTACK_TABLE[aid]
-    if name == "random_gaussian":
-        raise NotImplementedError(
-            "random_gaussian draws jax.random.normal; prng.normal is not ported "
-            "yet (ROADMAP.md §1, item 4)")
     fn = attack_lib.get_attack(name)
     knob = _SCALE_KNOBS[name]
     if knob is None:
@@ -178,12 +177,16 @@ class ScenarioAdversary:
         """Corrupt the Byzantine rows per the scenario's per-step rule."""
         s = self.scenario
         scale = self._scale(state)
-        # every ported attack is key-free (the JAX package splits the key
-        # into the two phases' for random_gaussian), so one phase serves
-        # both when their ids agree
-        ga = _dispatch(s.attack_a, key, grads, mask_k, ctx, scale)
-        gb = ga if s.attack_b == s.attack_a else _dispatch(s.attack_b, key, grads, mask_k,
-                                                           ctx, scale)
+        if _KEYED_ID in (s.attack_a, s.attack_b):
+            ka, kb = prng.split(key)
+            ga = _dispatch(s.attack_a, ka, grads, mask_k, ctx, scale)
+            gb = _dispatch(s.attack_b, kb, grads, mask_k, ctx, scale)
+        else:
+            # key-free phases: the split is never read, and one phase serves
+            # both when their ids agree
+            ga = _dispatch(s.attack_a, key, grads, mask_k, ctx, scale)
+            gb = ga if s.attack_b == s.attack_a else _dispatch(s.attack_b, key, grads,
+                                                               mask_k, ctx, scale)
         return torch.where((mask_k & self._use_b(mask_k, ctx["step"]))[:, None], gb, ga)
 
     def gen_attack_ctx(self, mask_k, ctx, state: AdvState, noise_scale):

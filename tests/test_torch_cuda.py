@@ -51,7 +51,7 @@ from repro_torch.core import byzantine_sgd as tbs
 from repro_torch.core.attacks import alie_z_max
 from repro_torch.core.solver import SolverConfig, run_sgd
 from repro_torch.scenarios import ScenarioAdversary, scenario_static
-from repro_torch.data.problems import make_generated_problem
+from repro_torch.data.problems import make_generated_problem, make_quadratic_problem
 from repro_torch.kernels import gradgen, ops, ref
 from repro_torch.kernels.countsketch import countsketch_cuda, launch_plan, run_plan
 from repro_torch.kernels.fused_guard import (
@@ -619,6 +619,55 @@ def test_gen_run_on_the_card_matches_the_cpu(cuda_device, attack):
     assert tuple(a - b for a, b in zip(after, before)) == (40, 40, 0)
     want = run_sgd(make_generated_problem(d=4099, seed=1, device="cpu"), SolverConfig(**kw),
                    prng.PRNGKey(1), adversary=adv, device="cpu")
+    assert torch.equal(got.n_alive.cpu(), want.n_alive)
+    assert torch.equal(got.final_alive.cpu(), want.final_alive)
+    _within(got.x_avg.cpu(), want.x_avg, 1e-5)
+
+
+# the convex harness's widths: quickstart's d = 16 and the logistic
+# problem's d = 10 (a bf16 row of 20 bytes, so rows after the first start
+# off a 16-byte boundary), both below one tile of every sweep
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 10])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_kernels_at_the_convex_harness_widths(cuda_device, d, dt):
+    tdt, tol = DTYPES[dt]
+    m = 16
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 31 + m)
+    g = torch.randn(m, d, device=cuda_device, generator=gen).to(tdt)
+    B = (3 * torch.randn(m, d, device=cuda_device, generator=gen)).to(tdt)
+    dlt = torch.randn(d, device=cuda_device, generator=gen).to(tdt)
+    w = (torch.rand(m, device=cuda_device, generator=gen) > 0.3).float()
+    got, want = fused_guard_cuda(g, B, dlt), ref.fused_guard_ref(g, B, dlt)
+    assert torch.equal(got[3], want[3])
+    for a, b in zip(got[:3], want[:3]):
+        _within(a, b, tol)
+    _within(filtered_mean_cuda(g, w, 3.0), ref.filtered_mean_ref(g, w, 3.0), tol)
+    _within(gram_cuda(g), ref.gram_ref(g), tol)
+    assert torch.equal(coordinate_median_cuda(g), ref.coordinate_median_ref(g))
+    _within(trimmed_mean_cuda(g, 7), ref.trimmed_mean_ref(g, 7), tol)
+    for k in (4096, 8):
+        _within(countsketch_cuda(g, k), ref.countsketch_ref(g, k), tol)
+    p = poison(g)
+    got, want = fused_guard_cuda(p, B, dlt, sanitize=True), ref.fused_guard_sanitize_ref(p, B, dlt)
+    assert torch.equal(got[4], want[4]) and torch.equal(got[3], want[3])
+    for a, b in zip(got[:3], want[:3]):
+        _within(a, b, tol)
+    _within(filtered_mean_cuda(p, w, 3.0, sanitize=True),
+            ref.filtered_mean_sanitize_ref(p, w, 3.0), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aggregator", ["byzantine_sgd", "krum", "coordinate_median"])
+def test_quadratic_run_on_the_card_matches_the_cpu(cuda_device, aggregator):
+    """The quickstart problem (sphere noise drawn by ``prng.normal``) under
+    random_gaussian: the card decides as the CPU at every step."""
+    kw = dict(m=16, T=60, eta=0.05, alpha=0.25, aggregator=aggregator,
+              attack="random_gaussian", guard_backend="fused")
+    got = run_sgd(make_quadratic_problem(d=16, L=8.0, device=cuda_device), SolverConfig(**kw),
+                  prng.PRNGKey(0), device=cuda_device)
+    want = run_sgd(make_quadratic_problem(d=16, L=8.0, device="cpu"), SolverConfig(**kw),
+                   prng.PRNGKey(0), device="cpu")
     assert torch.equal(got.n_alive.cpu(), want.n_alive)
     assert torch.equal(got.final_alive.cpu(), want.final_alive)
     _within(got.x_avg.cpu(), want.x_avg, 1e-5)

@@ -171,9 +171,17 @@ def test_generate_gates_raise_value_error(over, match):
 
 @pytest.mark.parametrize("over,match", [
     (dict(telemetry=object()), "telemetry"),
-    (dict(generate="off", attack="random_gaussian"), "prng.normal"),
+    (dict(generate="off", attack="random_gaussian"), None),
 ], ids=["telemetry", "random_gaussian"])
 def test_unported_parts_raise_not_implemented(over, match):
+    """Telemetry is not ported and raises.  ``random_gaussian`` (id 2) is
+    ported: on the materialising path its run finishes with finite values
+    and its noise in the attackers' rows filters all of them."""
+    if match is None:
+        res = _gen_run(**over)
+        assert bool(torch.isfinite(res.x_avg).all() and torch.isfinite(res.gaps).all())
+        assert not bool((res.final_alive & res.byz_mask).any())
+        return
     with pytest.raises(NotImplementedError, match=match):
         _gen_run(**over)
 

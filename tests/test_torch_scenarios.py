@@ -210,12 +210,17 @@ def test_attack_table_and_knobs_match_jax():
 
 
 def test_unported_parts_raise():
+    """Nothing of the adversary is left unported: random_gaussian (id 2)
+    draws its noise into the Byzantine rows only (its parity with JAX is
+    in ``test_torch_convex.py``)."""
     scn = spec.scenario_static("random_gaussian")
     adv = adversary.ScenarioAdversary(scn, 0.25)
     _, tctx = _ctx()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
-        adv.attack(prng.PRNGKey(0), torch.ones(M, D), torch.from_numpy(_mask()), tctx,
-                   adv.init_state(M, D, device="cpu"))
+    mask = torch.from_numpy(_mask())
+    rows = adv.attack(prng.PRNGKey(0), torch.ones(M, D), mask, tctx,
+                      adv.init_state(M, D, device="cpu"))
+    assert torch.equal(rows[~mask], torch.ones(int((~mask).sum()), D))
+    assert float(rows[mask].abs().max()) > 50.0
     # worker profiles and fault plans are ported: the adversary carries
     # the JAX package's leaves as they were
     jprofile = jspec.profile_stragglers(M, 0.25, 3)

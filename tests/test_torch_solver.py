@@ -176,8 +176,8 @@ def test_run_sgd_rejects_unported_attack_and_aggregator():
     cfg = SolverConfig(m=4, T=2, eta=0.1)
     with pytest.raises(NotImplementedError, match="not ported"):
         run_sgd(problem, cfg, prng.PRNGKey(0), device="cpu", telemetry=object())
-    with pytest.raises(KeyError, match="random_gaussian"):
-        run_sgd(problem, SolverConfig(m=4, T=2, eta=0.1, attack="random_gaussian"),
+    with pytest.raises(KeyError, match="no_such_attack"):
+        run_sgd(problem, SolverConfig(m=4, T=2, eta=0.1, attack="no_such_attack"),
                 prng.PRNGKey(0), device="cpu")
     with pytest.raises(KeyError, match="no_such_rule"):
         run_sgd(problem, SolverConfig(m=4, T=2, eta=0.1, aggregator="no_such_rule"),
