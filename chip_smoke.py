@@ -47,8 +47,8 @@ and then no result line is printed):
    within 1e-5); then ``quarantine_main_path``: the three guard runs again
    with ``sanitize="quarantine"``, bit-equal to the runs without it, the
    sanitizing kernels launched T times each and the plain ones never;
-5. baselines — the same ``run_sgd`` once per baseline of the registry and
-   ``bucket2:krum`` under ``sign_flip``, then krum, coordinate_median and
+5. baselines — the same ``run_sgd`` (T = 64) once per baseline of the
+   registry and ``bucket2:krum`` under ``sign_flip``, then krum, coordinate_median and
    the fused guard under ``alie``: every run finite, every kernel launched
    exactly as its path says (T or 0 times); then krum, coordinate_median,
    trimmed_mean and bucket2:krum on the card and on the CPU at d=4099,
@@ -156,17 +156,33 @@ and then no result line is printed):
    skewed (both paths), straggling and partial runs on the card against
    the CPU at d=4099, m=8, T=40 (decisions equal, ``x_avg`` within 1e-5);
 12. random_gaussian_main_path (after ``step_split``) — ``run_sgd`` at
-   the main path's shape under ``scenario_static("random_gaussian")``:
+   the main path's shape (T = 64) under ``scenario_static("random_gaussian")``:
    fused@f32 and fused@bf16 decide as dense@f32 at every step, every
    attacker filtered and no honest worker, ms/step and peak memory;
    ``generate="kernel"`` refuses id 2 with the reference's ValueError;
+12b. campaign_main_path — ``run_campaign`` at the main path's width
+   (m=32, d=2^20, T=32, α=0.25): static and churning sign_flip × seeds
+   0–3, two groups of R = 4 runs on one run axis, for the fused guard at
+   f32 and bf16, the dense guard, krum and coordinate_median: each kernel
+   launched exactly T times a group (not T·R); one row of each group
+   against its ``run_sgd`` alone (decisions equal, gaps within 1e-6
+   relative, whether bit-equal printed), ms a batched step against R × a
+   step alone, peak memory; fused deciding as dense on every row; 8 runs
+   at chunk_size 2 within 1.25 × a 2-run campaign's peak; then
+   ``campaign_kernels``: one batched launch of each run-axis kernel at
+   R = 4 (fused_guard, filtered_mean, gram; the folded coordinate_median
+   and countsketch) against 4 launches alone, bit-equal, with the folding
+   copy's time, and one batched bf16 fused_guard and filtered_mean launch
+   with R·m·d > 2^31 against the plain versions (``B_new`` bit-equal);
 13. the convex harness, after every phase above.  ``convex_step_alone``:
    with nothing else on the card or the host, 200 steps of each of
    mean, krum, coordinate_median, the dense, fused and dp_sketch guards
-   (quickstart's problem) and the logistic run, in a fresh process on
+   (quickstart's problem) and the logistic run, and a campaign step of
+   the fused guard over Table 1's 5 seeds on one run axis (against 5 ×
+   the fused step alone), in a fresh process on
    the card and then on the CPU (one thread), and on the card in this
    process: ms/step of each; then the lower bound's experiments on the
-   card.  ``convex_pool``: the full-length runs below
+   card.  ``convex_pool``: the full-length runs below, and Table 1's,
    on the card, then the same runs on the CPU, in a pool of
    POOL_PROCESSES processes that share the card and the host (their
    steps are host-bound, ~1200 tiny launches at d = 16; no time is read
@@ -196,7 +212,17 @@ and then no result line is printed):
    2e-3, t_scale 0.05, 4000 steps an epoch at most; last gap below
    5e-3); both distinguishing experiments at m = 16, α = 0.3, 48 trials,
    T = 2 and 1024 (success as the CPU's, below 0.75 and above 0.9);
-16. the kernels line (20 entries), the card line and the result line.
+16. table1 — ``repro_torch.experiments.table1`` (``benchmarks/
+   bench_table1.py``'s Table 1, quadratic d = 16, ε = 2e-2, 5 seeds on one
+   run axis): the α = 0.25 section (mean, byzantine_sgd, coordinate_median,
+   krum, trimmed_mean) at T = 4000, one pool task a variant (every gap
+   finite, the guard reaching ε on every seed with no honest worker
+   filtered); the same section at T = 500 on the card and on the CPU
+   (iterations-to-ε and decisions equal, gaps within 1e-3 relative); the
+   α = 0, 0.125 and 0.375, backend and m sections at TABLE1_OTHER_T
+   (``T_reduced_from`` 4000); each part's kernels launched T times, once
+   a step for its group;
+17. the kernels line (20 entries), the card line and the result line.
 """
 from __future__ import annotations
 
@@ -252,14 +278,27 @@ from repro_torch.kernels.robust_reduce import (  # noqa: E402
     filtered_mean_cuda,
     trimmed_mean_cuda,
 )
+from repro_torch.experiments import table1  # noqa: E402
+from repro_torch.kernels.countsketch import countsketch_runs_cuda  # noqa: E402
+from repro_torch.kernels.fused_guard import fused_guard_runs_cuda  # noqa: E402
+from repro_torch.kernels.pairdist import gram_runs_cuda  # noqa: E402
+from repro_torch.kernels.robust_reduce import (  # noqa: E402
+    coordinate_median_runs_cuda,
+    filtered_mean_runs_cuda,
+    fold_runs,
+)
 from repro_torch.scenarios import (  # noqa: E402
     ScenarioAdversary,
+    expand_grid,
     faults,
     profile_iid,
     profile_linear_skew,
+    run_campaign,
+    scenario_churn,
     scenario_static,
     worker_profile,
 )
+from repro_torch.scenarios.campaign import _summarize, expand_variants, run_groups  # noqa: E402
 
 M, D, T = 32, 2 ** 20, 128
 # Kernel against plain version on the card: both upcast bf16 to f32 exactly
@@ -703,6 +742,9 @@ def small_reference(dev) -> None:
 # ---------------------------------------------------------------- phase 5
 
 GRAM_RULES = ("krum", "multi_krum", "medoid", "bucket2:krum")
+# the baselines' runs at the main path's width, cut from T = 128 to keep
+# the script inside its time with Table 1's runs
+BASELINE_T = 64
 BASELINE_RUNS = ([(name, "sign_flip") for name in aggregators.aggregator_names()]
                  + [("bucket2:krum", "sign_flip"), ("krum", "alie"),
                     ("coordinate_median", "alie"), ("byzantine_sgd", "alie")])
@@ -726,7 +768,7 @@ def baselines(dev) -> dict:
     launches = {}
     for name, attack in BASELINE_RUNS:
         cfg = SolverConfig(**{**BASE, "aggregator": name, "attack": attack,
-                              "guard_backend": "fused"})
+                              "guard_backend": "fused", "T": BASELINE_T})
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -735,12 +777,13 @@ def baselines(dev) -> dict:
         seconds = time.perf_counter() - t0
         got = launches[(name, attack)] = read_counts()
         finite = bool(torch.isfinite(res.x_avg).all() and torch.isfinite(res.gaps).all())
-        emit("baselines", run=name, attack=attack, ms_per_step=1e3 * seconds / T,
-             final_gap=float(res.gaps[-1]), gap_at_x_avg=float(problem.f(res.x_avg)),
-             n_alive_last=int(res.n_alive[-1]), finite=finite, launches=got)
+        emit("baselines", run=name, attack=attack, T=BASELINE_T,
+             ms_per_step=1e3 * seconds / BASELINE_T, final_gap=float(res.gaps[-1]),
+             gap_at_x_avg=float(problem.f(res.x_avg)), n_alive_last=int(res.n_alive[-1]),
+             finite=finite, launches=got)
         require(finite, f"{name} under {attack}: finite x_avg and gaps")
-        require(got == expected_counts(name, T),
-                f"{name} under {attack}: launches {got}, expected {expected_counts(name, T)}")
+        want = expected_counts(name, BASELINE_T)
+        require(got == want, f"{name} under {attack}: launches {got}, expected {want}")
     return launches
 
 
@@ -2257,6 +2300,193 @@ def profile_reference(dev) -> None:
         require(launched == counts(**per), f"{name} generate={generate}: launches {launched}")
 
 
+# ---------------------------------------------------------------- campaigns
+
+CAMPAIGN_T = 32
+CAMPAIGN_SEEDS = range(4)
+# variant -> the kernels one step of a group launches, once for its R runs
+CAMPAIGN_VARIANTS = {
+    "byzantine_sgd@fused": {"fused_guard": 1, "filtered_mean": 1},
+    "byzantine_sgd@fused@bf16": {"fused_guard": 1, "filtered_mean": 1},
+    "byzantine_sgd@dense": {},
+    "krum": {"gram": 1},
+    "coordinate_median": {"coordinate_median": 1},
+}
+CAMPAIGN_GAP_RTOL = 1e-6   # a row against its run alone: batched products
+CAMPAIGN_CHUNK_PEAK = 1.25  # the chunked campaign's peak against a chunk's
+RUNS_R = 4                  # the run axis of the kernel timings
+RUNS_BIG_D = 2 ** 24 + 3    # R·m·d > 2^31 at R = 4, m = 32 (bf16)
+
+
+def campaign_grid(seeds=CAMPAIGN_SEEDS, churn: bool = True):
+    scenarios = [("static", scenario_static("sign_flip"))]
+    if churn:
+        scenarios.append(("churn", scenario_churn("sign_flip", period=16, stride=4)))
+    return expand_grid(scenarios, [BASE["alpha"]], seeds)
+
+
+def campaign_main_path(dev) -> None:
+    """``run_campaign`` at the main path's width: 2 groups (static and
+    churning sign_flip) of R = 4 seeds, T = 32, each variant of
+    CAMPAIGN_VARIANTS with the launch counts set to 0 just before it and
+    read just after (each kernel T times a group, not T·R); one row of each
+    group against its ``run_sgd`` alone (decisions equal, gaps within
+    CAMPAIGN_GAP_RTOL); fused deciding as dense on every row; an 8-run
+    campaign at chunk_size 2 against a 2-run campaign's peak memory; then
+    the batched kernels' times at R = 4 against 4 launches of R = 1, the
+    folding copy's, and one batched bf16 launch with R·m·d > 2^31 against
+    its plain version."""
+    t0 = time.perf_counter()
+    problem = make_generated_problem(d=D, seed=0, device=dev)
+    cfg = SolverConfig(**{**BASE, "T": CAMPAIGN_T})
+    grid = campaign_grid()
+    groups = run_groups(grid)
+    require(len(groups) == 2 and all(len(g) == 4 for g in groups), "2 groups of 4 runs")
+    stats = {}
+    for variant, per_step in CAMPAIGN_VARIANTS.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reset_counts()
+        res = run_campaign(problem, cfg, grid, [variant], return_gaps=True, device=dev)
+        got = read_counts()
+        st = stats[variant] = res.stats[variant]
+        want = counts(**{k: v * CAMPAIGN_T * len(groups) for k, v in per_step.items()})
+        require(got == want, f"campaign {variant}: launches {got}, expected {want} "
+                             f"(T a group, not T·R)")
+        require(bool(torch.isfinite(st.gaps).all()), f"campaign {variant}: finite gaps")
+        ms_batched = 1e3 * res.wall_s / (CAMPAIGN_T * len(groups))
+        vcfg = expand_variants(cfg, [variant])[variant]
+        rows = []
+        for idx in groups:
+            i = idx[1]
+            adv = ScenarioAdversary(grid.scenarios[i], grid.alpha[i])
+            torch.cuda.synchronize()
+            ta = time.perf_counter()
+            alone = run_sgd(problem, vcfg, prng.PRNGKey(int(grid.seeds[i])), adversary=adv,
+                            device=dev)
+            torch.cuda.synchronize()
+            ms_alone = 1e3 * (time.perf_counter() - ta) / CAMPAIGN_T
+            summary = _summarize(problem, vcfg, alone, True)
+            decisions = all(torch.equal(getattr(st, f)[i], summary[f])
+                            for f in ("n_alive_final", "n_byz_ever", "detect_latency",
+                                      "ever_filtered_good"))
+            gap_err = float((st.gaps[i] - alone.gaps).double().norm()
+                            / alone.gaps.double().norm())
+            rows.append({"row": i, "scenario": grid.entries[i]["scenario"],
+                         "seed": int(grid.seeds[i]), "decisions_equal": decisions,
+                         "gaps_rel_err": gap_err,
+                         "gaps_bit_equal": bool(torch.equal(st.gaps[i], alone.gaps)),
+                         "ms_per_step_alone": ms_alone})
+            require(decisions and gap_err <= CAMPAIGN_GAP_RTOL,
+                    f"campaign {variant} row {i}: equal to its run alone ({rows[-1]})")
+        ms_alone = statistics.mean(r["ms_per_step_alone"] for r in rows)
+        emit("campaign_main_path", variant=variant, runs=grid.n_runs, groups=len(groups),
+             R=len(groups[0]), T=CAMPAIGN_T, launches=got, ms_per_batched_step=ms_batched,
+             R_times_ms_per_step_alone=len(groups[0]) * ms_alone,
+             peak_bytes=res.memory["peak_bytes"], compile_s=res.compile_s,
+             n_alive_final=st.n_alive_final.tolist(), n_byz_ever=st.n_byz_ever.tolist(),
+             detect_latency=st.detect_latency.tolist(), rows_alone=rows)
+
+    fused, dense = stats["byzantine_sgd@fused"], stats["byzantine_sgd@dense"]
+    same = {f: torch.equal(getattr(fused, f), getattr(dense, f))
+            for f in ("n_alive_final", "n_byz_ever", "detect_latency", "ever_filtered_good")}
+    emit("campaign_main_path", check="fused_decides_as_dense", equal=same)
+    require(all(same.values()), f"campaign: fused decides as dense on every row: {same}")
+
+    peaks = {}
+    for name, n, chunk in (("2 runs", 2, None), ("8 runs at chunk_size 2", 8, 2)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        res = run_campaign(problem, cfg, campaign_grid(range(n), churn=False),
+                           ["byzantine_sgd@fused"], chunk_size=chunk, device=dev)
+        peaks[name] = res.memory["peak_bytes"]
+    ratio = peaks["8 runs at chunk_size 2"] / peaks["2 runs"]
+    emit("campaign_main_path", check="chunked_peak", peak_bytes=peaks, ratio=ratio,
+         limit=CAMPAIGN_CHUNK_PEAK)
+    require(ratio <= CAMPAIGN_CHUNK_PEAK, f"campaign: chunked peak {ratio:.3f}x a chunk's")
+    del problem, stats, fused, dense
+    torch.cuda.empty_cache()
+    batched_kernel_times(dev)
+    batched_big_launch(dev)
+    emit("campaign_main_path", seconds=time.perf_counter() - t0)
+
+
+def batched_kernel_times(dev) -> None:
+    """One batched launch at R = 4 (m = 32, d = 2^20) against 4 launches
+    of R = 1, by CUDA events (median_ms); the folding copy of the order
+    statistics alone."""
+    for dt in ("f32", "bf16"):
+        gen = torch.Generator(device=dev).manual_seed(17)
+        g = torch.randn(RUNS_R, M, D, device=dev, generator=gen, dtype=DTYPES[dt])
+        B = torch.randn(RUNS_R, M, D, device=dev, generator=gen, dtype=DTYPES[dt])
+        dlt = torch.randn(RUNS_R, D, device=dev, generator=gen, dtype=DTYPES[dt])
+        w = torch.rand(RUNS_R, M, device=dev, generator=gen) / M
+        cases = {
+            "fused_guard": (lambda: fused_guard_runs_cuda(g, B, dlt),
+                            lambda: [fused_guard_cuda(g[r], B[r], dlt[r]) for r in range(RUNS_R)]),
+            "filtered_mean": (lambda: filtered_mean_runs_cuda(g, w, 1.0),
+                              lambda: [filtered_mean_cuda(g[r], w[r], 1.0)
+                                       for r in range(RUNS_R)]),
+            "gram": (lambda: gram_runs_cuda(g),
+                     lambda: [gram_cuda(g[r]) for r in range(RUNS_R)]),
+            "coordinate_median": (lambda: coordinate_median_runs_cuda(g),
+                                  lambda: [coordinate_median_cuda(g[r]) for r in range(RUNS_R)]),
+            "countsketch": (lambda: countsketch_runs_cuda(g, SKETCH_K),
+                            lambda: [countsketch_cuda(g[r], SKETCH_K) for r in range(RUNS_R)]),
+        }
+        def outs(x):
+            return x if isinstance(x, tuple) else (x,)
+
+        for name, (batched, alone) in cases.items():
+            once = outs(batched())
+            bits = all(torch.equal(a[r], b) for r, each in enumerate(alone())
+                       for a, b in zip(once, outs(each)))
+            emit("campaign_kernels", kernel=f"{name}[{dt}]", R=RUNS_R, shape=[M, D],
+                 batched_ms=median_ms(batched, batches=5, per_batch=10),
+                 R_launches_alone_ms=median_ms(alone, batches=5, per_batch=10),
+                 bit_equal_to_runs_alone=bits)
+            require(bits, f"{name}[{dt}] at R = {RUNS_R}: each run the bits of its launch")
+        emit("campaign_kernels", kernel=f"fold_runs[{dt}]", R=RUNS_R, shape=[M, D],
+             copy_ms=median_ms(lambda: fold_runs(g), batches=5, per_batch=10),
+             copy_bytes=2 * g.numel() * g.element_size())
+        del g, B, dlt
+        torch.cuda.empty_cache()
+
+
+def batched_big_launch(dev) -> None:
+    """One batched bf16 ``fused_guard`` and ``filtered_mean`` launch with
+    R·m·d > 2^31 (int64 run offsets) against the plain versions, run by
+    run: ``B_new`` bit-equal, the rest within TOL, and each run equal to
+    its own launch."""
+    tdt = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(23)
+    g = torch.randn(RUNS_R, M, RUNS_BIG_D, device=dev, generator=gen, dtype=tdt)
+    B = torch.randn(RUNS_R, M, RUNS_BIG_D, device=dev, generator=gen, dtype=tdt)
+    dlt = torch.randn(RUNS_R, RUNS_BIG_D, device=dev, generator=gen, dtype=tdt)
+    w = torch.rand(RUNS_R, M, device=dev, generator=gen) / M
+    got = fused_guard_runs_cuda(g, B, dlt)
+    xi = filtered_mean_runs_cuda(g, w, 1.0)
+    errs, bits = [], []
+    for r in range(RUNS_R):
+        want = ref.fused_guard_ref(g[r], B[r], dlt[r])
+        errs.append([rel_err(got[k][r], want[k])[0] for k in range(3)]
+                    + [rel_err(xi[r], ref.filtered_mean_ref(g[r], w[r], 1.0))[0]])
+        bits.append(bool(torch.equal(got[3][r], want[3])))
+        del want
+        alone = fused_guard_cuda(g[r], B[r], dlt[r])
+        bits.append(all(torch.equal(got[k][r], alone[k]) for k in range(4))
+                    and bool(torch.equal(xi[r], filtered_mean_cuda(g[r], w[r], 1.0))))
+        del alone
+    within_tol = all(e <= TOL["bf16"] for run in errs for e in run)   # a NaN fails
+    emit("campaign_kernels", check="big_batched_launch", R=RUNS_R, m=M, d=RUNS_BIG_D,
+         elements=RUNS_R * M * RUNS_BIG_D, rel_err=errs, tol=TOL["bf16"],
+         B_new_and_runs_alone_bit_equal=all(bits))
+    require(within_tol and all(bits),
+            f"batched bf16 launch with R·m·d > 2^31: rel err {errs}, bits {bits}")
+    del g, B, dlt, got, xi
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- phase 12
 
 # quickstart's d, and the logistic problem's (a bf16 row of 20 bytes: every
@@ -2373,10 +2603,29 @@ GAP_RTOL, GAP_ATOL = 1e-3, 1e-7
 STEP_ALONE_RUNS = ("mean", "krum", "coordinate_median", "guard_backend=dense",
                    "guard_backend=fused", "guard_backend=dp_sketch", "logistic")
 STEP_ALONE_T = 200
+# the fused guard's step over Table 1's 5 seeds on one run axis
+CAMPAIGN_STEP = "campaign fused x5 seeds"
 # the pool of the convex runs: the epoch solver in one process, the rest
-# (the card runs, then their CPU references) in the others
-POOL_PROCESSES = 3
-POOL_WAIT_S = 600
+# (the card runs, Table 1's, then the CPU references) in the others
+POOL_PROCESSES = 6
+POOL_WAIT_S = 900
+# Table 1 (repro_torch.experiments.table1): the α = 0.25 section at the
+# paper's T, one task a variant; the same section at TABLE1_CHECK_T on the
+# card and on the CPU; the other sections cut to TABLE1_OTHER_T, in parts
+TABLE1_CHECK_T = 500
+TABLE1_OTHER_T = 500
+TABLE1_MAIN = tuple(("alpha", {"alphas": (0.25,), "aggregators": (agg,)})
+                    for agg in table1.ALPHA_AGGREGATORS)
+TABLE1_OTHER = (("alpha0", {}), ("alpha", {"alphas": (0.125,)}),
+                ("alpha", {"alphas": (0.375,)}), ("backend", {}),
+                ("speedup", {"workers": (4, 8)}), ("speedup", {"workers": (16, 32)}))
+# the kernels one step of a Table 1 variant launches (the guard's default
+# backend is dense; its group of 5 seeds launches once a step)
+TABLE1_STEP_KERNELS = {"mean": {}, "byzantine_sgd": {}, "krum": {"gram": 1},
+                       "coordinate_median": {"coordinate_median": 1},
+                       "trimmed_mean": {"trimmed_mean": 1}, "dense": {}, "fused": FUSED,
+                       "dp_sketch": {"countsketch": 1, "filtered_mean": 1},
+                       **{f"m{m}": {} for m in table1.WORKERS}}
 
 
 @functools.lru_cache(maxsize=None)
@@ -2418,15 +2667,30 @@ def _pool_init() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def campaign_step_ms(device: str, T: int) -> float:
+    """ms a step of a campaign group: the fused guard (quickstart's
+    problem, sign_flip, α = 0.25) over Table 1's 5 seeds on one run axis."""
+    grid = expand_grid([("sign_flip", scenario_static("sign_flip"))], [0.25], table1.SEEDS)
+    cfg = SolverConfig(**{**CONVEX_BASE, "guard_backend": "fused", "T": T})
+    res = run_campaign(convex_problem("quadratic", device), cfg, grid, ["byzantine_sgd"],
+                       device=device)
+    require(bool(torch.isfinite(res.stats["byzantine_sgd"].gap_avg).all()),
+            f"campaign of 5 seeds on {device}: finite gaps")
+    return 1e3 * res.wall_s / T
+
+
 def step_alone_runs(device: str) -> dict:
     """STEP_ALONE_T steps of each of STEP_ALONE_RUNS on ``device``, one
-    after another: {name: ms a step}."""
+    after another, then a campaign step of 5 seeds (CAMPAIGN_STEP):
+    {name: ms a step}."""
     convex_run("mean", device, T=10)   # the first run's one-time costs
     out = {}
     for name in STEP_ALONE_RUNS:
         got = convex_run(name, device, T=STEP_ALONE_T)
         require(got["finite"], f"{name} alone on {device}: finite x_avg and gaps")
         out[name] = 1e3 * got["seconds"] / STEP_ALONE_T
+    campaign_step_ms(device, 10)
+    out[CAMPAIGN_STEP] = campaign_step_ms(device, STEP_ALONE_T)
     return out
 
 
@@ -2446,6 +2710,12 @@ def convex_step_alone(dev) -> dict:
     for name in STEP_ALONE_RUNS:
         emit("convex_step_alone", run=name, T=STEP_ALONE_T, ms_per_step=fresh[name],
              cpu_ms_per_step=cpu[name], main_process_ms_per_step=here[name])
+    # one step of the group serves its 5 runs: against 5 steps alone
+    alone = "guard_backend=fused"
+    emit("convex_step_alone", run=CAMPAIGN_STEP, T=STEP_ALONE_T, runs=5,
+         ms_per_batched_step=fresh[CAMPAIGN_STEP], five_steps_alone_ms=5 * fresh[alone],
+         cpu_ms_per_batched_step=cpu[CAMPAIGN_STEP], cpu_five_steps_alone_ms=5 * cpu[alone],
+         main_process_ms_per_batched_step=here[CAMPAIGN_STEP])
     lower = {(kind, T_lb): lower_bound_run(kind, T_lb, str(dev))
              for kind in LOWER_BOUND for T_lb in LOWER_BOUND_T}
     emit("convex_step_alone", seconds=time.perf_counter() - t0)
@@ -2472,6 +2742,22 @@ def card_task(name: str, dev: str) -> dict:
     return out
 
 
+def table1_task(section: str, kw: dict, T: int, device: str) -> dict:
+    """One part of a Table 1 section on ``device``: its points, seconds and
+    (on the card) the launch counts, set to 0 just before it and read just
+    after."""
+    cuda = device.startswith("cuda")
+    if cuda:
+        torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    points = table1.section(section, T=T, device=device, **kw)
+    if cuda:
+        torch.cuda.synchronize()
+    return {"points": points, "seconds": time.perf_counter() - t0,
+            "launches": read_counts() if cuda else None}
+
+
 def convex_pool() -> tuple[dict, dict]:
     """The convex runs at full length: the epoch solver and every run of
     CONVEX_RUNS on the card, then each run and the lower bound's
@@ -2482,9 +2768,20 @@ def convex_pool() -> tuple[dict, dict]:
     t0 = time.perf_counter()
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(POOL_PROCESSES, initializer=_pool_init) as pool:
-        card = {name: pool.apply_async(card_task, (name, "cuda:0"))
-                for name in (EPOCH, *CONVEX_RUNS)}
-        cpu = {name: pool.apply_async(convex_run, (name, "cpu")) for name in CONVEX_RUNS}
+        card = {name: pool.apply_async(card_task, (name, "cuda:0")) for name in (EPOCH,)}
+        for i, (section, kw) in enumerate(TABLE1_MAIN):
+            card[("table1", "main", i)] = pool.apply_async(
+                table1_task, (section, kw, table1.T_PAPER, "cuda:0"))
+        card.update({name: pool.apply_async(card_task, (name, "cuda:0"))
+                     for name in CONVEX_RUNS})
+        card[("table1", "check")] = pool.apply_async(
+            table1_task, ("alpha", {"alphas": (0.25,)}, TABLE1_CHECK_T, "cuda:0"))
+        for i, (section, kw) in enumerate(TABLE1_OTHER):
+            card[("table1", "other", i)] = pool.apply_async(
+                table1_task, (section, kw, TABLE1_OTHER_T, "cuda:0"))
+        cpu = {("table1", "check"): pool.apply_async(
+            table1_task, ("alpha", {"alphas": (0.25,)}, TABLE1_CHECK_T, "cpu"))}
+        cpu.update({name: pool.apply_async(convex_run, (name, "cpu")) for name in CONVEX_RUNS})
         for kind in LOWER_BOUND:
             for T_lb in LOWER_BOUND_T:
                 cpu[(kind, T_lb)] = pool.apply_async(lower_bound_run, (kind, T_lb, "cpu"))
@@ -2492,8 +2789,70 @@ def convex_pool() -> tuple[dict, dict]:
         card, cpu = ({name: job.get(max(1.0, deadline - time.monotonic()))
                       for name, job in jobs.items()} for jobs in (card, cpu))
     emit("convex_pool", processes=POOL_PROCESSES, seconds=time.perf_counter() - t0,
-         card_seconds={name: res["seconds"] for name, res in card.items()})
+         card_seconds={str(name): res["seconds"] for name, res in card.items()},
+         cpu_seconds={str(name): res["seconds"] for name, res in cpu.items()})
     return card, cpu
+
+
+def table1_launches_ok(task: dict, T: int) -> bool:
+    """Each point's variant launched its kernels T times (once a step for
+    its group of seeds), and no other kernel ran."""
+    want = counts()
+    for p in task["points"]:
+        for k, v in TABLE1_STEP_KERNELS[p["point"].rsplit("/", 1)[1]].items():
+            want[k] += v * T
+    return task["launches"] == want
+
+
+def table1_phase(card: dict, cpu: dict) -> None:
+    """Table 1 on the card: the α = 0.25 section at the paper's T (every
+    point finite, the guard reaching ε on every seed, no honest worker
+    filtered); the same section at TABLE1_CHECK_T on the card and on the CPU
+    (iterations-to-ε and decisions equal, gaps within GAP_RTOL); the other
+    sections at TABLE1_OTHER_T (printed with ``T_reduced_from``).  Every
+    card part launches exactly its variants' kernels."""
+    main = [card[("table1", "main", i)] for i in range(len(TABLE1_MAIN))]
+    for task in main:
+        require(table1_launches_ok(task, table1.T_PAPER),
+                f"table1 {task['points'][0]['point']}: launches {task['launches']}")
+        for p in task["points"]:
+            emit("table1", section="alpha", point=p["point"], T=p["T"],
+                 iters_to_eps_med=p["iters_to_eps_med"], iqr=p["iqr"], reached=p["reached"],
+                 n_seeds=p["n_seeds"], iters_to_eps=p["iters_to_eps"],
+                 n_alive_final=p["n_alive_final"], gap_final=p["gap_final"],
+                 ever_filtered_good=p["ever_filtered_good"], seconds=task["seconds"],
+                 launches=task["launches"])
+            require(all(np.isfinite(p["gap_final"])), f"{p['point']}: finite gaps")
+            if p["point"].endswith("/byzantine_sgd"):
+                require(p["reached"] == p["n_seeds"] and not any(p["ever_filtered_good"]),
+                        f"{p['point']}: every seed reaches ε, no honest worker filtered")
+    got, want = card[("table1", "check")], cpu[("table1", "check")]
+    require(table1_launches_ok(got, TABLE1_CHECK_T), f"table1 check: {got['launches']}")
+    for a, b in zip(got["points"], want["points"]):
+        ints = all(a[f] == b[f] for f in ("iters_to_eps", "n_alive_final", "detect_latency",
+                                          "ever_filtered_good"))
+        rel = [abs(x - y) / (abs(y) + GAP_ATOL / GAP_RTOL)
+               for f in ("gap_final", "gap_avg") for x, y in zip(a[f], b[f])]
+        gap = float("nan") if any(np.isnan(rel)) else max(rel)
+        emit("table1", check="card_equals_cpu", point=a["point"], T=TABLE1_CHECK_T,
+             integers_equal=ints, gap_rel_err_max=gap, iters_to_eps=a["iters_to_eps"],
+             cpu_iters_to_eps=b["iters_to_eps"], card_seconds=got["seconds"],
+             cpu_seconds=want["seconds"])
+        require(ints and gap <= GAP_RTOL, f"table1 {a['point']} at T={TABLE1_CHECK_T}: "
+                                          f"card as the CPU (ints {ints}, gaps {gap})")
+    for i in range(len(TABLE1_OTHER)):
+        task = card[("table1", "other", i)]
+        require(table1_launches_ok(task, TABLE1_OTHER_T),
+                f"table1 {task['points'][0]['point']}: launches {task['launches']}")
+        for p in task["points"]:
+            require(all(np.isfinite(p["gap_final"])), f"{p['point']}: finite gaps")
+            emit("table1", section=TABLE1_OTHER[i][0], point=p["point"], T=p["T"],
+                 T_reduced_from=table1.T_PAPER, iters_to_eps_med=p["iters_to_eps_med"],
+                 iqr=p["iqr"], reached=p["reached"], n_seeds=p["n_seeds"],
+                 iters_to_eps=p["iters_to_eps"], n_alive_final=p["n_alive_final"],
+                 seconds=task["seconds"], launches=task["launches"])
+    emit("table1", seconds_in_pool=sum(card[k]["seconds"] for k in card
+                                       if isinstance(k, tuple) and k[0] == "table1"))
 
 
 def check_card_run(name: str, got: dict) -> None:
@@ -2568,6 +2927,8 @@ def detection_latency(card: dict, cpu: dict) -> None:
                                                   for name in DETECTION_RUNS))
 
 
+# cut from T = 128 to keep the script inside its time with Table 1's runs
+RG_T = 64
 RG_RUNS = (("fused@f32", dict(guard_backend="fused", stats_dtype="f32")),
            ("fused@bf16", dict(guard_backend="fused", stats_dtype="bf16")),
            ("dense@f32", dict(guard_backend="dense", stats_dtype="f32")))
@@ -2585,7 +2946,7 @@ def random_gaussian_main_path(dev) -> None:
     n_byz = int(BASE["alpha"] * M)
     runs = {}
     for name, over in RG_RUNS:
-        cfg = SolverConfig(**{**BASE, **over})
+        cfg = SolverConfig(**{**BASE, **over, "T": RG_T})
         res, ms, got, mem = profiled_run(problem, cfg, adv, dev)
         runs[name] = res
         finite = bool(torch.isfinite(res.x_avg).all() and torch.isfinite(res.gaps).all())
@@ -2594,7 +2955,8 @@ def random_gaussian_main_path(dev) -> None:
              n_alive_first_last=[int(res.n_alive[0]), int(res.n_alive[-1])],
              launches=got, finite=finite)
         require(finite, f"random_gaussian {name}: finite x_avg and gaps")
-        want = counts(fused_guard=T, filtered_mean=T) if name.startswith("fused") else counts()
+        want = (counts(fused_guard=RG_T, filtered_mean=RG_T) if name.startswith("fused")
+                else counts())
         require(got == want, f"random_gaussian {name}: launches {got}, expected {want}")
         require_clean_filter(f"random_gaussian {name}", res, n_byz)
     dense = runs["dense@f32"]
@@ -2709,11 +3071,13 @@ def main() -> int:
     profile_main_path(dev)
     fault_main_path(dev, q_series)
     profile_reference(dev)
+    campaign_main_path(dev)
     lower = convex_step_alone(dev)
     convex, cpu = convex_pool()
     quickstart(convex, cpu)
     detection_latency(convex, cpu)
     convex_harness(convex, cpu, lower)
+    table1_phase(convex, cpu)
 
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Times the guard sweep's, the order statistics' or the CountSketch's
-kernels of one checkout of the PyTorch/CUDA port on one GPU, so two
+"""Times the guard sweep's, the order statistics', the CountSketch's or
+the filtered mean's and Gram's kernels of one checkout of the
+PyTorch/CUDA port on one GPU, so two
 checkouts can be compared in one run on one card.
 
     python3 scripts/time_guard_sweep.py [--root DIR] [--label NAME]
-                                        [--kernels guard_sweep|order_stats|countsketch]
+                                        [--kernels guard_sweep|order_stats|countsketch|reduce]
 
 ``--root`` is the root of the checkout whose kernels are built and timed
 (default: this one).  At the main path's shape (m = 32, d = 2^20) it prints
@@ -35,6 +36,10 @@ else with ``n_chunks``) and ``card_ms``: the card's time a launch in the
 ``countsketch`` kernels from a ``torch.profiler`` trace of 20 such
 launches, with ``traced_launches`` (20 when none went unrecorded, else
 ``card_ms`` is null); ``plan`` is the launch plan where there is one.
+
+``--kernels reduce``: ``filtered_mean`` (plain and sanitizing, on input
+holding 4 non-finite rows) and ``gram`` at f32 and bf16, each through its
+Python wrapper (one run, as ``chip_smoke.py``'s kernels line times it).
 
 Run checkouts in turns (A, B, B, A) and compare within one run.  Imports
 nothing of JAX.
@@ -157,6 +162,23 @@ def countsketch_ms(cs, dev, out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def reduce_ms(cs, dev, out: dict) -> None:
+    import torch
+    from repro_torch.kernels.pairdist import gram_cuda
+    from repro_torch.kernels.robust_reduce import filtered_mean_cuda
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for dt in ("f32", "bf16"):
+        x = torch.randn(cs.M, cs.D, device=dev, generator=gen, dtype=cs.DTYPES[dt])
+        xp = cs.poison(x.clone())
+        w = torch.rand(cs.M, device=dev, generator=gen) / cs.M
+        out["ms"][f"filtered_mean[{dt}]"] = cs.median_ms(lambda: filtered_mean_cuda(x, w, 1.0))
+        out["ms"][f"filtered_mean_sanitize[{dt}]"] = cs.median_ms(
+            lambda: filtered_mean_cuda(xp, w, 1.0, sanitize=True))
+        out["ms"][f"gram[{dt}]"] = cs.median_ms(lambda: gram_cuda(x))
+        del x, xp
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -187,7 +209,7 @@ def main() -> int:
 
 
 TIMERS = {"guard_sweep": guard_sweep_ms, "order_stats": order_stats_ms,
-          "countsketch": countsketch_ms}
+          "countsketch": countsketch_ms, "reduce": reduce_ms}
 
 
 if __name__ == "__main__":

@@ -78,7 +78,9 @@ def aggregate_krum(grads: torch.Tensor, n_byzantine: int, multi_k: int = 1) -> t
     m = grads.shape[0]
     n_neighbors = max(m - n_byzantine - 2, 1)
     d2 = _pairwise_sq_dists(grads)
-    d2 = d2.fill_diagonal_(torch.inf)  # exclude self
+    # exclude self (a where, not fill_diagonal_, so that vmap batches it
+    # without a loop over the runs)
+    d2 = torch.where(torch.eye(m, dtype=torch.bool, device=d2.device), torch.inf, d2)
     nearest = torch.sort(d2, dim=1).values[:, :n_neighbors]
     scores = torch.sum(nearest, dim=1)
     if multi_k == 1:

@@ -42,6 +42,19 @@ from repro_torch.core.byzantine_sgd import ByzantineGuard, GuardConfig, resolve_
 _NOT_KNOBS = ("problem", "cfg", "device", "mode")
 
 
+def parse_backend_spec(spec: str) -> tuple[str, str | None]:
+    """``"fused@bf16"`` → ``("fused", "bf16")``; ``"fused"`` → ``("fused",
+    None)``.  The campaign's spelling of a (backend, stats precision)
+    point: the dtype suffix is checked here (a typo, ``"fused@"``
+    included, raises KeyError), the backend name by
+    :func:`make_guard_backend` when it is built."""
+    name, sep, dt = spec.partition("@")
+    if sep:
+        resolve_stats_dtype(dt)
+        return name, dt
+    return name, None
+
+
 def _declared_opts(factory) -> set[str]:
     return {p.name for p in inspect.signature(factory).parameters.values()
             if p.kind in (p.KEYWORD_ONLY, p.POSITIONAL_OR_KEYWORD)

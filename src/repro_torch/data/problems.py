@@ -160,7 +160,10 @@ def _sphere_noise(worker_keys: torch.Tensor, d: int, V: float) -> torch.Tensor:
     keys = prng.split(worker_keys)
     n = prng.normal(keys[:, 0], (d,))
     n = n / torch.clamp(torch.linalg.vector_norm(n, dim=1, keepdim=True), min=1e-12)
-    r = V * prng.uniform(keys[:, 1], ()) ** (1.0 / d)
+    # u^{1/d} in f64, rounded once: an f32 pow on the CPU takes another
+    # branch for a short tensor than for a long one, so a campaign's (R, m)
+    # draw and a run's (m,) draw would differ by an ulp at times
+    r = V * (prng.uniform(keys[:, 1], ()).to(torch.float64) ** (1.0 / d)).to(torch.float32)
     return r[:, None] * n
 
 
@@ -172,12 +175,15 @@ def quadratic_problem(H, x_star, x1, D: float, V: float, L: float, sigma: float,
     H, x_star, x1 = _f32(H, dev), _f32(x_star, dev), _f32(x1, dev)
     d = H.shape[0]
 
+    # the products as sums over the last axis, not matrix products: BLAS
+    # takes another kernel for one vector than for a campaign's stack of
+    # them, and these sums give each run the same bits either way
     def f(x):
         r = x - x_star
-        return (0.5 * r) @ H @ r
+        return torch.sum((0.5 * r) * torch.sum(H * r, dim=-1), dim=-1)
 
     def grad(x):
-        return H @ (x - x_star)
+        return torch.sum(H * (x - x_star), dim=-1)
 
     def stoch_grad(worker_keys, x):
         return grad(x)[None, :] + _sphere_noise(worker_keys, d, V)

@@ -14,7 +14,8 @@ counterpart here: the kernel takes any d and k without padding.
 How the kernel cuts the work is :func:`launch_plan`'s, a function of the
 shape, the dtype and x's alignment only, so the order of the sums, and
 the bits, repeat from run to run.  ``countsketch_cuda.launches`` counts
-launches.
+launches.  ``countsketch_runs_cuda`` takes a leading run axis (a campaign
+group's runs) in one launch.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_guard import check_cuda_inputs, check_workers
+from repro_torch.kernels.fused_guard import check_cuda_inputs, check_runs, check_workers
 from repro_torch.kernels.gradgen import MASK32
 
 ROWS = 4            # rows of x a block sums (csrc/countsketch.cu's R)
@@ -116,3 +117,28 @@ def countsketch_cuda(x: torch.Tensor, k: int, salt: int = 0) -> torch.Tensor:
 
 
 countsketch_cuda.launches = 0
+
+
+def countsketch_runs_cuda(x: torch.Tensor, k: int, salt: int = 0) -> torch.Tensor:
+    """:func:`countsketch_cuda` over a leading run axis, in one launch: x
+    (R, m, d) → (R, m, k).  The runs fold into R·m rows (each row's sketch
+    is its own) under the plan of one run, so each row's sums take the
+    order, and the bits, of ``countsketch_cuda(x[r])``.  Counts one launch."""
+    dev = check_cuda_inputs("countsketch", {"x": x}, tuple(_DTYPE_CODES))
+    R = check_runs("countsketch", x, {})
+    _, m, d = x.shape
+    k = int(k)
+    check_workers("countsketch", m)
+    if d < 1 or k < 1:
+        raise ValueError(f"countsketch: needs d >= 1 and k >= 1, got d={d}, k={k}")
+    if -(-R * m // ROWS) > MAX_CHUNKS:
+        raise ValueError(f"countsketch: {R} runs of {m} rows pass the grid's "
+                         f"{ROWS * MAX_CHUNKS} rows")
+    rows = x.reshape(R * m, d)
+    plan = launch_plan(m, d, k, x.dtype, x.data_ptr() % 16 == 0)
+    out = torch.empty((R * m, k), dtype=torch.float32, device=dev)
+    part = (torch.empty((plan.chunks, R * m, k), dtype=torch.float32, device=dev)
+            if plan.chunks > 1 else None)
+    run_plan(rows, k, salt, plan, out, part)
+    countsketch_cuda.launches += 1
+    return out.view(R, m, k)

@@ -50,7 +50,9 @@
 // which is a function of (m, d, k, dtype, alignment), so two runs give the
 // same bits, and the scalar, vector, 32- and 64-bit paths give the same
 // bits under one plan.  The plan is made in Python (kernels/countsketch.py,
-// launch_plan) and checked here.  Any m up to rt::MAX_WORKERS, d and k ≥ 1.
+// launch_plan) and checked here.  Any d and k ≥ 1 and m rows up to
+// 4·65535: the wrapper holds a run to rt::MAX_WORKERS workers, and a
+// campaign's R runs fold into R·m independent rows of one launch.
 
 #include <type_traits>
 
@@ -286,7 +288,7 @@ extern "C" int rt_countsketch(int64_t dtype, const void* x, void* part, void* ou
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const int64_t V = dtype == 0 ? 4 : 8;
   const int64_t n_terms = d >= 1 && k >= 1 ? (d + k - 1) / k : 0;
-  if (m < 1 || m > rt::MAX_WORKERS || d < 1 || k < 1 || s < 0 || s > 0xFFFFFFFFll ||
+  if (m < 1 || d < 1 || k < 1 || s < 0 || s > 0xFFFFFFFFll ||
       rows != R || warps < 1 || warps > MAX_WARPS || lanes < 1 || lanes > 32 ||
       (lanes & (lanes - 1)) || chunks < 1 || chunks > 65535 || jc < 1 || jw < 1 ||
       chunks * jc < n_terms || warps * jw < jc || (!wide && d + k > (1ll << 32)))

@@ -21,6 +21,10 @@
 // cross-thread reduction is needed, so the result does not depend on the
 // launch shape.  Offsets are int64 (m·d may pass 2^31).
 //
+// The run axis (entry rt_filtered_mean_runs): the R ≤ 65535 runs of a
+// campaign group in one launch, x (R, m, d), w (R, m), ξ (R, d); grid y is
+// the run, and each run's ξ is the one-run launch's bits.
+//
 // gen_xi (entry rt_gen_xi) replaces fused_guard.py's gen_xi_pallas (body
 // _gen_xi_kernel): the same loop over rows in order, with each row
 // generated (gen_rows.cuh) rather than loaded, and two accumulators:
@@ -44,12 +48,21 @@
 namespace {
 
 constexpr int NT = 256;
+constexpr int64_t MAX_RUNS = 65535;  // the run axis is grid y
 
-template <typename T, bool VEC, bool SAN>
+// RUNS: grid y is the run, and run r's x, w and ξ lie r strides past the
+// first run's; a one-run launch keeps the kernel without the offsets.
+template <typename T, bool VEC, bool SAN, bool RUNS>
 __global__ void __launch_bounds__(NT)
 filtered_mean_kernel(const T* __restrict__ x, const float* __restrict__ w, float denom,
                      float* __restrict__ out, int64_t m, int64_t d) {
   extern __shared__ float sw[];
+  if constexpr (RUNS) {
+    const int64_t run = blockIdx.y;
+    x += run * m * d;
+    w += run * m;
+    out += run * d;
+  }
   for (int64_t i = threadIdx.x; i < m; i += NT) sw[i] = w[i] / denom;
   __syncthreads();
   const int64_t n4 = (d + 3) / 4;
@@ -73,34 +86,44 @@ filtered_mean_kernel(const T* __restrict__ x, const float* __restrict__ w, float
   }
 }
 
-template <typename T, bool SAN>
-cudaError_t launch(const void* x, const float* w, float denom, float* out, int64_t m,
-                   int64_t d, cudaStream_t stream) {
+template <typename T, bool SAN, bool RUNS>
+cudaError_t launch_one(const void* x, const float* w, float denom, float* out, int64_t m,
+                       int64_t d, int64_t runs, cudaStream_t stream) {
   const int64_t n4 = (d + 3) / 4;
   const int64_t blocks = (n4 + NT - 1) / NT < (1 << 20) ? (n4 + NT - 1) / NT : (1 << 20);
+  // every run's row starts share the first run's alignment when d % 4 == 0
   const bool vec = d % 4 == 0 && rt::aligned(x, 4 * sizeof(T)) && rt::aligned(out, 16);
   const size_t smem = (size_t)m * sizeof(float);
   const T* xt = static_cast<const T*>(x);
+  const dim3 grid((unsigned)blocks, (unsigned)runs);
   if (vec)
-    filtered_mean_kernel<T, true, SAN><<<(unsigned)blocks, NT, smem, stream>>>(
-        xt, w, denom, out, m, d);
+    filtered_mean_kernel<T, true, SAN, RUNS><<<grid, NT, smem, stream>>>(xt, w, denom, out, m,
+                                                                         d);
   else
-    filtered_mean_kernel<T, false, SAN><<<(unsigned)blocks, NT, smem, stream>>>(
-        xt, w, denom, out, m, d);
+    filtered_mean_kernel<T, false, SAN, RUNS><<<grid, NT, smem, stream>>>(xt, w, denom, out, m,
+                                                                          d);
   return cudaGetLastError();
+}
+
+template <typename T, bool SAN>
+cudaError_t launch(const void* x, const float* w, float denom, float* out, int64_t m,
+                   int64_t d, int64_t runs, cudaStream_t stream) {
+  return runs > 1 ? launch_one<T, SAN, true>(x, w, denom, out, m, d, runs, stream)
+                  : launch_one<T, SAN, false>(x, w, denom, out, m, d, runs, stream);
 }
 
 template <bool SAN>
 int run(int64_t dtype, const void* x, const void* w, float denom, void* out, int64_t m,
-        int64_t d, int64_t device, void* stream) {
-  if (m < 1 || m > rt::MAX_WORKERS || d < 1) return (int)cudaErrorInvalidValue;
+        int64_t d, int64_t runs, int64_t device, void* stream) {
+  if (m < 1 || m > rt::MAX_WORKERS || d < 1 || runs < 1 || runs > MAX_RUNS)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);
   float* of = static_cast<float*>(out);
-  if (dtype == 0) return (int)launch<float, SAN>(x, wf, denom, of, m, d, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16, SAN>(x, wf, denom, of, m, d, s);
+  if (dtype == 0) return (int)launch<float, SAN>(x, wf, denom, of, m, d, runs, s);
+  if (dtype == 1) return (int)launch<__nv_bfloat16, SAN>(x, wf, denom, of, m, d, runs, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -165,14 +188,24 @@ gen_xi_kernel(const float* __restrict__ w_xi, const float* __restrict__ w_byz,
 extern "C" int rt_filtered_mean(int64_t dtype, const void* x, const void* w, float denom,
                                 void* out, int64_t m, int64_t d, int64_t device,
                                 void* stream) {
-  return run<false>(dtype, x, w, denom, out, m, d, device, stream);
+  return run<false>(dtype, x, w, denom, out, m, d, 1, device, stream);
 }
 
 // The sanitizing variant, with the same arguments.
 extern "C" int rt_filtered_mean_sanitize(int64_t dtype, const void* x, const void* w,
                                          float denom, void* out, int64_t m, int64_t d,
                                          int64_t device, void* stream) {
-  return run<true>(dtype, x, w, denom, out, m, d, device, stream);
+  return run<true>(dtype, x, w, denom, out, m, d, 1, device, stream);
+}
+
+// The run axis: x (runs, m, d), w (runs, m), out (runs, d), one launch,
+// 1 <= runs <= 65535; sanitize selects the sanitizing variant.  runs = 1
+// is the entries above.
+extern "C" int rt_filtered_mean_runs(int64_t dtype, int64_t runs, int64_t sanitize,
+                                     const void* x, const void* w, float denom, void* out,
+                                     int64_t m, int64_t d, int64_t device, void* stream) {
+  if (sanitize) return run<true>(dtype, x, w, denom, out, m, d, runs, device, stream);
+  return run<false>(dtype, x, w, denom, out, m, d, runs, device, stream);
 }
 
 // gen_xi: dtype is the statistics type ξ's rows round through (0 = f32,

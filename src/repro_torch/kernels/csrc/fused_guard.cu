@@ -44,8 +44,8 @@
 //
 // Design.  The Pallas grid walks d in order and carries the (m, m)
 // accumulators from one strip to the next; CUDA blocks run in parallel and
-// carry nothing.  So d is split across blocks instead: block x takes the
-// 64-column tiles x, x + gridDim.x, ... and keeps its share of both Grams
+// carry nothing.  So d is split across blocks instead: split x takes the
+// 64-column tiles x, x + nb, ... and keeps its share of both Grams
 // in registers (a 4x4 register tile of gram_g and of cross per thread, four
 // groups of 64 threads each taking 16 of a tile's 64 columns).  Each tile
 // of g and B is read from device memory once; the same registers write
@@ -62,6 +62,14 @@
 // B_new, a_inc and the SAN counts, so each row is written once whatever nt.
 // The bf16 sweep (guard_sweep.cuh) keeps this grid, the partials and their
 // reduction.
+//
+// The run axis (entry rt_fused_guard_runs): what vmap of the Pallas call
+// computes, one launch for the R runs of a campaign group.  Grid x is
+// run · nb + split; each run reads its own g, B and δ and writes its own
+// partials (an R axis in front of the scratch) and outputs, and the
+// reductions walk each run's partials in the one-run order.  With the nb
+// of a one-run launch every run's outputs are that launch's bits; R = 1
+// is today's launch.  The run offsets are int64 (R·m·d may pass 2^31).
 //
 // The sanitizing variant zeroes g where it is used, after the prefetch has
 // landed, so no extra instruction waits on a load.  Each entry of g is
@@ -94,9 +102,22 @@ fused_guard_kernel(const float* __restrict__ g, const float* __restrict__ B,
                    const float* __restrict__ delta, float* __restrict__ B_new,
                    float* __restrict__ gram_part, float* __restrict__ cross_part,
                    float* __restrict__ a_part, int* __restrict__ nf_part, int64_t m,
-                   int64_t d, int64_t mp, rt::gen::Args ga) {
+                   int64_t d, int64_t mp, int64_t nb, rt::gen::Args ga) {
   static_assert(!(SAN && GEN), "the generating sweep has no sanitizing variant");
   __shared__ __align__(16) float smem[SMEM];
+  // grid x is run · nb + split: run r's operands, partials and outputs lie
+  // r strides past the first run's
+  const int64_t run = blockIdx.x / nb, split = blockIdx.x % nb;
+  if (run) {
+    g += run * m * d;
+    B += run * m * d;
+    B_new += run * m * d;
+    delta += run * d;
+    gram_part += run * nb * mp * mp;
+    cross_part += run * nb * mp * mp;
+    a_part += run * nb * mp;
+    if constexpr (SAN) nf_part += run * nb * mp;
+  }
   // GEN: the constants of the block's two row tiles (I, then J)
   __shared__ rt::gen::Row srow[GEN ? 2 * MT : 1];
   const int ti = blockIdx.y, tj = blockIdx.z;
@@ -184,9 +205,9 @@ fused_guard_kernel(const float* __restrict__ g, const float* __restrict__ B,
   int nf_acc[2] = {0, 0};  // SAN: this thread's non-finite entries of rows I
 
   const int64_t n_tiles = (d + TK - 1) / TK;
-  int64_t tile = blockIdx.x;
+  int64_t tile = split;
   if (tile < n_tiles) fetch(tile);
-  for (; tile < n_tiles; tile += gridDim.x) {
+  for (; tile < n_tiles; tile += nb) {
     if constexpr (SAN) {
 #pragma unroll
       for (int p = 0; p < 2; ++p)
@@ -222,7 +243,7 @@ fused_guard_kernel(const float* __restrict__ g, const float* __restrict__ B,
         *reinterpret_cast<float4*>(&sGJ[o]) = make_float4(pj[p][0], pj[p][1], pj[p][2], pj[p][3]);
     }
     __syncthreads();
-    if (tile + gridDim.x < n_tiles) fetch(tile + gridDim.x);  // in flight during the FMAs
+    if (tile + nb < n_tiles) fetch(tile + nb);  // in flight during the FMAs
 
 #pragma unroll
     for (int s4 = 0; s4 < KW; s4 += 4) {
@@ -270,13 +291,13 @@ fused_guard_kernel(const float* __restrict__ g, const float* __restrict__ B,
     const int64_t gi = (int64_t)ti * MT + ij / MT;
     const int64_t gj = (int64_t)tj * MT + ij % MT;
     float* dst = which ? cross_part : gram_part;
-    dst[((int64_t)blockIdx.x * mp + gi) * mp + gj] = s;
+    dst[(split * mp + gi) * mp + gj] = s;
   }
   if (diag) {
     // the 16 lanes that loaded a row hold its A-increment in pieces
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
-      const int64_t o = (int64_t)blockIdx.x * mp + (int64_t)ti * MT + lr + 16 * p;
+      const int64_t o = split * mp + (int64_t)ti * MT + lr + 16 * p;
       const float v = sum16(a_acc[p]);
       if ((tid & 15) == 0) a_part[o] = v;
       if constexpr (SAN) {
@@ -288,17 +309,28 @@ fused_guard_kernel(const float* __restrict__ g, const float* __restrict__ B,
 }
 
 // Sums the nb partials of every output in a fixed order: eight lanes per
-// output take every eighth partial, then a fixed tree over the eight.
+// output take every eighth partial, then a fixed tree over the eight.  The
+// outputs of run r follow those of run r − 1; each run's sums take the
+// order of a one-run launch.
 __global__ void __launch_bounds__(256)
 fused_guard_reduce_kernel(const float* __restrict__ gram_part,
                           const float* __restrict__ cross_part,
                           const float* __restrict__ a_part, float* __restrict__ gram,
                           float* __restrict__ cross, float* __restrict__ a_inc,
-                          int64_t m, int64_t mp, int64_t nb) {
+                          int64_t m, int64_t mp, int64_t nb, int64_t runs) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t o = t >> 3;
   const int l = (int)(t & 7);
   const int64_t mm = m * m, total = 2 * mm + m;
+  const int64_t run = (t >> 3) / total;
+  const int64_t o = run < runs ? (t >> 3) % total : total;
+  if (run < runs) {
+    gram_part += run * nb * mp * mp;
+    cross_part += run * nb * mp * mp;
+    a_part += run * nb * mp;
+    gram += run * mm;
+    cross += run * mm;
+    a_inc += run * m;
+  }
   const float* src = a_part;
   float* dst = a_inc;
   int64_t off = 0, stride = mp, out = 0;
@@ -322,15 +354,18 @@ fused_guard_reduce_kernel(const float* __restrict__ gram_part,
   if (o < total && l == 0) dst[out] = s;
 }
 
-// Sums each row's nb per-block non-finite counts (sanitizing variant only).
+// Sums each row's nb per-block non-finite counts (sanitizing variant only),
+// for every row of every run.
 __global__ void __launch_bounds__(128)
 nf_reduce_kernel(const int* __restrict__ nf_part, int* __restrict__ nf, int64_t m,
-                 int64_t mp, int64_t nb) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
+                 int64_t mp, int64_t nb, int64_t runs) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= runs * m) return;
+  const int64_t run = t / m, i = t % m;
+  const int* part = nf_part + run * nb * mp;
   int s = 0;
-  for (int64_t b = 0; b < nb; ++b) s += nf_part[b * mp + i];
-  nf[i] = s;
+  for (int64_t b = 0; b < nb; ++b) s += part[b * mp + i];
+  nf[t] = s;
 }
 
 // The outputs and scratch of one sweep, as the entry points receive them.
@@ -344,12 +379,13 @@ struct Sweep {
   float* a_part;
   int* nf_part;
   int64_t m, d, nb;
+  int64_t runs;  // runs of one launch, each with its own operands (GEN: 1)
 };
 
 template <bool SAN, bool GEN>
 cudaError_t launch_f32(const Sweep& w, const rt::gen::Args& ga, cudaStream_t stream) {
   const int64_t nt = (w.m + MT - 1) / MT, mp = nt * MT;
-  const dim3 grid((unsigned)w.nb, (unsigned)nt, (unsigned)nt);
+  const dim3 grid((unsigned)(w.nb * w.runs), (unsigned)nt, (unsigned)nt);
   const bool vec = w.d % 4 == 0 && (GEN || rt::aligned(w.g, 16)) && rt::aligned(w.B, 16) &&
                    rt::aligned(w.delta, 16) && rt::aligned(w.B_new, 16);
   const float* gt = static_cast<const float*>(w.g);
@@ -358,10 +394,12 @@ cudaError_t launch_f32(const Sweep& w, const rt::gen::Args& ga, cudaStream_t str
   float* bn = static_cast<float*>(w.B_new);
   if (vec)
     fused_guard_kernel<true, SAN, GEN><<<grid, NT, 0, stream>>>(
-        gt, bt, dt, bn, w.gram_part, w.cross_part, w.a_part, w.nf_part, w.m, w.d, mp, ga);
+        gt, bt, dt, bn, w.gram_part, w.cross_part, w.a_part, w.nf_part, w.m, w.d, mp, w.nb,
+        ga);
   else
     fused_guard_kernel<false, SAN, GEN><<<grid, NT, 0, stream>>>(
-        gt, bt, dt, bn, w.gram_part, w.cross_part, w.a_part, w.nf_part, w.m, w.d, mp, ga);
+        gt, bt, dt, bn, w.gram_part, w.cross_part, w.a_part, w.nf_part, w.m, w.d, mp, w.nb,
+        ga);
   return cudaGetLastError();
 }
 
@@ -382,13 +420,13 @@ cudaError_t launch_bf16_one(const Sweep& w, const rt::gen::Args& ga, cudaStream_
     if (err != cudaSuccess) return err;
     allowed |= 1ull << device;
   }
-  const dim3 grid((unsigned)w.nb, (unsigned)nt, (unsigned)nt);
+  const dim3 grid((unsigned)(w.nb * w.runs), (unsigned)nt, (unsigned)nt);
   const int threads = GEN ? bf::NC + bf::NG : bf::NC;
   guard_bf16_kernel<VEC, SAN, GEN><<<grid, threads, (size_t)bf::STAGES * bf::stage_bytes(ops),
                                      stream>>>(
       static_cast<const __nv_bfloat16*>(w.g), static_cast<const __nv_bfloat16*>(w.B),
       static_cast<const __nv_bfloat16*>(w.delta), static_cast<__nv_bfloat16*>(w.B_new),
-      w.gram_part, w.cross_part, w.a_part, w.nf_part, w.m, w.d, nt * MT, ops, ga);
+      w.gram_part, w.cross_part, w.a_part, w.nf_part, w.m, w.d, nt * MT, w.nb, ops, ga);
   return cudaGetLastError();
 }
 
@@ -404,7 +442,8 @@ cudaError_t launch_bf16(const Sweep& w, const rt::gen::Args& ga, cudaStream_t st
 template <bool SAN, bool GEN>
 int run(int64_t dtype, const Sweep& w, void* gram, void* cross, void* a_inc, void* nf,
         const rt::gen::Args& ga, int64_t device, void* stream) {
-  if (w.m < 1 || w.m > rt::MAX_WORKERS || w.d < 1 || w.nb < 1 || w.nb > 0x7fffffff)
+  if (w.m < 1 || w.m > rt::MAX_WORKERS || w.d < 1 || w.nb < 1 || w.runs < 1 ||
+      w.nb * w.runs > 0x7fffffff || (GEN && w.runs != 1))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
@@ -421,15 +460,15 @@ int run(int64_t dtype, const Sweep& w, void* gram, void* cross, void* a_inc, voi
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   const int64_t mp = ((w.m + MT - 1) / MT) * MT;
-  const int64_t threads = 8 * (2 * w.m * w.m + w.m);
+  const int64_t threads = 8 * (2 * w.m * w.m + w.m) * w.runs;
   fused_guard_reduce_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
       w.gram_part, w.cross_part, w.a_part, static_cast<float*>(gram),
-      static_cast<float*>(cross), static_cast<float*>(a_inc), w.m, mp, w.nb);
+      static_cast<float*>(cross), static_cast<float*>(a_inc), w.m, mp, w.nb, w.runs);
   if constexpr (SAN) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    nf_reduce_kernel<<<(unsigned)((w.m + 127) / 128), 128, 0, s>>>(
-        w.nf_part, static_cast<int*>(nf), w.m, mp, w.nb);
+    nf_reduce_kernel<<<(unsigned)((w.m * w.runs + 127) / 128), 128, 0, s>>>(
+        w.nf_part, static_cast<int*>(nf), w.m, mp, w.nb, w.runs);
   }
   return (int)cudaGetLastError();
 }
@@ -447,7 +486,7 @@ extern "C" int rt_fused_guard(int64_t dtype, const void* g, const void* B, const
                               int64_t nb, int64_t device, void* stream) {
   const Sweep w{g, B, delta, B_new, static_cast<float*>(gram_part),
                 static_cast<float*>(cross_part), static_cast<float*>(a_part), nullptr, m, d,
-                nb};
+                nb, 1};
   return run<false, false>(dtype, w, gram, cross, a_inc, nullptr, rt::gen::Args{}, device,
                            stream);
 }
@@ -462,8 +501,31 @@ extern "C" int rt_fused_guard_sanitize(int64_t dtype, const void* g, const void*
                                        void* stream) {
   const Sweep w{g, B, delta, B_new, static_cast<float*>(gram_part),
                 static_cast<float*>(cross_part), static_cast<float*>(a_part),
-                static_cast<int*>(nf_part), m, d, nb};
+                static_cast<int*>(nf_part), m, d, nb, 1};
   return run<true, false>(dtype, w, gram, cross, a_inc, nf, rt::gen::Args{}, device, stream);
+}
+
+// The run axis: one launch for `runs` independent sweeps of one shape (a
+// campaign's runs, stacked), each run's operands, scratch and outputs
+// contiguous after the last run's: g, B, B_new (runs, m, d), delta
+// (runs, d), the partials (runs, nb, mp, mp) and (runs, nb, mp), gram and
+// cross (runs, m, m), a_inc (runs, m); sanitize adds nf_part (runs, nb, mp)
+// and nf (runs, m).  Each run takes the blocks, partials and reduction
+// order of a one-run launch with the same nb, so its outputs are that
+// launch's bits; runs = 1 is rt_fused_guard / rt_fused_guard_sanitize.
+extern "C" int rt_fused_guard_runs(int64_t dtype, int64_t runs, int64_t sanitize,
+                                   const void* g, const void* B, const void* delta,
+                                   void* B_new, void* gram_part, void* cross_part,
+                                   void* a_part, void* nf_part, void* gram, void* cross,
+                                   void* a_inc, void* nf, int64_t m, int64_t d, int64_t nb,
+                                   int64_t device, void* stream) {
+  const Sweep w{g, B, delta, B_new, static_cast<float*>(gram_part),
+                static_cast<float*>(cross_part), static_cast<float*>(a_part),
+                static_cast<int*>(nf_part), m, d, nb, runs};
+  if (sanitize)
+    return run<true, false>(dtype, w, gram, cross, a_inc, nf, rt::gen::Args{}, device, stream);
+  return run<false, false>(dtype, w, gram, cross, a_inc, nullptr, rt::gen::Args{}, device,
+                           stream);
 }
 
 // The generating variant: as rt_fused_guard with no g; instead the
@@ -487,6 +549,6 @@ extern "C" int rt_fused_guard_gen(int64_t dtype, const void* B, const void* delt
                          static_cast<float*>(moments)};
   const Sweep w{nullptr, B, delta, B_new, static_cast<float*>(gram_part),
                 static_cast<float*>(cross_part), static_cast<float*>(a_part), nullptr, m, d,
-                nb};
+                nb, 1};
   return run<false, true>(dtype, w, gram, cross, a_inc, nullptr, ga, device, stream);
 }

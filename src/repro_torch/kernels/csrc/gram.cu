@@ -48,6 +48,12 @@
 // with zero-filled tails and no padded copy; offsets are int64 (m·d may
 // pass 2^31).  Rows whose length is not a multiple of 16 bytes (or an
 // unaligned X) are copied by plain loads instead of cp.async.
+//
+// The run axis (entry rt_gram_runs): the R runs of a campaign group in one
+// launch, X (R, m, d), G (R, m, m).  Grid x is run · nt + ti; each run
+// reads its own X, writes its own partials (an R axis in front of the
+// scratch) and sums them in the one-run order, so with the nb of a one-run
+// launch each G is that launch's bits; R = 1 is rt_gram.
 
 #include <type_traits>
 
@@ -170,9 +176,12 @@ __device__ __forceinline__ void compute_f32(float acc[8][4], const unsigned char
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(NT, 2)
 gram_kernel(const T* __restrict__ x, float* __restrict__ part, int64_t m, int64_t d,
-            int64_t mp, int ops) {
+            int64_t mp, int64_t nt, int ops) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ti = blockIdx.x, tj = blockIdx.y;
+  const int ti = (int)(blockIdx.x % nt), tj = blockIdx.y;
+  const int64_t run_idx = blockIdx.x / nt;
+  x += run_idx * m * d;
+  part += run_idx * gridDim.z * mp * mp;
   if (ti > tj) return;  // G is symmetric: the pair (tj, ti) gives this tile
   const bool diag = ti == tj;
   constexpr bool BF16 = sizeof(T) == 2;
@@ -296,25 +305,26 @@ gram_kernel(const T* __restrict__ x, float* __restrict__ part, int64_t m, int64_
 // G[i][j] and G[j][i] both read the partials' (min, max) entry.
 __global__ void __launch_bounds__(256)
 gram_reduce_kernel(const float* __restrict__ part, float* __restrict__ gram, int64_t m,
-                   int64_t mp, int64_t nb) {
+                   int64_t mp, int64_t nb, int64_t runs) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t o = t >> 5;
+  const int64_t o = t >> 5;  // output o % m² of run o / m²
   const int l = (int)(t & 31);
-  const int64_t i = o / m, j = o % m;
-  const int64_t off = (i < j ? i : j) * mp + (i < j ? j : i);
+  const int64_t run = o / (m * m), ij = o % (m * m);
+  const int64_t i = ij / m, j = ij % m;
+  const int64_t off = run * nb * mp * mp + (i < j ? i : j) * mp + (i < j ? j : i);
   float s = 0.f;
-  if (o < m * m) {
+  if (run < runs) {
 #pragma unroll 4
     for (int64_t b = l; b < nb; b += 32) s += part[b * mp * mp + off];
   }
 #pragma unroll
   for (int k = 16; k > 0; k >>= 1) s += __shfl_down_sync(0xffffffffu, s, k);
-  if (o < m * m && l == 0) gram[o] = s;
+  if (run < runs && l == 0) gram[o] = s;
 }
 
 template <typename T, bool VEC>
 cudaError_t launch_one(const T* x, float* part, int64_t m, int64_t d, int64_t nb, int64_t nt,
-                       cudaStream_t stream) {
+                       int64_t runs, cudaStream_t stream) {
   const int ops = nt > 1 ? 2 : 1;
   const size_t bytes = (size_t)STAGES * ops * OPERAND_BYTES + RUN_BYTES;
   // the largest ring this kernel takes, allowed once per device (above the
@@ -329,19 +339,43 @@ cudaError_t launch_one(const T* x, float* part, int64_t m, int64_t d, int64_t nb
     if (err != cudaSuccess) return err;
     allowed |= 1ull << device;
   }
-  const dim3 grid((unsigned)nt, (unsigned)nt, (unsigned)nb);
-  gram_kernel<T, VEC><<<grid, NT, bytes, stream>>>(x, part, m, d, nt * MT, ops);
+  const dim3 grid((unsigned)(nt * runs), (unsigned)nt, (unsigned)nb);
+  gram_kernel<T, VEC><<<grid, NT, bytes, stream>>>(x, part, m, d, nt * MT, nt, ops);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* x, float* part, int64_t m, int64_t d, int64_t nb,
-                   cudaStream_t stream) {
+                   int64_t runs, cudaStream_t stream) {
   const int64_t nt = (m + MT - 1) / MT;
+  // every run's rows share the first run's alignment when d·e % 16 == 0
   const bool vec = (d * (int64_t)sizeof(T)) % 16 == 0 && rt::aligned(x, 16);
   const T* xt = static_cast<const T*>(x);
-  return vec ? launch_one<T, true>(xt, part, m, d, nb, nt, stream)
-             : launch_one<T, false>(xt, part, m, d, nb, nt, stream);
+  return vec ? launch_one<T, true>(xt, part, m, d, nb, nt, runs, stream)
+             : launch_one<T, false>(xt, part, m, d, nb, nt, runs, stream);
+}
+
+int run_gram(int64_t dtype, int64_t runs, const void* x, void* part, void* gram, int64_t m,
+             int64_t d, int64_t nb, int64_t device, void* stream) {
+  if (m < 1 || m > rt::MAX_WORKERS || d < 1 || nb < 1 || nb > 65535 || runs < 1 ||
+      ((m + MT - 1) / MT) * runs > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice((int)device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  if (dtype == 0)
+    err = launch<float>(x, p, m, d, nb, runs, s);
+  else if (dtype == 1)
+    err = launch<__nv_bfloat16>(x, p, m, d, nb, runs, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  const int64_t mp = ((m + MT - 1) / MT) * MT;
+  const int64_t threads = 32 * m * m * runs;
+  gram_reduce_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
+      p, static_cast<float*>(gram), m, mp, nb, runs);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -351,22 +385,13 @@ cudaError_t launch(const void* x, float* part, int64_t m, int64_t d, int64_t nb,
 // Returns 0 or the CUDA error of the first launch that failed.
 extern "C" int rt_gram(int64_t dtype, const void* x, void* part, void* gram, int64_t m,
                        int64_t d, int64_t nb, int64_t device, void* stream) {
-  if (m < 1 || m > rt::MAX_WORKERS || d < 1 || nb < 1 || nb > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice((int)device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(part);
-  if (dtype == 0)
-    err = launch<float>(x, p, m, d, nb, s);
-  else if (dtype == 1)
-    err = launch<__nv_bfloat16>(x, p, m, d, nb, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  if (err != cudaSuccess) return (int)err;
-  const int64_t mp = ((m + MT - 1) / MT) * MT;
-  const int64_t threads = 32 * m * m;
-  gram_reduce_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
-      p, static_cast<float*>(gram), m, mp, nb);
-  return cudaGetLastError();
+  return run_gram(dtype, 1, x, part, gram, m, d, nb, device, stream);
+}
+
+// The run axis: x (runs, m, d), part (runs, nb, mp, mp), gram (runs, m, m),
+// one launch.  runs = 1 is rt_gram.
+extern "C" int rt_gram_runs(int64_t dtype, int64_t runs, const void* x, void* part,
+                            void* gram, int64_t m, int64_t d, int64_t nb, int64_t device,
+                            void* stream) {
+  return run_gram(dtype, runs, x, part, gram, m, d, nb, device, stream);
 }

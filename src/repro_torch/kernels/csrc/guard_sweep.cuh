@@ -140,8 +140,21 @@ guard_bf16_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __re
                   const __nv_bfloat16* __restrict__ delta, __nv_bfloat16* __restrict__ B_new,
                   float* __restrict__ gram_part, float* __restrict__ cross_part,
                   float* __restrict__ a_part, int* __restrict__ nf_part, int64_t m, int64_t d,
-                  int64_t mp, int ops, gen::Args ga) {
+                  int64_t mp, int64_t nb, int ops, gen::Args ga) {
   static_assert(!(SAN && GEN), "the generating sweep has no sanitizing variant");
+  // grid x is run · nb + split (fused_guard.cu's run axis): run r's
+  // operands, partials and outputs lie r strides past the first run's
+  const int64_t run = blockIdx.x / nb, split = blockIdx.x % nb;
+  if (run) {
+    g += run * m * d;
+    B += run * m * d;
+    B_new += run * m * d;
+    delta += run * d;
+    gram_part += run * nb * mp * mp;
+    cross_part += run * nb * mp * mp;
+    a_part += run * nb * mp;
+    if constexpr (SAN) nf_part += run * nb * mp;
+  }
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ gen::Row srow[GEN ? 2 * MT : 1];
   // GEN: per ring slot, "g written" (NG arrivals) then "slot read" (NC)
@@ -149,7 +162,6 @@ guard_bf16_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __re
   const int tid = threadIdx.x;
   const int ti = blockIdx.y, tj = blockIdx.z;
   const bool diag = ti == tj;  // this block also writes B_new, a_inc (and nf) of tile ti
-  const int64_t nb = gridDim.x, split = blockIdx.x;
   const int64_t n_tiles = (d + bf::TK - 1) / bf::TK;
   const int64_t cnt = split < n_tiles ? (n_tiles - 1 - split) / nb + 1 : 0;
   const int sbytes = bf::stage_bytes(ops);

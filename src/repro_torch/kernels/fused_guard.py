@@ -163,6 +163,65 @@ def fused_guard_cuda(grads: torch.Tensor, B: torch.Tensor, delta: torch.Tensor,
 fused_guard_cuda.launches = 0
 fused_guard_cuda.launches_sanitize = 0
 
+_RUNS_ARGTYPES = ([ctypes.c_int64] * 3 + [ctypes.c_void_p] * 12
+                  + [ctypes.c_int64] * 4 + [ctypes.c_void_p])
+
+
+def check_runs(name: str, x: torch.Tensor, others: dict) -> int:
+    """Raise unless ``x`` is (R, m, d) with R >= 1 and every tensor of
+    ``others`` (name → (tensor, expected shape)) has its shape; returns R."""
+    if x.dim() != 3 or x.shape[0] < 1:
+        raise ValueError(f"{name}: expected (runs, m, d), got shape {tuple(x.shape)}")
+    for k, (t, shape) in others.items():
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {k} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    return x.shape[0]
+
+
+def fused_guard_runs_cuda(grads: torch.Tensor, B: torch.Tensor, delta: torch.Tensor,
+                          sanitize: bool = False):
+    """:func:`fused_guard_cuda` over a leading run axis, in one launch:
+    grads and B (R, m, d), delta (R, d) → gram_g, cross (R, m, m), a_inc
+    (R, m), B_new (R, m, d) [, nf (R, m)].  Run r's outputs are the bits of
+    ``fused_guard_cuda(grads[r], B[r], delta[r])``: the d-split count is a
+    one-run launch's and each run sums its partials in that order.  Counts
+    one launch, in ``fused_guard_cuda.launches`` (or ``_sanitize``)."""
+    dev = check_cuda_inputs("fused_guard", {"grads": grads, "B": B, "delta": delta},
+                            tuple(_DTYPE_CODES))
+    R = check_runs("fused_guard", grads, {"B": (B, grads.shape),
+                                          "delta": (delta, (grads.shape[0], grads.shape[2]))})
+    if not grads.dtype == B.dtype == delta.dtype:
+        raise TypeError("fused_guard: grads, B and delta must share a dtype")
+    _, m, d = grads.shape
+    check_workers("fused_guard", m)
+    if d < 1:
+        raise ValueError(f"fused_guard: needs d >= 1, got d={d}")
+    nt = -(-m // _TILE)
+    mp = _TILE * nt
+    nb = d_splits(-(-d // _SWEEP_TILE[B.dtype]), nt * nt, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    parts = torch.empty((2, R, nb, mp, mp), **f32)
+    a_part = torch.empty((R, nb, mp), **f32)
+    gram_g, cross = torch.empty((R, m, m), **f32), torch.empty((R, m, m), **f32)
+    a_inc, B_new = torch.empty((R, m), **f32), torch.empty_like(B)
+    nf_part = nf = None
+    if sanitize:
+        nf_part = torch.empty((R, nb, mp), dtype=torch.int32, device=dev)
+        nf = torch.empty((R, m), dtype=torch.int32, device=dev)
+    fn = _build.load_function("fused_guard", "rt_fused_guard_runs", _RUNS_ARGTYPES)
+    ptrs = [grads, B, delta, B_new, parts[0], parts[1], a_part, nf_part, gram_g, cross, a_inc,
+            nf]
+    rc = fn(_DTYPE_CODES[grads.dtype], R, int(bool(sanitize)),
+            *(None if t is None else t.data_ptr() for t in ptrs),
+            m, d, nb, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_guard: kernel launch failed with CUDA error {rc}")
+    if sanitize:
+        fused_guard_cuda.launches_sanitize += 1
+        return gram_g, cross, a_inc, B_new, nf
+    fused_guard_cuda.launches += 1
+    return gram_g, cross, a_inc, B_new
+
 
 def _gen_operands(name: str, dev: torch.device, m: int, d: int, x, h, x_star, het_dir,
                   keys, skewsign, slot, params) -> list[torch.Tensor]:

@@ -100,8 +100,10 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
     23 bits as the mantissa of a float in [1, 2), minus 1, scaled and
     shifted in f32, and held at or above ``minval``."""
-    mant = (_bits(key, shape) >> 9) | 0x3F800000
-    floats = mant.to(torch.int32).view(torch.float32) - 1.0
+    # the float with those 23 mantissa bits in [1, 2), minus 1, is k·2⁻²³
+    # for the 23-bit k: exact in f32 either way, and a product where a bit
+    # view would be (vmap has no rule for a dtype view in every torch)
+    floats = (_bits(key, shape) >> 9).to(torch.float32) * (2.0 ** -23)
     lo = torch.full((), minval, dtype=torch.float32, device=key.device)
     hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)

@@ -14,9 +14,12 @@ rotate by ``churn_stride`` every ``churn_period`` steps (see
 The fields are host scalars: ids and steps Python ints, fractions and
 magnitudes numpy f32 as the JAX scenario's f32 leaves, so every schedule
 is decided on the host and a step never waits for the device.  The JAX
-package stacks scenarios into one ``jit(vmap)``; the port runs one
-scenario per run.  ``CampaignGrid`` and ``expand_grid`` are not ported
-yet.
+package stacks scenarios into one ``jit(vmap)``; the port's
+:class:`CampaignGrid` (:func:`expand_grid`) keeps each row's scenario, α
+and fault plan on the host and stacks what is a tensor (the seeds and the
+profiles' leaves), and the campaign runner maps one ``run_sgd`` over each
+group of rows that share the host decisions
+(:mod:`repro_torch.scenarios.campaign`).
 
 A :class:`WorkerProfile` parameterizes the honest side of a run, per
 worker: data skew, a staleness period and a reporting probability.  Its
@@ -25,7 +28,8 @@ reporting masks are device ops that need no copy from the host.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -179,3 +183,123 @@ def scenario_adaptive(attack: str, adapt_rate: float = 0.5,
                       attack_scale: float = 1.0) -> Scenario:
     """Multiplicative-weights magnitude driven by the filter's feedback."""
     return make_scenario(attack, adapt_rate=adapt_rate, attack_scale=attack_scale)
+
+
+class GridEntry(NamedTuple):
+    """Row metadata of one campaign run, for reports (as the JAX
+    ``GridEntry``)."""
+
+    scenario: str
+    alpha: float
+    seed: int
+    profile: str = "iid"
+    skew: float = 0.0
+    max_delay: int = 0
+    participation: float = 1.0
+    fault: str = "none"
+    fault_frac: float = 0.0
+
+
+@dataclasses.dataclass(init=False)
+class CampaignGrid:
+    """A cartesian product of (scenario × α × seed × profile × fault) runs,
+    N = ``n_runs`` rows.
+
+    ``scenarios`` and ``faults`` hold each row's host record, ``alpha``
+    each row's α (an (N,) f32 array): the host decisions a run is built
+    from.  ``seeds`` is an (N,) int32 tensor and ``profiles`` a
+    :class:`WorkerProfile` whose leaves are (N, m) tensors on the run's
+    device, or None for a homogeneous grid; ``faults`` is None for a
+    fault-free grid.  ``rows`` keeps one :class:`GridEntry` a run."""
+
+    scenarios: tuple
+    alpha: np.ndarray
+    seeds: torch.Tensor
+    rows: tuple
+    profiles: WorkerProfile | None = None
+    faults: tuple | None = None
+
+    def __init__(self, scenarios, alpha, seeds, entries, profiles=None, faults=None):
+        self.scenarios = tuple(scenarios)
+        self.alpha = np.asarray(alpha, np.float32)
+        self.seeds = torch.as_tensor(seeds, dtype=torch.int32)
+        self.rows = tuple(e if isinstance(e, GridEntry) else GridEntry(**e) for e in entries)
+        self.profiles = profiles
+        self.faults = None if faults is None else tuple(faults)
+
+    @property
+    def entries(self) -> list[dict]:
+        """The rows as dicts."""
+        return [e._asdict() for e in self.rows]
+
+    @property
+    def n_runs(self) -> int:
+        return len(self.rows)
+
+
+def _structure(tree) -> str:
+    return f"{type(tree).__name__}{getattr(tree, '_fields', ())}"
+
+
+def _stack_axis(axis: str, trees):
+    """One grid axis' per-run records, checked to share one structure and
+    one shape per leaf (naming the axis and the member that differs, as
+    the JAX package does); records of tensors come back stacked along a
+    new leading axis, host records as a tuple."""
+    t0 = trees[0]
+    if all(tree is None for tree in trees):
+        return None
+    for i, tree in enumerate(trees[1:], start=1):
+        if _structure(tree) != _structure(t0):
+            raise ValueError(
+                f"expand_grid: axis {axis!r} member {i} has structure {_structure(tree)}, but "
+                f"member 0 has {_structure(t0)} — every member of a grid axis must share one "
+                f"structure")
+        for field in t0._fields:
+            shape0 = tuple(np.shape(getattr(t0, field)))
+            shape = tuple(np.shape(getattr(tree, field)))
+            if shape != shape0:
+                raise ValueError(
+                    f"expand_grid: axis {axis!r} stacks disagree in leading shape: member {i} "
+                    f"leaf {'.' + field!r} has shape {shape}, but member 0 has {shape0} (e.g. "
+                    f"WorkerProfiles built for different m)")
+    if any(isinstance(leaf, torch.Tensor) for leaf in t0):
+        return type(t0)(*(torch.stack(leaves) for leaves in zip(*trees)))
+    return tuple(trees)
+
+
+def expand_grid(named_scenarios: Sequence[tuple[str, Scenario]], alphas: Sequence[float],
+                seeds: Sequence[int],
+                profiles: Sequence[tuple[str, WorkerProfile]] | None = None,
+                faults: Sequence[tuple[str, object]] | None = None) -> CampaignGrid:
+    """Cartesian product (scenario × α × seed [× profile] [× fault]) → one
+    grid, rows in the JAX package's order.  ``profiles`` is an optional
+    named axis of :class:`WorkerProfile` values (each row records the
+    profile's knobs); ``faults`` an optional named axis of
+    :class:`~repro_torch.scenarios.faults.FaultPlan` values, where a None
+    member is the inert plan ``fault_none()``."""
+    from repro_torch.scenarios import faults as faults_mod
+
+    prof_axis = profiles if profiles is not None else [("iid", None)]
+    fault_axis = ([(n, p if p is not None else faults_mod.fault_none()) for n, p in faults]
+                  if faults is not None else [("none", None)])
+    rows, entries, profs, plans = [], [], [], []
+    for name, scn in named_scenarios:
+        for alpha in alphas:
+            for seed in seeds:
+                for pname, prof in prof_axis:
+                    for fname, plan in fault_axis:
+                        rows.append((scn, float(alpha), int(seed)))
+                        profs.append(prof)
+                        plans.append(plan)
+                        entries.append(GridEntry(
+                            scenario=name, alpha=float(alpha), seed=int(seed), profile=pname,
+                            **profile_knobs(prof), **faults_mod.fault_knobs(plan)))
+    if not rows:
+        raise ValueError("empty grid")
+    stacked = _stack_axis("scenarios", [r[0] for r in rows])
+    alpha = np.asarray([r[1] for r in rows], np.float32)
+    seed = torch.tensor([r[2] for r in rows], dtype=torch.int32)
+    stacked_prof = _stack_axis("profiles", profs) if profiles is not None else None
+    stacked_fault = _stack_axis("faults", plans) if faults is not None else None
+    return CampaignGrid(stacked, alpha, seed, entries, stacked_prof, stacked_fault)

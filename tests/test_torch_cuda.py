@@ -42,6 +42,15 @@ Order statistics: every m of the register path (1 to 32) at odd and even
 d, f32 and bf16 (packed pairs), with one NaN in each row position in turn.
 The network the kernels unroll is held to its Python mirror in
 ``tests/test_torch_sortnet.py``.
+
+The run axis (a campaign group's R runs in one launch): ``fused_guard``
+and ``filtered_mean`` (plain and sanitizing, f32 and bf16) and ``gram`` at
+R ∈ {1, 3, 4} bit-equal to R launches alone and within the tolerances
+above of their plain versions; the folded median, trimmed mean and
+``countsketch`` bit-equal to per-run calls; ``ops`` under
+``torch.func.vmap`` launches each kernel once (an operand the runs share
+is expanded), never reaches a plain version, and the generating kernels
+raise; a campaign's rows on the card decide as their runs alone.
 """
 import pytest
 import torch
@@ -671,3 +680,161 @@ def test_quadratic_run_on_the_card_matches_the_cpu(cuda_device, aggregator):
     assert torch.equal(got.n_alive.cpu(), want.n_alive)
     assert torch.equal(got.final_alive.cpu(), want.final_alive)
     _within(got.x_avg.cpu(), want.x_avg, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the run axis: one launch for a campaign group's R runs
+# ---------------------------------------------------------------------------
+
+RUN_SHAPES = [(17, 555), (32, 2048), (33, 1000)]
+
+
+def _runs_operands(R: int, m: int, d: int, tdt, dev, seed: int):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(R, m, d, device=dev, generator=gen).to(tdt)
+    B = (3 * torch.randn(R, m, d, device=dev, generator=gen)).to(tdt)
+    dlt = torch.randn(R, d, device=dev, generator=gen).to(tdt)
+    w = (torch.rand(R, m, device=dev, generator=gen) > 0.3).float()
+    return g, B, dlt, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 3, 4])
+@pytest.mark.parametrize("m,d", RUN_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("sanitize", [False, True])
+def test_batched_guard_kernels_equal_their_runs_alone(cuda_device, R, m, d, dt, sanitize):
+    from repro_torch.kernels.fused_guard import fused_guard_runs_cuda
+    from repro_torch.kernels.robust_reduce import filtered_mean_runs_cuda
+
+    tdt, tol = DTYPES[dt]
+    g, B, dlt, w = _runs_operands(R, m, d, tdt, cuda_device, R * 7919 + m * 31 + d)
+    if sanitize:
+        g = torch.stack([poison(row) for row in g])
+    counter = "launches_sanitize" if sanitize else "launches"
+    before = (getattr(fused_guard_cuda, counter), getattr(filtered_mean_cuda, counter))
+    got = fused_guard_runs_cuda(g, B, dlt, sanitize=sanitize)
+    xi = filtered_mean_runs_cuda(g, w, 3.0, sanitize=sanitize)
+    assert (getattr(fused_guard_cuda, counter), getattr(filtered_mean_cuda, counter)) == (
+        before[0] + 1, before[1] + 1)
+    plain_guard = ref.fused_guard_sanitize_ref if sanitize else ref.fused_guard_ref
+    plain_xi = ref.filtered_mean_sanitize_ref if sanitize else ref.filtered_mean_ref
+    for r in range(R):
+        alone = fused_guard_cuda(g[r], B[r], dlt[r], sanitize=sanitize)
+        for a, b in zip(got, alone):
+            assert torch.equal(a[r], b)
+        assert torch.equal(xi[r], filtered_mean_cuda(g[r], w[r], 3.0, sanitize=sanitize))
+        want = plain_guard(g[r], B[r], dlt[r])
+        assert torch.equal(got[3][r], want[3])
+        if sanitize:
+            assert torch.equal(got[4][r], want[4])
+        for a, b in zip(got[:3], want[:3]):
+            _within(a[r], b, tol)
+        _within(xi[r], plain_xi(g[r], w[r], 3.0), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 3, 4])
+@pytest.mark.parametrize("m,d", RUN_SHAPES)
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_batched_gram_and_folded_kernels_equal_their_runs_alone(cuda_device, R, m, d, dt):
+    from repro_torch.kernels.countsketch import countsketch_runs_cuda
+    from repro_torch.kernels.pairdist import gram_runs_cuda
+    from repro_torch.kernels.robust_reduce import (
+        coordinate_median_runs_cuda,
+        trimmed_mean_runs_cuda,
+    )
+
+    tdt, tol = DTYPES[dt]
+    x = _runs_operands(R, m, d, tdt, cuda_device, R * 104729 + m * 31 + d)[0]
+    before = gram_cuda.launches
+    G = gram_runs_cuda(x)
+    assert gram_cuda.launches == before + 1
+    med = coordinate_median_runs_cuda(x)
+    trim = trimmed_mean_runs_cuda(x, 2)
+    sk = countsketch_runs_cuda(x, 64, 3)
+    for r in range(R):
+        assert torch.equal(G[r], gram_cuda(x[r]))
+        _within(G[r], ref.gram_ref(x[r]), tol)
+        assert torch.equal(med[r], coordinate_median_cuda(x[r]))
+        assert torch.equal(trim[r], trimmed_mean_cuda(x[r], 2))
+        assert torch.equal(sk[r], countsketch_cuda(x[r], 64, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_ops_under_vmap_launch_once_and_never_reach_a_plain_version(cuda_device, dt,
+                                                                    monkeypatch):
+    from torch.func import vmap
+
+    tdt, _ = DTYPES[dt]
+    R, m, d = 3, 17, 555
+    g, B, dlt, w = _runs_operands(R, m, d, tdt, cuda_device, 11)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor under vmap reached a plain version")
+
+    for name in ("fused_guard_ref", "fused_guard_sanitize_ref", "filtered_mean_ref",
+                 "filtered_mean_sanitize_ref", "gram_ref", "coordinate_median_ref",
+                 "trimmed_mean_ref", "countsketch_ref"):
+        monkeypatch.setattr(ref, name, refuse)
+    counters = [(fused_guard_cuda, "launches"), (fused_guard_cuda, "launches_sanitize"),
+                (filtered_mean_cuda, "launches"), (filtered_mean_cuda, "launches_sanitize"),
+                (gram_cuda, "launches"), (coordinate_median_cuda, "launches"),
+                (trimmed_mean_cuda, "launches"), (countsketch_cuda, "launches")]
+    before = [getattr(f, c) for f, c in counters]
+
+    def step(g, B, dlt, w):
+        out = ops.fused_guard(g, B, dlt)
+        san = ops.fused_guard(g, B, dlt, sanitize=True)
+        return (*out, *san, ops.filtered_mean(g, w, 1.0), ops.filtered_mean(g, w, 1.0, True),
+                ops.gram(g), ops.coordinate_median(g), ops.trimmed_mean(g, 2),
+                ops.countsketch(g, 64, 1))
+
+    got = vmap(step)(g, B, dlt, w)
+    assert [getattr(f, c) - b for (f, c), b in zip(counters, before)] == [1] * len(counters)
+    for r in range(R):
+        want = (*fused_guard_cuda(g[r], B[r], dlt[r]),
+                *fused_guard_cuda(g[r], B[r], dlt[r], sanitize=True),
+                filtered_mean_cuda(g[r], w[r], 1.0), filtered_mean_cuda(g[r], w[r], 1.0, True),
+                gram_cuda(g[r]), coordinate_median_cuda(g[r]), trimmed_mean_cuda(g[r], 2),
+                countsketch_cuda(g[r], 64, 1))
+        for a, b in zip(got, want):
+            assert torch.equal(a[r], b)
+    # an operand the runs share is expanded, not refused
+    shared = vmap(lambda g: ops.fused_guard(g, B[0], dlt[0]))(g)
+    for r in range(R):
+        for a, b in zip(shared, fused_guard_cuda(g[r], B[0], dlt[0])):
+            assert torch.equal(a[r], b)
+    operands = gen_operands(m, d, 1, cuda_device)
+    with pytest.raises(NotImplementedError, match="no run axis"):
+        vmap(lambda B: ops.fused_guard_gen(B, dlt[0], *operands))(B)
+
+
+@pytest.mark.cuda
+def test_campaign_rows_on_the_card_equal_their_runs_alone(cuda_device):
+    from repro_torch.scenarios import expand_grid, run_campaign, scenario_churn
+
+    prob = make_quadratic_problem(d=16, sigma=1.0, L=8.0, V=1.0, seed=0, device=cuda_device)
+    cfg = SolverConfig(m=16, T=30, eta=0.05, alpha=0.25)
+    grid = expand_grid([("sign_flip", scenario_static("sign_flip")),
+                        ("churn", scenario_churn("sign_flip", 10, 2))], [0.25], range(3))
+    aggs = ["krum", "coordinate_median", "byzantine_sgd@fused", "byzantine_sgd@fused@bf16",
+            "byzantine_sgd@dense", "byzantine_sgd@dp_sketch"]
+    before = fused_guard_cuda.launches
+    res = run_campaign(prob, cfg, grid, aggs, return_gaps=True, device=cuda_device)
+    # two groups (static, churn), two fused variants: T launches a group each
+    assert fused_guard_cuda.launches - before == 2 * 2 * cfg.T
+    assert res.memory["peak_bytes"] > 0
+    for name in aggs:
+        agg, _, be = name.partition("@")
+        be, _, sd = be.partition("@")
+        one = cfg._replace(aggregator=agg, guard_backend=be or "dense", stats_dtype=sd or "f32")
+        st = res.stats[name]
+        for i, e in enumerate(res.entries):
+            scn = grid.scenarios[i]
+            run = run_sgd(prob, one, prng.PRNGKey(e["seed"], device=cuda_device),
+                          adversary=ScenarioAdversary(scn, e["alpha"]), device=cuda_device)
+            assert int(st.n_alive_final[i]) == int(run.n_alive[-1]), (name, i)
+            assert bool(st.ever_filtered_good[i]) == bool(run.ever_filtered_good)
+            torch.testing.assert_close(st.gaps[i], run.gaps, rtol=1e-5, atol=1e-6)

@@ -36,7 +36,9 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
             "repro_torch.core.aggregators", "repro_torch.core.attacks",
             "repro_torch.scenarios.faults", "repro_torch.distributed.byzantine_dp",
             "repro_torch.kernels.countsketch", "repro_torch.scenarios.spec",
-            "repro_torch.scenarios.adversary"} <= set(mods)
+            "repro_torch.scenarios.adversary", "repro_torch.scenarios.campaign",
+            "repro_torch.scenarios.report", "repro_torch.obs.provenance",
+            "repro_torch.experiments.table1", "repro_torch.kernels.run_axis"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
