@@ -174,6 +174,38 @@ and then no result line is printed):
    and countsketch) against 4 launches alone, bit-equal, with the folding
    copy's time, and one batched bf16 fused_guard and filtered_mean launch
    with R·m·d > 2^31 against the plain versions (``B_new`` bit-equal);
+12c. gen_campaign_kernels — ``fused_guard_gen`` (f32, bf16 sweeps) and
+   ``gen_xi`` (f32 and bf16 statistics, reading the batched sweep's
+   moments) over a run axis at R = 4, m = 32, d = 2^20, on the main
+   path's step-0 operands of seeds 0–3 under sign_flip and ALIE: each
+   run's outputs (and, under ALIE, moments) bit-equal to its own one-run
+   launch, the batched ms against 4 launches; one bf16 launch with R·m·d
+   > 2^31 (d = 2^24 + 3) bit-equal to its runs' own launches;
+   campaign_gen_main_path — campaign_main_path's grid with the ``gen`` and
+   ``gen@bf16`` variants: ``fused_guard_gen`` and ``gen_xi`` launched
+   exactly T times a group and no materialising guard kernel, every row
+   deciding as the ``fused`` (``fused@bf16``) row with ``gap_final``
+   within 1e-6, the peak memory below the materialising variant's by at
+   least R × the (m, d) f32 batch, ms a batched step against R × one
+   generating step alone; then the kernels line's run-axis entries
+   (R = 4 runs against the plain versions within tol);
+12d. telemetry — ``run_sgd`` at the main path's shape (T = 32, the Gram
+   re-derived every 16 steps) with the flight recorder armed against off,
+   for fused@f32, fused@bf16, gen, dense, krum, dp_sketch and fused under
+   ``sanitize="quarantine"``: bits and launch counts equal, ``gram_drift``
+   finite at the resync steps and NaN between (0 at every step on dense,
+   NaN on the others), ms a step armed against off; the same runs armed on
+   the card and on the CPU at d = 4099, m = 8, T = 70 (``alive``,
+   ``n_alive``, ``step`` and the first-filter and survival series equal,
+   the rest within tol); one armed campaign (fused and gen, d = 2^16)
+   through ``campaign_trace_events`` into an ``EventLog``, its JSONL and
+   Chrome trace written under ``build/telemetry/`` and read back; the
+   guard step alone (fused, dense, gen at f32 and bf16) against
+   guard_cost's H100 bytes figure (``roofline_rows``);
+12e. bitflip_campaign — a campaign with a ``bitflip`` fault axis on the
+   card's torch (sanitize on, m = 32, d = 4099, T = 16): every row decides
+   as its run alone, and the flip under ``vmap`` is bit-equal to each
+   run's own;
 13. the convex harness, after every phase above.  ``convex_step_alone``:
    with nothing else on the card or the host, 200 steps of each of
    mean, krum, coordinate_median, the dense, fused and dp_sketch guards
@@ -222,7 +254,9 @@ and then no result line is printed):
    α = 0, 0.125 and 0.375, backend and m sections at TABLE1_OTHER_T
    (``T_reduced_from`` 4000); each part's kernels launched T times, once
    a step for its group;
-17. the kernels line (20 entries), the card line and the result line.
+17. the script's total seconds, the kernels line (24 entries: twelve
+   kernels, the generating two over a run axis among them, × f32/bf16),
+   the card line and the result line.
 """
 from __future__ import annotations
 
@@ -280,7 +314,13 @@ from repro_torch.kernels.robust_reduce import (  # noqa: E402
 )
 from repro_torch.experiments import table1  # noqa: E402
 from repro_torch.kernels.countsketch import countsketch_runs_cuda  # noqa: E402
-from repro_torch.kernels.fused_guard import fused_guard_runs_cuda  # noqa: E402
+from repro_torch.kernels.fused_guard import (  # noqa: E402
+    fused_guard_gen_runs_cuda,
+    fused_guard_runs_cuda,
+    gen_xi_runs_cuda,
+)
+from repro_torch.obs import EventLog, TelemetryConfig, ring_read, roofline_rows  # noqa: E402
+from repro_torch.roofline import guard_cost  # noqa: E402
 from repro_torch.kernels.pairdist import gram_runs_cuda  # noqa: E402
 from repro_torch.kernels.robust_reduce import (  # noqa: E402
     coordinate_median_runs_cuda,
@@ -333,6 +373,12 @@ KERNELS = {
                         "src/repro/kernels/fused_guard.py:256"),
     "gen_xi": ("src/repro_torch/kernels/csrc/filtered_mean.cu",
                "src/repro/kernels/fused_guard.py:349"),
+    # the same two kernels over a campaign group's run axis (what vmap of
+    # the Pallas calls computes): rt_fused_guard_gen_runs, rt_gen_xi_runs
+    "fused_guard_gen_runs": ("src/repro_torch/kernels/csrc/fused_guard.cu",
+                             "src/repro/kernels/fused_guard.py:256"),
+    "gen_xi_runs": ("src/repro_torch/kernels/csrc/filtered_mean.cu",
+                    "src/repro/kernels/fused_guard.py:349"),
 }
 # The bf16 guard sweep (plain, sanitizing, generating) is a kernel of the
 # header that csrc/fused_guard.cu includes.
@@ -358,7 +404,8 @@ RECORDED_BEFORE_ALIE_MS = {("fused_guard_gen", "f32"): 0.6209,
 
 def source_of(name: str, dt: str) -> str:
     """The file that holds the kernel of ``name`` at ``dt``."""
-    if name in ("fused_guard", "fused_guard_sanitize", "fused_guard_gen") and dt == "bf16":
+    if (name in ("fused_guard", "fused_guard_sanitize", "fused_guard_gen", "fused_guard_gen_runs")
+            and dt == "bf16"):
         return SWEEP_HEADER
     return KERNELS[name][0]
 
@@ -1187,12 +1234,12 @@ def gen_operands(m: int, d: int, aid: int, dev, seed: int = 0) -> list:
     return [x, h, x_star, het_dir, keys, skewsign, slot, params]
 
 
-def main_gen_operands(attack: str, dev) -> list:
+def main_gen_operands(attack: str, dev, seed: int = 0) -> list:
     """The operands the main path hands the generating kernels at step 0
-    under ``scenario_static(attack)``, α = 0.25."""
+    under ``scenario_static(attack)``, α = 0.25, from ``PRNGKey(seed)``."""
     problem = make_generated_problem(d=D, seed=0, device=dev)
     adv = ScenarioAdversary(scenario_static(attack), 0.25)
-    key, mask_key = prng.split(prng.PRNGKey(0, device=dev))
+    key, mask_key = prng.split(prng.PRNGKey(seed, device=dev))
     mask = adv.mask_at(byz_rank(mask_key, M), 0)
     gkey = prng.split(key, 3)[1]
     x = problem.x1
@@ -1299,7 +1346,7 @@ def check_gen_kernels(dev, errs: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def profiled_run(problem, cfg, adv, dev) -> tuple:
+def profiled_run(problem, cfg, adv, dev, telemetry=None) -> tuple:
     """One ``run_sgd``: (result, ms/step, launch counts, peak bytes), the
     counts set to 0 just before and read just after."""
     torch.cuda.synchronize()
@@ -1307,7 +1354,7 @@ def profiled_run(problem, cfg, adv, dev) -> tuple:
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     t0 = time.perf_counter()
-    res = run_sgd(problem, cfg, prng.PRNGKey(0), adversary=adv, device=dev)
+    res = run_sgd(problem, cfg, prng.PRNGKey(0), adversary=adv, telemetry=telemetry, device=dev)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     return res, 1e3 * seconds / cfg.T, read_counts(), torch.cuda.max_memory_allocated(dev)
@@ -1976,41 +2023,45 @@ def max_sm_clock_hz() -> float:
     return 1e6 * float(out.stdout.strip().splitlines()[0])
 
 
-def gen_bounds(dev) -> dict:
+def gen_bounds(dev, runs: int = 1) -> dict:
     """The bounds of the two generating kernels at the main path's shape
-    under sign_flip (no moments pass: this run's data needs none): the
-    larger of the bytes over the HBM rate and the operations over their
-    rate, the integer operations at 64 a clock per SM (SM count from
+    under sign_flip (no moments pass: this run's data needs none), for one
+    launch over ``runs`` runs (each with its own x, keys, slots, skews and
+    parameters; h, x* and het_dir read once for all): the larger of the
+    bytes over the HBM rate and the operations over their rate, the
+    integer operations at 64 a clock per SM (SM count from
     ``torch.cuda.get_device_properties``, maximum SM clock from
     ``nvidia-smi``), the float operations at their type's peak."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock = max_sm_clock_hz()
     int_rate = sms * INT_OPS_PER_CLOCK_PER_SM * clock
-    vec_bytes = 4 * D * 4 + M * (2 + 1 + 1) * 4 + gradgen.GEN_NPARAMS * 4
-    int_ops = GEN_INT_OPS * M * D
+    R = runs
+    vec_bytes = (R + 3) * D * 4 + R * (M * (2 + 1 + 1) + gradgen.GEN_NPARAMS) * 4
+    int_ops = GEN_INT_OPS * R * M * D
+    suffix = "" if R == 1 else "_runs"
     out = {}
     for dt in ("f32", "bf16"):
         e = torch.tensor([], dtype=DTYPES[dt]).element_size()
         # B read and B_new written in the stats dtype, δ, the generator's
         # operands, both Grams and A; the Grams, A and B + g as in
         # fused_guard, plus the generator's float work
-        fg_bytes = 2 * M * D * e + D * e + vec_bytes + (2 * M * M + M) * 4
-        fg_flops = 4 * M * M * D + 2 * M * D + M * D
-        t_ops = max(fg_flops / PEAK_FLOPS[dt] + GEN_FLOPS * M * D / PEAK_FLOPS["f32"],
+        fg_bytes = R * (2 * M * D * e + D * e + (2 * M * M + M) * 4) + vec_bytes
+        fg_flops = R * (4 * M * M * D + 2 * M * D + M * D)
+        t_ops = max(fg_flops / PEAK_FLOPS[dt] + GEN_FLOPS * R * M * D / PEAK_FLOPS["f32"],
                     int_ops / int_rate)
         t_bytes = fg_bytes / HBM_BYTES_PER_S
-        out[("fused_guard_gen", dt)] = (1e3 * max(t_bytes, t_ops),
-                                        "bytes" if t_bytes >= t_ops else "operations")
+        out[(f"fused_guard_gen{suffix}", dt)] = (1e3 * max(t_bytes, t_ops),
+                                                 "bytes" if t_bytes >= t_ops else "operations")
         # gen_xi: the weights in, ξ and the Byzantine row sum out; two FMAs
         # per element besides the generator
-        gx_bytes = vec_bytes + 2 * M * 4 + 2 * D * 4
-        t_ops = max((GEN_FLOPS + 4) * M * D / PEAK_FLOPS["f32"], int_ops / int_rate)
+        gx_bytes = vec_bytes + R * (2 * M * 4 + 2 * D * 4)
+        t_ops = max((GEN_FLOPS + 4) * R * M * D / PEAK_FLOPS["f32"], int_ops / int_rate)
         t_bytes = gx_bytes / HBM_BYTES_PER_S
-        out[("gen_xi", dt)] = (1e3 * max(t_bytes, t_ops),
-                               "bytes" if t_bytes >= t_ops else "operations")
-        for name, nbytes in (("fused_guard_gen", fg_bytes), ("gen_xi", gx_bytes)):
-            emit("bound", kernel=f"{name}[{dt}]", shape=[M, D], bytes=nbytes,
-                 int_ops=int_ops, int_ops_per_element=GEN_INT_OPS, sm_count=sms,
+        out[(f"gen_xi{suffix}", dt)] = (1e3 * max(t_bytes, t_ops),
+                                        "bytes" if t_bytes >= t_ops else "operations")
+        for name, nbytes in ((f"fused_guard_gen{suffix}", fg_bytes), (f"gen_xi{suffix}", gx_bytes)):
+            emit("bound", kernel=f"{name}[{dt}]", shape=[R, M, D] if R > 1 else [M, D],
+                 bytes=nbytes, int_ops=int_ops, int_ops_per_element=GEN_INT_OPS, sm_count=sms,
                  max_sm_clock_hz=clock, int_ops_per_s=int_rate,
                  bound_ms=out[(name, dt)][0], bound_by=out[(name, dt)][1])
     return out
@@ -2325,7 +2376,7 @@ def campaign_grid(seeds=CAMPAIGN_SEEDS, churn: bool = True):
     return expand_grid(scenarios, [BASE["alpha"]], seeds)
 
 
-def campaign_main_path(dev) -> None:
+def campaign_main_path(dev) -> tuple[dict, dict]:
     """``run_campaign`` at the main path's width: 2 groups (static and
     churning sign_flip) of R = 4 seeds, T = 32, each variant of
     CAMPAIGN_VARIANTS with the launch counts set to 0 just before it and
@@ -2335,14 +2386,14 @@ def campaign_main_path(dev) -> None:
     campaign at chunk_size 2 against a 2-run campaign's peak memory; then
     the batched kernels' times at R = 4 against 4 launches of R = 1, the
     folding copy's, and one batched bf16 launch with R·m·d > 2^31 against
-    its plain version."""
+    its plain version.  Returns each variant's stats and peak bytes."""
     t0 = time.perf_counter()
     problem = make_generated_problem(d=D, seed=0, device=dev)
     cfg = SolverConfig(**{**BASE, "T": CAMPAIGN_T})
     grid = campaign_grid()
     groups = run_groups(grid)
     require(len(groups) == 2 and all(len(g) == 4 for g in groups), "2 groups of 4 runs")
-    stats = {}
+    stats, peaks_of = {}, {}
     for variant, per_step in CAMPAIGN_VARIANTS.items():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2350,6 +2401,7 @@ def campaign_main_path(dev) -> None:
         res = run_campaign(problem, cfg, grid, [variant], return_gaps=True, device=dev)
         got = read_counts()
         st = stats[variant] = res.stats[variant]
+        peaks_of[variant] = res.memory["peak_bytes"]
         want = counts(**{k: v * CAMPAIGN_T * len(groups) for k, v in per_step.items()})
         require(got == want, f"campaign {variant}: launches {got}, expected {want} "
                              f"(T a group, not T·R)")
@@ -2404,11 +2456,12 @@ def campaign_main_path(dev) -> None:
     emit("campaign_main_path", check="chunked_peak", peak_bytes=peaks, ratio=ratio,
          limit=CAMPAIGN_CHUNK_PEAK)
     require(ratio <= CAMPAIGN_CHUNK_PEAK, f"campaign: chunked peak {ratio:.3f}x a chunk's")
-    del problem, stats, fused, dense
+    del problem, fused, dense
     torch.cuda.empty_cache()
     batched_kernel_times(dev)
     batched_big_launch(dev)
     emit("campaign_main_path", seconds=time.perf_counter() - t0)
+    return stats, peaks_of
 
 
 def batched_kernel_times(dev) -> None:
@@ -2485,6 +2538,418 @@ def batched_big_launch(dev) -> None:
             f"batched bf16 launch with R·m·d > 2^31: rel err {errs}, bits {bits}")
     del g, B, dlt, got, xi
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------- the generating kernels' run axis
+
+# a campaign's gen variant -> the materialising variant it decides as
+CAMPAIGN_GEN_VARIANTS = {"byzantine_sgd@gen": "byzantine_sgd@fused",
+                         "byzantine_sgd@gen@bf16": "byzantine_sgd@fused@bf16"}
+CAMPAIGN_GEN_GAP_ATOL = 1e-6   # the reference's criterion (tests/test_campaign_chunked.py)
+
+
+def stacked_gen_operands(runs: list) -> list:
+    """R runs' generator operands as the run entries take them: x, keys,
+    skews, slots and parameters stacked; h, x* and het_dir the first
+    run's, one for all (each run's own list is made to hold the same)."""
+    stacked = [torch.stack([o[q] for o in runs]) for q in range(8)]
+    for q in (1, 2, 3):
+        stacked[q] = runs[0][q]
+        for o in runs:
+            o[q] = runs[0][q]
+    return stacked
+
+
+def gen_campaign_kernels(dev) -> None:
+    """``fused_guard_gen`` and ``gen_xi`` over a run axis at R = 4 (m = 32,
+    d = 2^20) on the main path's step-0 operands of seeds 0–3, under
+    sign_flip and ALIE, f32 and bf16 sweeps, gen_xi at f32 and bf16
+    statistics reading the batched sweep's moments: every run's outputs
+    and moments bit-equal to its own one-run launch; the batched launch's
+    ms against R launches alone (CUDA events); then one bf16 launch with
+    R·m·d > 2^31 against its runs' own launches."""
+    t0 = time.perf_counter()
+    for attack in ("sign_flip", "alie"):
+        made = [main_gen_operands(attack, dev, seed=r) for r in range(RUNS_R)]
+        runs = [ops for ops, _ in made]
+        stacked = stacked_gen_operands(runs)
+        w_byz = torch.stack([w for _, w in made])
+        w_xi = (stacked[6] == 0).float() / M
+        for dt in ("f32", "bf16"):
+            gen = torch.Generator(device=dev).manual_seed(29)
+            B = torch.randn(RUNS_R, M, D, device=dev, generator=gen, dtype=DTYPES[dt])
+            dlt = torch.randn(RUNS_R, D, device=dev, generator=gen, dtype=DTYPES[dt])
+            got = fused_guard_gen_runs_cuda(B, dlt, *stacked)
+            xi = {sd: gen_xi_runs_cuda(w_xi, w_byz, *stacked, stats_dtype=DTYPES[sd],
+                                       moments=got[4]) for sd in DTYPES}
+            # the moments are written only when an ALIE id is in play
+            bits = {"fused_guard_gen": True, "gen_xi": True}
+            if attack == "alie":
+                bits["moments"] = True
+            for r in range(RUNS_R):
+                mom = torch.empty((2, D), device=dev)
+                alone = fused_guard_gen_cuda(B[r], dlt[r], *runs[r], moments=mom)
+                bits["fused_guard_gen"] &= all(torch.equal(a[r], b) for a, b in zip(got, alone))
+                if attack == "alie":
+                    bits["moments"] &= bool(torch.equal(got[4][r], mom))
+                for sd in DTYPES:
+                    own = gen_xi_cuda(w_xi[r], w_byz[r], *runs[r], stats_dtype=DTYPES[sd],
+                                      moments=mom)
+                    bits["gen_xi"] &= all(torch.equal(a[r], b) for a, b in zip(xi[sd], own))
+            sd = DTYPES[dt]
+            emit("gen_campaign_kernels", attack=attack, dtype=dt, R=RUNS_R, shape=[M, D],
+                 bit_equal_to_runs_alone=bits,
+                 fused_guard_gen_batched_ms=median_ms(
+                     lambda: fused_guard_gen_runs_cuda(B, dlt, *stacked), batches=5, per_batch=5),
+                 fused_guard_gen_R_launches_alone_ms=median_ms(
+                     lambda: [fused_guard_gen_cuda(B[r], dlt[r], *runs[r]) for r in range(RUNS_R)],
+                     batches=5, per_batch=5),
+                 gen_xi_batched_ms=median_ms(
+                     lambda: gen_xi_runs_cuda(w_xi, w_byz, *stacked, stats_dtype=sd,
+                                              moments=got[4]), batches=5, per_batch=5),
+                 gen_xi_R_launches_alone_ms=median_ms(
+                     lambda: [gen_xi_cuda(w_xi[r], w_byz[r], *runs[r], stats_dtype=sd,
+                                          moments=got[4][r]) for r in range(RUNS_R)],
+                     batches=5, per_batch=5))
+            require(all(bits.values()), f"gen kernels at R = {RUNS_R} ({attack}, {dt}): "
+                                        f"each run the bits of its own launch: {bits}")
+            del B, dlt, got, xi
+            torch.cuda.empty_cache()
+    # R·m·d > 2^31 (int64 run offsets), bf16, sign_flip
+    runs = [gen_operands(M, RUNS_BIG_D, 1, dev, seed=r) for r in range(RUNS_R)]
+    stacked = stacked_gen_operands(runs)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    B = torch.randn(RUNS_R, M, RUNS_BIG_D, device=dev, generator=gen, dtype=torch.bfloat16)
+    dlt = torch.randn(RUNS_R, RUNS_BIG_D, device=dev, generator=gen, dtype=torch.bfloat16)
+    w_xi = (stacked[6] == 0).float() / M
+    w_byz = (stacked[6] > 0).float()
+    got = fused_guard_gen_runs_cuda(B, dlt, *stacked)
+    xi = gen_xi_runs_cuda(w_xi, w_byz, *stacked, stats_dtype=torch.bfloat16, moments=got[4])
+    bits = []
+    for r in range(RUNS_R):
+        mom = torch.empty((2, RUNS_BIG_D), device=dev)
+        alone = fused_guard_gen_cuda(B[r], dlt[r], *runs[r], moments=mom)
+        own = gen_xi_cuda(w_xi[r], w_byz[r], *runs[r], stats_dtype=torch.bfloat16, moments=mom)
+        bits.append(all(torch.equal(a[r], b) for a, b in zip(got, alone))
+                    and all(torch.equal(a[r], b) for a, b in zip(xi, own)))
+        del alone, own, mom
+    emit("gen_campaign_kernels", check="big_batched_launch", R=RUNS_R, m=M, d=RUNS_BIG_D,
+         elements=RUNS_R * M * RUNS_BIG_D, bit_equal_to_runs_alone=bits)
+    require(all(bits), f"batched bf16 gen launch with R·m·d > 2^31: runs alone {bits}")
+    del B, dlt, got, xi, runs, stacked
+    torch.cuda.empty_cache()
+    emit("gen_campaign_kernels", seconds=time.perf_counter() - t0)
+
+
+def campaign_gen_main_path(dev, fused_stats: dict, fused_peaks: dict) -> dict:
+    """``run_campaign`` at campaign_main_path's grid (m = 32, d = 2^20,
+    T = 32, static and churning sign_flip × seeds 0–3) with the variants
+    ``gen`` and ``gen@bf16``, the launch counts set to 0 just before each
+    and read just after: ``fused_guard_gen`` and ``gen_xi`` T times a group
+    and no other kernel; every row decides as the materialising variant's
+    row of campaign_main_path (``n_alive_final``, ``detect_latency``
+    equal, ``gap_final`` within 1e-6); the peak memory below the
+    materialising variant's by at least R × the (m, d) f32 batch; ms a
+    batched step against R × one generating step alone.  Returns the
+    launch counts."""
+    t0 = time.perf_counter()
+    problem = make_generated_problem(d=D, seed=0, device=dev)
+    cfg = SolverConfig(**{**BASE, "T": CAMPAIGN_T})
+    grid = campaign_grid()
+    groups = run_groups(grid)
+    R = len(groups[0])
+    launches = {}
+    for variant, fused_name in CAMPAIGN_GEN_VARIANTS.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reset_counts()
+        res = run_campaign(problem, cfg, grid, [variant], return_gaps=True, device=dev)
+        got = launches[variant] = read_counts()
+        st, fu = res.stats[variant], fused_stats[fused_name]
+        want = counts(fused_guard_gen=CAMPAIGN_T * len(groups), gen_xi=CAMPAIGN_T * len(groups))
+        require(got == want, f"campaign {variant}: launches {got}, expected {want}")
+        same = {f: bool(torch.equal(getattr(st, f), getattr(fu, f)))
+                for f in ("n_alive_final", "detect_latency", "n_byz_ever", "ever_filtered_good")}
+        gap_err = float((st.gap_final - fu.gap_final).abs().max())
+        peak, batch = res.memory["peak_bytes"], R * M * D * 4
+        vcfg = expand_variants(cfg, [variant])[variant]
+        i = groups[0][0]
+        _, ms_alone, _, _ = profiled_run(problem, vcfg,
+                                         ScenarioAdversary(grid.scenarios[i], grid.alpha[i]), dev)
+        emit("campaign_gen_main_path", variant=variant, decides_as=fused_name,
+             runs=grid.n_runs, groups=len(groups), R=R, T=CAMPAIGN_T, launches=got,
+             decisions_equal=same, gap_final_max_abs_diff=gap_err,
+             ms_per_batched_step=1e3 * res.wall_s / (CAMPAIGN_T * len(groups)),
+             R_times_ms_per_step_alone=R * ms_alone,
+             peak_bytes=peak, materialising_peak_bytes=fused_peaks[fused_name],
+             R_times_batch_bytes=batch, n_alive_final=st.n_alive_final.tolist(),
+             detect_latency=st.detect_latency.tolist())
+        require(all(same.values()) and gap_err <= CAMPAIGN_GEN_GAP_ATOL,
+                f"campaign {variant}: decides as {fused_name} ({same}, gap diff {gap_err})")
+        require(bool(torch.isfinite(st.gaps).all()), f"campaign {variant}: finite gaps")
+        require(peak + batch <= fused_peaks[fused_name],
+                f"campaign {variant}: peak {peak} B not below {fused_name}'s "
+                f"{fused_peaks[fused_name]} B by R x the (m, d) f32 batch")
+    emit("campaign_gen_main_path", seconds=time.perf_counter() - t0)
+    return launches
+
+
+def gen_runs_entries(dev, launches: dict) -> list:
+    """The kernels line's entries of the two generating kernels over a run
+    axis: R = 4 runs of the main path's step-0 operands under sign_flip
+    (seeds 0–3), the launch count from campaign_gen_main_path, the batched
+    launch's ms, the plain versions over the R runs, and the bound of the
+    R runs' work."""
+    bounds = gen_bounds(dev, runs=RUNS_R)
+    made = [main_gen_operands("sign_flip", dev, seed=r) for r in range(RUNS_R)]
+    runs = [ops for ops, _ in made]
+    stacked = stacked_gen_operands(runs)
+    w_byz = torch.stack([w for _, w in made])
+    w_xi = (stacked[6] == 0).float() / M
+    entries = []
+    for dt, variant in (("f32", "byzantine_sgd@gen"), ("bf16", "byzantine_sgd@gen@bf16")):
+        sd = DTYPES[dt]
+        gen = torch.Generator(device=dev).manual_seed(37)
+        B = torch.randn(RUNS_R, M, D, device=dev, generator=gen, dtype=sd)
+        dlt = torch.randn(RUNS_R, D, device=dev, generator=gen, dtype=sd)
+        calls = {
+            "fused_guard_gen_runs": (
+                lambda: fused_guard_gen_runs_cuda(B, dlt, *stacked)[:4],
+                lambda: [ref.fused_guard_gen_ref(B[r], dlt[r], *runs[r]) for r in range(RUNS_R)]),
+            "gen_xi_runs": (
+                lambda: gen_xi_runs_cuda(w_xi, w_byz, *stacked, stats_dtype=sd),
+                lambda: [ref.gen_xi_ref(w_xi[r], w_byz[r], *runs[r], stats_dtype=sd)
+                         for r in range(RUNS_R)]),
+        }
+        for name, (kernel, plain) in calls.items():
+            got, want = kernel(), plain()
+            pairs = [(a[r], b) for r in range(RUNS_R) for a, b in zip(got, want[r])]
+            err = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+            rel = max(rel_err(a, b)[0] for a, b in pairs)
+            emit("gen_runs_check", kernel=f"{name}[{dt}]", R=RUNS_R, max_rel_err=rel,
+                 max_abs_err=err, tol=TOL[dt])
+            require(all(within(a.float(), b.float(), TOL[dt]) for a, b in pairs),
+                    f"{name}[{dt}] at R = {RUNS_R} within {TOL[dt]} of the plain version")
+            b_ms, b_by = bounds[(name, dt)]
+            entries.append({
+                "name": f"{name}[{dt}]", "route": "cuda", "source": source_of(name, dt),
+                "replaces": KERNELS[name][1],
+                "launches": launches[variant][name.removesuffix("_runs")],
+                "max_abs_err": err, "ms": median_ms(kernel, batches=5, per_batch=5),
+                "plain_ms": median_ms(plain, batches=3, per_batch=1),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            })
+            del got, want
+        del B, dlt
+        torch.cuda.empty_cache()
+    return entries
+
+
+# ---------------------------------------------------------------- telemetry
+
+TELEMETRY_T = 32
+TELEMETRY_RESYNC = 16   # resyncs at steps 16 and 32 (the default 64 cut to T)
+TELEMETRY_RUNS = {
+    "fused@f32": dict(guard_backend="fused", stats_dtype="f32"),
+    "fused@bf16": dict(guard_backend="fused", stats_dtype="bf16"),
+    "gen": dict(guard_backend="fused", generate="kernel"),
+    "dense@f32": dict(guard_backend="dense"),
+    "krum": dict(aggregator="krum"),
+    "dp_sketch": dict(guard_backend="dp_sketch"),
+    "fused_quarantine": dict(guard_backend="fused", sanitize="quarantine"),
+}
+# where each run's frames hold a finite gram_drift: at resync steps
+# (fused, generating), every step (dense: 0), never (the rest)
+DRIFT_AT = {"fused@f32": "resync", "fused@bf16": "resync", "gen": "resync",
+            "fused_quarantine": "resync", "dense@f32": "every"}
+FRAME_EXACT = ("alive", "n_alive", "step")
+
+
+def frames_close(got: list, want: list, tol: float) -> dict:
+    """Frames of one run on the card against the CPU's: the exact keys
+    equal, NaN where the other has NaN, every other float within ``tol``
+    relative (‖got − want‖ ≤ tol·‖want‖ + tol); ``gram_drift`` within tol
+    relative plus 1e-6·𝔗_B² (at f32 the incremental Gram's rounding
+    noise, which moves with the order of the sums).  Returns the failing
+    keys."""
+    bad = set()
+    for a, b in zip(got, want):
+        for k in a:
+            x, y = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+            if not np.array_equal(np.isnan(x), np.isnan(y)):
+                bad.add(k)
+            elif k in FRAME_EXACT:
+                if not np.array_equal(x, y):
+                    bad.add(k)
+            elif k == "gram_drift":
+                if not np.isnan(y) and abs(x - y) > tol * abs(y) + 1e-6 * float(b["thr_b"]) ** 2:
+                    bad.add(k)
+            else:
+                x, y = np.nan_to_num(x), np.nan_to_num(y)
+                if np.linalg.norm(x - y) > tol * np.linalg.norm(y) + tol:
+                    bad.add(k)
+    return {"n_frames": [len(got), len(want)], "failed": sorted(bad)}
+
+
+def telemetry_phase(dev) -> None:
+    """The flight recorder through ``run_sgd`` at the main path's shape
+    (T = 32, the guard's Gram re-derived every 16 steps): each run of
+    TELEMETRY_RUNS armed against off, bits and kernel
+    launches equal, ``gram_drift`` finite where DRIFT_AT says and NaN
+    elsewhere, ms a step armed against off; the same runs armed on the
+    card and on the CPU at d = 4099, m = 8, T = 70 (frames_close); one
+    armed campaign (fused and gen) through ``campaign_trace_events`` into
+    an ``EventLog``, its JSONL and Chrome trace written under build/ and
+    read back; the guard steps' time against guard_cost's H100 figure."""
+    t0 = time.perf_counter()
+    problem = make_generated_problem(d=D, seed=0, device=dev)
+    adv = ScenarioAdversary(scenario_static("sign_flip"), BASE["alpha"])
+    tel = TelemetryConfig(ring_size=128)
+    for name, over in TELEMETRY_RUNS.items():
+        cfg = SolverConfig(**{**BASE, "T": TELEMETRY_T, **over,
+                              "guard_opts": (("gram_resync_every", TELEMETRY_RESYNC),)})
+        off, off_ms, off_n, _ = profiled_run(problem, cfg, adv, dev)
+        on, on_ms, on_n, _ = profiled_run(problem, cfg, adv, dev, telemetry=tel)
+        bits = all(torch.equal(getattr(on, f), getattr(off, f))
+                   for f in on._fields if f not in ("telemetry", "n_reporting"))
+        frames = ring_read(on.telemetry.ring)
+        drift = np.array([f["gram_drift"] for f in frames], np.float64)
+        steps = np.array([f["step"] for f in frames], np.int64)
+        where = DRIFT_AT.get(name)
+        want_finite = (steps % TELEMETRY_RESYNC == 0 if where == "resync"
+                       else np.full(len(steps), where == "every"))
+        emit("telemetry", run=name, T=TELEMETRY_T, frames=len(frames),
+             ms_per_step={"off": off_ms, "armed": on_ms}, launches={"off": off_n, "armed": on_n},
+             bit_equal_to_off=bits, gram_drift_finite_steps=steps[np.isfinite(drift)].tolist(),
+             gram_drift=[float(v) for v in drift[np.isfinite(drift)]],
+             first_filter_step=on.telemetry.first_filter_step.tolist(),
+             byz_alive_last=int(on.telemetry.byz_alive[-1]),
+             last_frame={k: float(frames[-1][k]) for k in ("n_alive", "thr_a", "thr_b", "thr_g",
+                                                           "xi_norm", "v_est", "adapt_scale")})
+        require(bits and on_n == off_n, f"telemetry {name}: armed equals off (bits {bits}, "
+                                        f"launches {on_n} vs {off_n})")
+        require(len(frames) == TELEMETRY_T and np.array_equal(np.isfinite(drift), want_finite),
+                f"telemetry {name}: gram_drift finite at {steps[np.isfinite(drift)].tolist()}")
+        del off, on
+    # the card against the CPU on a small input
+    for name, over in TELEMETRY_RUNS.items():
+        kw = {**dict(m=8, T=70, eta=0.05, alpha=0.25, aggregator="byzantine_sgd"), **over}
+        got = run_sgd(make_generated_problem(d=4099, seed=1, device=dev), SolverConfig(**kw),
+                      prng.PRNGKey(1), adversary=adv, telemetry=tel, device=dev)
+        want = run_sgd(make_generated_problem(d=4099, seed=1, device="cpu"), SolverConfig(**kw),
+                       prng.PRNGKey(1), adversary=adv, telemetry=tel, device="cpu")
+        close = frames_close(ring_read(got.telemetry.ring), ring_read(want.telemetry.ring),
+                             TOL[over.get("stats_dtype", "f32")])
+        series = all(torch.equal(getattr(got.telemetry, f).cpu(), getattr(want.telemetry, f))
+                     for f in ("first_filter_step", "byz_alive"))
+        emit("telemetry_reference", run=name, **close, series_equal=series)
+        require(not close["failed"] and series, f"telemetry {name}: card frames as the CPU's")
+    telemetry_campaign(dev)
+    guard_step_roofline(dev)
+    emit("telemetry", seconds=time.perf_counter() - t0)
+
+
+def telemetry_campaign(dev) -> None:
+    """One armed campaign (fused and gen; m = 32, d = 2^16, T = 32, static
+    and churning sign_flip × seeds 0–3) drained into an ``EventLog``; the
+    JSONL and the Chrome trace written under build/telemetry/ and read
+    back."""
+    from repro_torch.scenarios import campaign_trace_events
+
+    problem = make_generated_problem(d=2 ** 16, seed=0, device=dev)
+    cfg = SolverConfig(**{**BASE, "T": CAMPAIGN_T})
+    grid = campaign_grid()
+    res = run_campaign(problem, cfg, grid, ["byzantine_sgd"], backends=("fused", "gen"),
+                       telemetry=TelemetryConfig(ring_size=16), device=dev)
+    log = EventLog(phase="telemetry_campaign")
+    n_cells = campaign_trace_events(res, log)
+    out = Path(__file__).resolve().parent / "build" / "telemetry"
+    out.mkdir(parents=True, exist_ok=True)
+    log.write_jsonl(str(out / "campaign.jsonl"))
+    log.write_chrome_trace(str(out / "campaign_trace.json"))
+    meta, events = EventLog.read_jsonl(str(out / "campaign.jsonl"))
+    trace = json.loads((out / "campaign_trace.json").read_text())
+    n_steps = sum(e["type"] == "guard_step" for e in events)
+    counters = sum(e["ph"] == "C" for e in trace["traceEvents"])
+    emit("telemetry_campaign", cells=n_cells, events=len(events), guard_step_events=n_steps,
+         chrome_counter_events=counters, card=meta.get("card_name"),
+         power_limit=meta.get("power_limit"), path=str(out.relative_to(out.parents[1])))
+    require(n_cells == 2 * grid.n_runs and n_steps == n_cells * 16 and counters >= 2 * n_steps,
+            f"telemetry campaign: {n_cells} cells, {n_steps} frames, {counters} counters")
+
+
+def guard_step_roofline(dev) -> None:
+    """The guard's step alone (``make_aggregator``'s step on the main
+    path's step-0 batch or generator operands; CUDA events, median) for
+    the fused, dense and generating guards at f32 and bf16, beside
+    guard_cost's bytes-bound H100 figure (``obs.roofline_rows``)."""
+    problem = make_generated_problem(d=D, seed=0, device=dev)
+    keys = prng.split(prng.PRNGKey(3, device=dev), M)
+    grads = problem.stoch_grad(keys, problem.x1)
+    x1 = problem.x1
+    operands, w_byz = main_gen_operands("sign_flip", dev)
+    genctx = gradgen.GenStepCtx(worker_keys=operands[4], skewsign=operands[5], slot=operands[6],
+                                params=operands[7], w_byz=w_byz)
+    measured = {}
+    for spec, over in (("fused", {}), ("fused@bf16", dict(stats_dtype="bf16")),
+                       ("dense", dict(guard_backend="dense")),
+                       ("gen", dict(generate="kernel")),
+                       ("gen@bf16", dict(generate="kernel", stats_dtype="bf16"))):
+        cfg = SolverConfig(**{**BASE, "guard_backend": "fused", **over})
+        state0, step = make_aggregator(problem, cfg, dev)
+        batch = genctx if cfg.generate == "kernel" else grads
+        measured[spec] = 1e3 * median_ms(lambda: step(state0, batch, x1, x1), batches=5,
+                                         per_batch=10)
+    for row in roofline_rows(measured, M, D):
+        emit("guard_roofline", **row, hbm_bytes_per_s=guard_cost.H100.hbm_bw)
+
+
+def bitflip_campaign(dev) -> None:
+    """A campaign with a ``bitflip`` fault axis on the card's torch (the
+    flip is ``repro_torch::flip_bits``, a custom op with its own vmap
+    rule): m = 32, d = 4099, T = 16, ``sanitize="quarantine"``, static
+    sign_flip × seeds 0–1 × {none, bitflip on 4 workers from step 4}, the
+    fused guard and coordinate_median; every row's n_alive series and
+    final membership equal to its run alone; then the flip of a (4, 32,
+    2^20) f32 stack under vmap bit-equal to each run's own flip."""
+    from torch.func import vmap
+
+    t0 = time.perf_counter()
+    problem = make_generated_problem(d=4099, seed=0, device=dev)
+    cfg = SolverConfig(**{**BASE, "T": 16, "sanitize": "quarantine"})
+    plan = faults.fault_bitflip(0.125, start_step=4)
+    grid = expand_grid([("static", scenario_static("sign_flip"))], [BASE["alpha"]],
+                       range(2), faults=[("none", None), ("bitflip", plan)])
+    variants = ["byzantine_sgd@fused", "coordinate_median"]
+    res = run_campaign(problem, cfg, grid, variants, return_gaps=True, device=dev)
+    rows_equal = {}
+    for name in variants:
+        vcfg = expand_variants(cfg, [name])[name]
+        st = res.stats[name]
+        ok = True
+        for i, e in enumerate(res.entries):
+            alone = run_sgd(problem, vcfg, prng.PRNGKey(int(grid.seeds[i]), device=dev),
+                            adversary=ScenarioAdversary(grid.scenarios[i], grid.alpha[i],
+                                                        faults=grid.faults[i]), device=dev)
+            summary = _summarize(problem, vcfg, alone, True)
+            ok &= all(torch.equal(getattr(st, f)[i], summary[f])
+                      for f in ("n_alive_final", "n_byz_ever", "detect_latency",
+                                "ever_filtered_good"))
+        rows_equal[name] = ok
+    keys = torch.stack([prng.PRNGKey(s, device=dev) for s in CAMPAIGN_SEEDS])
+    gen = torch.Generator(device=dev).manual_seed(41)
+    stack = torch.randn(len(CAMPAIGN_SEEDS), M, D, device=dev, generator=gen)
+    rank = torch.arange(M, device=dev)
+    flipped = vmap(lambda k, g: faults.apply_fault_plan(plan, k, g, rank, 4))(keys, stack)
+    flip_bits = all(torch.equal(flipped[r].view(torch.int32),
+                                faults.apply_fault_plan(plan, keys[r], stack[r], rank, 4)
+                                .view(torch.int32)) for r in range(len(CAMPAIGN_SEEDS)))
+    emit("bitflip_campaign", torch=torch.__version__, runs=grid.n_runs, T=cfg.T,
+         rows_equal_to_runs_alone=rows_equal, vmapped_flip_bit_equal=flip_bits,
+         n_alive_final={n: res.stats[n].n_alive_final.tolist() for n in variants},
+         seconds=time.perf_counter() - t0)
+    require(all(rows_equal.values()) and flip_bits,
+            f"bitflip campaign: rows {rows_equal}, flip bits {flip_bits}")
 
 
 # ---------------------------------------------------------------- phase 12
@@ -3023,6 +3488,7 @@ def convex_harness(card: dict, cpu: dict, lower: dict) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -3065,13 +3531,18 @@ def main() -> int:
     gram_main(dev)
     entries = time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
                            gen_launches, gen_bounds(dev))
-    require(len(entries) == 2 * len(KERNELS), f"{len(entries)} kernel entries")
     step_split(dev)
     random_gaussian_main_path(dev)
     profile_main_path(dev)
     fault_main_path(dev, q_series)
     profile_reference(dev)
-    campaign_main_path(dev)
+    campaign_stats, campaign_peaks = campaign_main_path(dev)
+    gen_campaign_kernels(dev)
+    gen_campaign_launches = campaign_gen_main_path(dev, campaign_stats, campaign_peaks)
+    entries += gen_runs_entries(dev, gen_campaign_launches)
+    require(len(entries) == 2 * len(KERNELS), f"{len(entries)} kernel entries")
+    telemetry_phase(dev)
+    bitflip_campaign(dev)
     lower = convex_step_alone(dev)
     convex, cpu = convex_pool()
     quickstart(convex, cpu)
@@ -3079,6 +3550,7 @@ def main() -> int:
     convex_harness(convex, cpu, lower)
     table1_phase(convex, cpu)
 
+    emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -38,8 +38,8 @@ changes no bit of the result.
 worker rows from the guard's ``GenSpec`` and the step's ``GenStepCtx``,
 so no (m, d) gradient tensor exists; it also returns the Byzantine row
 sum that the scenario adversary's feedback reads.  ALIE's honest column
-moments are taken once a step: the sweep leaves them in a (2, d) buffer
-that the ξ pass reads.
+moments are taken once a step: the sweep returns them as a (2, d)
+tensor that the ξ pass reads.
 """
 from __future__ import annotations
 
@@ -51,6 +51,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.obs.spans import guard_scope
 
 # storage dtype of the streamed guard statistics (g strips, the B
 # martingale); every accumulation (Grams, A, ξ) stays f32
@@ -207,9 +208,12 @@ def _row(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def filter_update(A, gram_B, gram_g, alive, k: int, cfg: GuardConfig, report=None):
-    """One application of the Algorithm-1 filter; returns (good_k, diag)
-    with diag = {"n_alive": |good_k|} (the JAX package's telemetry keys
-    are not ported).  Medians are over all m workers, or over the
+    """One application of the Algorithm-1 filter; returns (good_k, diag).
+    diag holds ``n_alive`` = |good_k| and the flight recorder's forensics,
+    all of them values the filter computes anyway: ``a_med``, the two
+    medians' indices and found flags, the per-worker ``dev_a``,
+    ``dist_b``, ``dist_g`` and the three thresholds (host f32 scalars, or
+    0-d tensors for a tensor V).  Medians are over all m workers, or over the
     reporters when ``report`` is given; only the intersection uses
     good_{k-1}, and a worker that did not report keeps its status.
     ``cfg.V`` may be a Python float or a 0-d f32 tensor (module docstring)."""
@@ -222,17 +226,19 @@ def filter_update(A, gram_B, gram_g, alive, k: int, cfg: GuardConfig, report=Non
 
     # line 8: counting median of B at radius 𝔗_B
     d2_b = pairwise_sq_dists_from_gram(gram_B)
-    idx_b, _ = counting_median_index(d2_b, t_b, report)
+    idx_b, found_b = counting_median_index(d2_b, t_b, report)
     dist_b = torch.sqrt(_row(d2_b, idx_b))
     ok_b = dist_b <= _bound(t_b)
 
     # line 9: counting median of fresh gradients at radius 2V, filter at 4V
     # (a tensor V multiplies in f32, a Python one in double)
     d2_g = pairwise_sq_dists_from_gram(gram_g)
-    idx_g, _ = counting_median_index(d2_g, cfg.median_radius_mult * cfg.V, report)
+    idx_g, found_g = counting_median_index(d2_g, cfg.median_radius_mult * cfg.V, report)
     dist_g = torch.sqrt(_row(d2_g, idx_g))
     t_g = cfg.grad_radius_mult * cfg.V
-    ok_g = dist_g <= (t_g if isinstance(t_g, torch.Tensor) else float(np.float32(t_g)))
+    if not isinstance(t_g, torch.Tensor):
+        t_g = np.float32(t_g)
+    ok_g = dist_g <= _bound(t_g)
 
     # line 10: good_k = good_{k-1} ∩ {A ok} ∩ {B ok} ∩ {∇ ok}; workers that
     # did not report are not scored
@@ -240,7 +246,11 @@ def filter_update(A, gram_B, gram_g, alive, k: int, cfg: GuardConfig, report=Non
         good_k = alive & ok_a & ok_b & ok_g
     else:
         good_k = alive & (ok_a | ~report) & (ok_b | ~report) & (ok_g | ~report)
-    return good_k, {"n_alive": torch.sum(good_k)}
+    diag = {"n_alive": torch.sum(good_k), "a_med": a_med, "b_med_index": idx_b,
+            "b_med_found": found_b, "grad_med_index": idx_g, "grad_med_found": found_g,
+            "threshold_A": t_a, "threshold_B": t_b, "threshold_grad": t_g,
+            "dev_a": dev_a, "dist_b": dist_b, "dist_g": dist_g}
+    return good_k, diag
 
 
 class ByzantineGuard:
@@ -253,12 +263,19 @@ class ByzantineGuard:
     storage dtype of the streamed statistics: gradients are rounded to it
     once on entry and B is stored in it.  ``sanitize`` arms the quarantine
     stage (module docstring); its step adds ``n_nonfinite`` to the diag.
+    ``probe`` (the flight recorder is armed) adds ``gram_drift``: 0 on the
+    dense path; on the fused and generating paths ‖B Bᵀ − the incremental
+    Gram‖_F at resync steps and NaN between them.  The JAX package leaves
+    that norm to XLA to drop when nothing reads it; here it is computed
+    only when ``probe`` is set.  Each phase runs inside
+    :func:`repro_torch.obs.spans.guard_scope`.
     """
 
     def __init__(self, cfg: GuardConfig, use_fused: bool = False,
                  gram_resync_every: int = 64, stats_dtype: str = "f32",
-                 device="cuda", sanitize: bool = False, gen_spec=None):
+                 device="cuda", sanitize: bool = False, gen_spec=None, probe: bool = False):
         self.cfg = cfg
+        self.probe = bool(probe)
         self.gen_spec = gen_spec
         self.sanitize = bool(sanitize)
         self.use_fused = use_fused
@@ -299,23 +316,25 @@ class ByzantineGuard:
             grads = torch.where(fin, grads, 0.0)
 
         if self.use_fused:
-            if self.sanitize:
-                gram_g, cross, a_inc, B, nf = ops.fused_guard(grads, state.B, delta,
-                                                              sanitize=True)
-                finite = nf == 0
-            else:
-                gram_g, cross, a_inc, B = ops.fused_guard(grads, state.B, delta)
-            A = state.A + a_inc
-            gram_b = state.gram_B + cross + cross.T + gram_g
-            if self.gram_resync_every > 0 and k % self.gram_resync_every == 0:
-                # re-anchor the rank-updated Gram to the B in storage
-                gram_b = _gram32(B)
+            with guard_scope("stats_sweep"):
+                if self.sanitize:
+                    gram_g, cross, a_inc, B, nf = ops.fused_guard(grads, state.B, delta,
+                                                                  sanitize=True)
+                    finite = nf == 0
+                else:
+                    gram_g, cross, a_inc, B = ops.fused_guard(grads, state.B, delta)
+                A = state.A + a_inc
+                gram_b = state.gram_B + cross + cross.T + gram_g
+            # re-anchor the rank-updated Gram to the B in storage
+            gram_b, drift = self._resync(k, B, gram_b)
         else:
-            g32 = grads.to(torch.float32)
-            A = state.A + g32 @ delta.to(torch.float32)
-            B = (state.B.to(torch.float32) + g32).to(self.stats_dtype)
-            gram_b = _gram32(B)
-            gram_g = g32 @ g32.T
+            with guard_scope("stats_sweep"):
+                g32 = grads.to(torch.float32)
+                A = state.A + g32 @ delta.to(torch.float32)
+                B = (state.B.to(torch.float32) + g32).to(self.stats_dtype)
+                gram_b = _gram32(B)
+                gram_g = g32 @ g32.T
+            drift = 0.0  # re-derived every step: the drift oracle
 
         # a non-finite row is not scored (its zeroed statistics are not the
         # worker's report) and does not survive: it enters the filter as a
@@ -324,11 +343,14 @@ class ByzantineGuard:
         report_eff = report
         if self.sanitize:
             report_eff = finite if report is None else report & finite
-        good_k, diag = filter_update(A, gram_b, gram_g, state.alive, k, cfg, report_eff)
-        if self.sanitize:
-            good_k = good_k & finite
-            diag["n_alive"] = torch.sum(good_k)
-            diag["n_nonfinite"] = torch.sum(~finite)
+        with guard_scope("filter"):
+            good_k, diag = filter_update(A, gram_b, gram_g, state.alive, k, cfg, report_eff)
+            if self.sanitize:
+                good_k = good_k & finite
+                diag["n_alive"] = torch.sum(good_k)
+                diag["n_nonfinite"] = torch.sum(~finite)
+        if self.probe:
+            diag["gram_drift"] = drift
 
         # ξ averages the rows that arrived: good ∩ reporting
         contrib = good_k if report is None else good_k & report
@@ -336,13 +358,26 @@ class ByzantineGuard:
             denom = torch.clamp(torch.sum(contrib), min=1).to(torch.float32)
         else:
             denom = float(cfg.m)
-        if self.use_fused:
-            xi = ops.filtered_mean(grads, contrib.to(torch.float32) / denom, 1.0,
-                                   sanitize=self.sanitize)
-        else:
-            xi = (contrib.to(torch.float32) @ grads.to(torch.float32)) / denom
+        with guard_scope("aggregate"):
+            if self.use_fused:
+                xi = ops.filtered_mean(grads, contrib.to(torch.float32) / denom, 1.0,
+                                       sanitize=self.sanitize)
+            else:
+                xi = (contrib.to(torch.float32) @ grads.to(torch.float32)) / denom
 
         return GuardState(A=A, B=B, alive=good_k, k=k, gram_B=gram_b), xi, diag
+
+    def _resync(self, k: int, B: torch.Tensor, gram_b: torch.Tensor):
+        """Every ``gram_resync_every`` steps the incremental Gram is
+        re-derived from the B in storage; returns ``(gram_B, drift)``, the
+        drift (armed recorder only) ‖derived − incremental‖_F at a resync
+        step, NaN between them."""
+        if self.gram_resync_every > 0 and k % self.gram_resync_every == 0:
+            with guard_scope("resync"):
+                derived = _gram32(B)
+                drift = torch.linalg.matrix_norm(derived - gram_b) if self.probe else None
+            return derived, drift
+        return gram_b, math.nan
 
     def gen_step(self, state: GuardState, genctx, x_k: torch.Tensor, x_1: torch.Tensor):
         """:meth:`step` of the fused form with the gradients generated in
@@ -360,24 +395,27 @@ class ByzantineGuard:
         delta = (x_k - x_1).to(self.stats_dtype)
         operands = (x_k, gen.h, gen.x_star, gen.het_dir, genctx.worker_keys,
                     genctx.skewsign, genctx.slot, genctx.params)
-        # ALIE's honest column moments, taken once: the sweep leaves them
-        # here and the ξ pass reads them
-        moments = torch.empty((2, x_k.shape[0]), dtype=torch.float32, device=x_k.device)
+        # ALIE's honest column moments, taken once: the sweep returns them
+        # and the ξ pass reads them (functional, so a campaign's vmap
+        # batches them)
+        with guard_scope("stats_sweep"):
+            gram_g, cross, a_inc, B, moments = ops.fused_guard_gen(state.B, delta, *operands,
+                                                                   return_moments=True)
+            A = state.A + a_inc
+            gram_b = state.gram_B + cross + cross.T + gram_g
+        gram_b, drift = self._resync(k, B, gram_b)
 
-        gram_g, cross, a_inc, B = ops.fused_guard_gen(state.B, delta, *operands,
-                                                      moments=moments)
-        A = state.A + a_inc
-        gram_b = state.gram_B + cross + cross.T + gram_g
-        if self.gram_resync_every > 0 and k % self.gram_resync_every == 0:
-            gram_b = _gram32(B)
-
-        good_k, diag = filter_update(A, gram_b, gram_g, state.alive, k, cfg)
+        with guard_scope("filter"):
+            good_k, diag = filter_update(A, gram_b, gram_g, state.alive, k, cfg)
+        if self.probe:
+            diag["gram_drift"] = drift
         if cfg.mean_over_alive:
             denom = torch.clamp(torch.sum(good_k), min=1).to(torch.float32)
         else:
             denom = float(cfg.m)
-        xi, byz_sum = ops.gen_xi(good_k.to(torch.float32) / denom, genctx.w_byz, *operands,
-                                 stats_dtype=self.stats_dtype, moments=moments)
+        with guard_scope("aggregate"):
+            xi, byz_sum = ops.gen_xi(good_k.to(torch.float32) / denom, genctx.w_byz,
+                                     *operands, stats_dtype=self.stats_dtype, moments=moments)
         return GuardState(A=A, B=B, alive=good_k, k=k, gram_B=gram_b), xi, byz_sum, diag
 
 

@@ -26,7 +26,15 @@ sanitizing guards.  ``cfg.generate == "kernel"`` makes ``fused`` return
 the generating step, ``step(state, genctx, x, x1, report=None) -> (state',
 ξ, n_alive, alive, byz_sum)`` over a
 :class:`~repro_torch.kernels.gradgen.GenStepCtx` (the solver's gate
-admits it on ``fused`` only).  Telemetry is not ported.
+admits it on ``fused`` only).
+
+``telemetry`` (a :class:`repro_torch.obs.TelemetryConfig`, DESIGN.md §12)
+switches the step into its *probed* form: it returns one more element,
+the flight recorder's frame on ``repro_torch.obs.telemetry.FRAME_SCHEMA``
+(every backend the same keys, NaN where it has nothing to report: the
+dp backends fill ``v_est``, the fused and generating steps
+``gram_drift``).  Off (the default) the step returns what it returned
+without the recorder and dispatches the same operations.
 """
 from __future__ import annotations
 
@@ -37,9 +45,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.byzantine_sgd import ByzantineGuard, GuardConfig, resolve_stats_dtype
+from repro_torch.obs.telemetry import guard_frame, telemetry_on
 
 # factory parameters that are not knobs
-_NOT_KNOBS = ("problem", "cfg", "device", "mode")
+_NOT_KNOBS = ("problem", "cfg", "device", "mode", "telemetry")
 
 
 def parse_backend_spec(spec: str) -> tuple[str, str | None]:
@@ -61,8 +70,9 @@ def _declared_opts(factory) -> set[str]:
             and p.name not in _NOT_KNOBS}
 
 
-def make_guard_backend(name: str, problem, cfg, device="cuda"):
-    """Instantiate backend ``name`` for (problem, cfg) on ``device``."""
+def make_guard_backend(name: str, problem, cfg, device="cuda", telemetry=None):
+    """Instantiate backend ``name`` for (problem, cfg) on ``device``; its
+    step is probed when ``telemetry`` is armed."""
     if name not in BACKENDS:
         raise KeyError(f"unknown guard backend {name!r}; have {sorted(BACKENDS)}")
     resolve_stats_dtype(cfg.stats_dtype)  # fail loudly before the first step
@@ -74,7 +84,8 @@ def make_guard_backend(name: str, problem, cfg, device="cuda"):
                        f"known knobs: {sorted(known)}")
     factory = BACKENDS[name]
     declared = _declared_opts(factory)
-    return factory(problem, cfg, device, **{k: v for k, v in opts.items() if k in declared})
+    return factory(problem, cfg, device, telemetry=telemetry,
+                   **{k: v for k, v in opts.items() if k in declared})
 
 
 def _check_resync(gram_resync_every) -> None:
@@ -93,35 +104,43 @@ def _guard_config(problem, cfg) -> GuardConfig:
 
 def _wrap_byzantine_guard(guard: ByzantineGuard, d: int):
     state0 = guard.init(d)
+    m = guard.cfg.m
 
     def step(state, grads, x, x1, report=None):
         state, xi, diag = guard.step(state, grads, x, x1, report)
-        return state, xi, diag["n_alive"], state.alive
+        if not guard.probe:
+            return state, xi, diag["n_alive"], state.alive
+        return state, xi, diag["n_alive"], state.alive, guard_frame(m, diag, state.alive)
 
     return state0, step
 
 
 def _wrap_gen_guard(guard: ByzantineGuard, d: int):
     """The generating step: a GenStepCtx in place of the batch, and the
-    adversary's feedback row sum as a fifth output."""
+    adversary's feedback row sum as a fifth output (the frame sixth)."""
     state0 = guard.init(d)
+    m = guard.cfg.m
 
     def step(state, genctx, x, x1, report=None):
         # report is None: partial participation needs the materialised batch
         state, xi, byz_sum, diag = guard.gen_step(state, genctx, x, x1)
-        return state, xi, diag["n_alive"], state.alive, byz_sum
+        if not guard.probe:
+            return state, xi, diag["n_alive"], state.alive, byz_sum
+        return (state, xi, diag["n_alive"], state.alive, byz_sum,
+                guard_frame(m, diag, state.alive))
 
     return state0, step
 
 
-def _dense_backend(problem, cfg, device="cuda"):
+def _dense_backend(problem, cfg, device="cuda", telemetry=None):
     # gram_B is re-derived from the stored B every step (the drift oracle)
     guard = ByzantineGuard(_guard_config(problem, cfg), stats_dtype=cfg.stats_dtype,
-                           device=device, sanitize=cfg.sanitize == "quarantine")
+                           device=device, sanitize=cfg.sanitize == "quarantine",
+                           probe=telemetry_on(telemetry))
     return _wrap_byzantine_guard(guard, problem.d)
 
 
-def _fused_backend(problem, cfg, device="cuda", d_block: int | None = None,
+def _fused_backend(problem, cfg, device="cuda", telemetry=None, d_block: int | None = None,
                    gram_resync_every: int = 64):
     """``d_block`` is accepted for the JAX package's sweeps and ignored: the
     CUDA kernel takes any d with no strip width."""
@@ -131,13 +150,15 @@ def _fused_backend(problem, cfg, device="cuda", d_block: int | None = None,
                            gram_resync_every=gram_resync_every,
                            stats_dtype=cfg.stats_dtype, device=device,
                            sanitize=cfg.sanitize == "quarantine",
-                           gen_spec=problem.gen if gen_on else None)
+                           gen_spec=problem.gen if gen_on else None,
+                           probe=telemetry_on(telemetry))
     if gen_on:
         return _wrap_gen_guard(guard, problem.d)
     return _wrap_byzantine_guard(guard, problem.d)
 
 
-def _dp_backend(problem, cfg, device="cuda", *, mode: str, auto_v: bool = True,
+def _dp_backend(problem, cfg, device="cuda", telemetry=None, *, mode: str,
+                auto_v: bool = True,
                 sketch_dim: int = 4096, sketch_slack: float = 1.5,
                 incremental_gram: bool = True, gram_resync_every: int = 64,
                 low_precision_stats: bool = False, v_ema: float = 0.9):
@@ -161,6 +182,7 @@ def _dp_backend(problem, cfg, device="cuda", *, mode: str, auto_v: bool = True,
     dev = resolve_device(device)
     state0 = init_guard_state(dcfg, torch.zeros((problem.d,), device=dev))
     san = cfg.sanitize == "quarantine"
+    probe = telemetry_on(telemetry)
 
     def step(state, grads, x, x1, report=None):
         if san:
@@ -178,7 +200,14 @@ def _dp_backend(problem, cfg, device="cuda", *, mode: str, auto_v: bool = True,
             state = state._replace(alive=state.alive & finite)
             n_alive = torch.sum(state.alive)
         # ξ leaves the guard in the gradients' dtype; the solver takes f32
-        return state, xi.to(torch.float32), n_alive, state.alive
+        if not probe:
+            return state, xi.to(torch.float32), n_alive, state.alive
+        diag["n_alive"] = n_alive
+        if san:
+            diag["n_nonfinite"] = torch.sum(~finite)
+        # v_est: the calibrated V of byzantine_dp.guard_step's diag
+        return (state, xi.to(torch.float32), n_alive, state.alive,
+                guard_frame(cfg.m, diag, state.alive))
 
     return state0, step
 

@@ -52,7 +52,17 @@ worker's last fresh row between its refreshes) and partial participation
 corrupts rows after the attack, keyed by ``fold_in(akey,
 FAULT_KEY_TAG)``, and its victims join ``byz_mask``.
 
-Not ported yet (it raises NotImplementedError): telemetry.
+``telemetry=`` (a :class:`repro_torch.obs.TelemetryConfig`, DESIGN.md
+§12) arms the guard flight recorder: the aggregator's step runs in its
+probed form, and its frame, completed here with ``step``, ‖ξ_k‖, the
+adversary's ``adapt_scale`` and, where their axes are armed,
+``n_reporting`` and ``staleness``, goes into a ring on the device; the
+per-worker first-filter step and the per-step count of surviving
+Byzantine workers ride along.  ``SolverResult.telemetry`` holds all three
+(:class:`repro_torch.obs.Telemetry`); nothing waits for the device until
+the caller reads the ring (``ring_read``).  ``None`` or ``enabled=False``
+runs the step as without the recorder; armed, it changes no decision and
+no kernel launch, since the frames only read the guard's own diagnostics.
 """
 from __future__ import annotations
 
@@ -68,6 +78,13 @@ from repro_torch.core import aggregators as agg_lib
 from repro_torch.core import attacks as attack_lib
 from repro_torch.core.guard_backends import make_guard_backend
 from repro_torch.kernels import gradgen
+from repro_torch.obs.telemetry import (
+    Telemetry,
+    baseline_frame,
+    ring_init,
+    ring_push,
+    telemetry_on,
+)
 from repro_torch.scenarios import faults as faults_mod
 
 
@@ -154,6 +171,8 @@ class SolverResult(NamedTuple):
     final_alive: torch.Tensor      # (m,) bool
     n_reporting: torch.Tensor | None = None  # (T,) int32 reporters a step under
     #                                          partial participation, else None
+    telemetry: Telemetry | None = None  # the flight recorder's ring and series
+    #                                     when armed, else None
 
 
 def byz_rank(key: torch.Tensor, m: int) -> torch.Tensor:
@@ -216,7 +235,21 @@ def _sanitized(step4):
     return step
 
 
-def make_aggregator(problem: Problem, cfg: SolverConfig, device="cuda"):
+def _probed(step4, m: int, sanitize: bool):
+    """A baseline step with the flight recorder's frame as a fifth output:
+    who survived, and under the quarantine how many rows held NaN/Inf."""
+
+    def step(state, grads, x, x1, report=None):
+        state, xi, n_alive, alive = step4(state, grads, x, x1, report)
+        frame = baseline_frame(m, alive, n_alive)
+        if sanitize:
+            frame["n_nonfinite"] = torch.sum(~torch.all(torch.isfinite(grads), dim=1))
+        return state, xi, n_alive, alive, frame
+
+    return step
+
+
+def make_aggregator(problem: Problem, cfg: SolverConfig, device="cuda", telemetry=None):
     """Returns (init_state, step(state, grads, x, x1, report=None) -> (state,
     xi, n_alive, alive)).
 
@@ -229,12 +262,25 @@ def make_aggregator(problem: Problem, cfg: SolverConfig, device="cuda"):
     min(s·α, 1/2) contaminated-bucket fraction.  Baselines and bucketing
     report every worker alive, but for the rows the quarantine stage drops
     under ``sanitize="quarantine"``; the bucket rule's inner aggregator is
-    built with the same ``sanitize``.  Baselines ignore ``report``."""
+    built with the same ``sanitize``.  Baselines ignore ``report``.
+
+    ``telemetry`` armed gives every step its probed form, with the flight
+    recorder's frame as a fifth output (a generating guard step: sixth):
+    the guard backends fill the filter's forensics, baselines and
+    bucketing the alive mask and n_alive (and ``n_nonfinite`` under the
+    quarantine)."""
     opts = dict(cfg.agg_opts)
     _validate_agg_opts(opts)
     if cfg.sanitize not in ("off", "quarantine"):
         raise ValueError(f"sanitize must be 'off' or 'quarantine', got {cfg.sanitize!r}")
-    wrap = _sanitized if cfg.sanitize == "quarantine" else (lambda step4: step4)
+    san_on = cfg.sanitize == "quarantine"
+    probe = telemetry_on(telemetry)
+
+    def wrap(step4):
+        if san_on:
+            step4 = _sanitized(step4)
+        return _probed(step4, cfg.m, san_on) if probe else step4
+
     bucket_s, name = parse_aggregator_spec(cfg.aggregator)
     dev = resolve_device(device)
     n_alive = torch.tensor(cfg.m, device=dev)
@@ -258,7 +304,7 @@ def make_aggregator(problem: Problem, cfg: SolverConfig, device="cuda"):
         return state0, wrap(bucket_step)
 
     if name == "byzantine_sgd":
-        return make_guard_backend(cfg.guard_backend, problem, cfg, dev)
+        return make_guard_backend(cfg.guard_backend, problem, cfg, dev, telemetry)
 
     if name in agg_lib.STATEFUL_AGGREGATORS:
         factory = agg_lib.STATEFUL_AGGREGATORS[name]
@@ -290,9 +336,8 @@ def make_aggregator(problem: Problem, cfg: SolverConfig, device="cuda"):
     return None, wrap(step)
 
 
-def _check_supported(problem: Problem, cfg: SolverConfig, adversary, telemetry) -> None:
-    """The JAX package's ``ValueError`` gates of ``generate="kernel"``, then
-    NotImplementedError for what is not ported."""
+def _check_supported(problem: Problem, cfg: SolverConfig, adversary) -> None:
+    """The JAX package's ``ValueError`` gates of ``generate="kernel"``."""
     if cfg.generate not in ("off", "kernel"):
         raise ValueError(f"generate must be 'off' or 'kernel', got {cfg.generate!r}")
     if cfg.generate == "kernel":
@@ -323,8 +368,6 @@ def _check_supported(problem: Problem, cfg: SolverConfig, adversary, telemetry) 
         if bad:
             raise ValueError(f"attack ids {bad} are not in-kernel generatable "
                              f"(supported: {gradgen.GEN_SUPPORTED_IDS})")
-    if telemetry is not None:
-        raise NotImplementedError("not ported yet (ROADMAP.md §1): telemetry")
 
 
 def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
@@ -332,8 +375,11 @@ def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
     """Run one full optimization on ``device`` (the card unless the caller
     asks for the CPU).  ``key`` is a :func:`repro_torch.prng.PRNGKey`;
     ``adversary`` a :class:`~repro_torch.scenarios.adversary.
-    ScenarioAdversary` or None (the static ``cfg.attack``)."""
-    _check_supported(problem, cfg, adversary, telemetry)
+    ScenarioAdversary` or None (the static ``cfg.attack``); ``telemetry``
+    a :class:`repro_torch.obs.TelemetryConfig` or None (module
+    docstring)."""
+    tel_on = telemetry_on(telemetry)
+    _check_supported(problem, cfg, adversary)
     dev = resolve_device(device)
     if problem.x1.device.type != dev.type:
         raise ValueError(f"problem lives on {problem.x1.device}, run asked for {dev}")
@@ -357,7 +403,7 @@ def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
         adv_state = None
     else:
         adv_state = adversary.init_state(cfg.m, problem.d, device=dev)
-    agg_state, agg_step = make_aggregator(problem, cfg, dev)
+    agg_state, agg_step = make_aggregator(problem, cfg, dev, telemetry)
 
     x1 = problem.x1.to(torch.float32)
     x = x1
@@ -377,6 +423,11 @@ def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
         # each worker's last fresh row; every schedule fires at k = 0, so
         # the zeros are never read
         buf = torch.zeros((cfg.m, problem.d), dtype=torch.float32, device=dev)
+    if tel_on:
+        ring = ring_init(cfg.m, telemetry.ring_size, dev)
+        # first step (1-based) each worker left good_k; -1 = never
+        ffs = torch.full((cfg.m,), -1, dtype=torch.int32, device=dev)
+        byz_alive = []
     rng = key
     gaps, n_alive_series, n_reporting = [], [], []
     for k in range(cfg.T):
@@ -393,7 +444,7 @@ def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
                                                            problem.gen.noise_scale)
             genctx = gradgen.GenStepCtx(worker_keys=worker_keys, skewsign=skewsign, slot=slot,
                                         params=params, w_byz=w_byz)
-            agg_state, xi, n_alive, alive, byz_sum = agg_step(agg_state, genctx, x, x1)
+            agg_state, xi, n_alive, alive, byz_sum, *frame = agg_step(agg_state, genctx, x, x1)
             byz_row = byz_sum / torch.clamp(torch.sum(mask_k), min=1)
             adv_state = adversary.update_state_from_byz_row(adv_state, mask_k, byz_row, xi,
                                                             alive, n_alive, ctx)
@@ -427,7 +478,7 @@ def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
                 # Byzantine workers always report
                 report = adversary.report_at(prng.fold_in(akey, 7919), mask_k)
                 n_reporting.append(torch.sum(report, dtype=torch.int32))
-            agg_state, xi, n_alive, alive = agg_step(agg_state, grads, x, x1, report)
+            agg_state, xi, n_alive, alive, *frame = agg_step(agg_state, grads, x, x1, report)
             if adversary is not None:
                 adv_state = adversary.update_state(adv_state, mask_k, grads, xi, alive,
                                                    n_alive, ctx)
@@ -445,6 +496,22 @@ def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
         # sanitizer killing them is not an honest worker filtered
         ever_byz = ever_byz | mask_k
         any_good_filtered = any_good_filtered | torch.any((~alive) & (~ever_byz))
+        if tel_on:
+            # the aggregator's frame completed with the solver's signals
+            frame = frame[0]
+            frame["step"] = k + 1
+            frame["xi_norm"] = torch.linalg.vector_norm(xi)
+            scale = getattr(adv_state, "adapt_scale", None)
+            if scale is not None:
+                frame["adapt_scale"] = scale
+            if part_on:
+                frame["n_reporting"] = n_reporting[-1]
+            if stale_on:
+                frame["staleness"] = torch.mean(
+                    adversary.staleness_at(k, cfg.max_delay).to(torch.float32))
+            ring = ring_push(ring, frame)
+            ffs = torch.where((ffs < 0) & ~alive, k + 1, ffs)
+            byz_alive.append(torch.sum(alive & mask_k, dtype=torch.int32))
         prev_xi, prev_alive, prev_n_alive = xi, alive, n_alive
         # Theorem-3.8 average over the iterates the gradients were taken
         # at: accumulate x_k, not x_{k+1}
@@ -464,6 +531,8 @@ def run_sgd(problem: Problem, cfg: SolverConfig, key: torch.Tensor,
         final_alive=(agg_state.alive if hasattr(agg_state, "alive")
                      else torch.ones((cfg.m,), dtype=torch.bool, device=dev)),
         n_reporting=torch.stack(n_reporting) if part_on else None,
+        telemetry=(Telemetry(ring=ring, first_filter_step=ffs, byz_alive=torch.stack(byz_alive))
+                   if tel_on else None),
     )
 
 

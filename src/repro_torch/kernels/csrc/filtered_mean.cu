@@ -25,7 +25,8 @@
 // campaign group in one launch, x (R, m, d), w (R, m), ξ (R, d); grid y is
 // the run, and each run's ξ is the one-run launch's bits.
 //
-// gen_xi (entry rt_gen_xi) replaces fused_guard.py's gen_xi_pallas (body
+// gen_xi (entries rt_gen_xi and, with grid y over a campaign group's runs,
+// rt_gen_xi_runs) replaces fused_guard.py's gen_xi_pallas (body
 // _gen_xi_kernel): the same loop over rows in order, with each row
 // generated (gen_rows.cuh) rather than loaded, and two accumulators:
 //   ξ   = Σᵢ w_xi[i]·round_S(rowᵢ)   (S the statistics type, f32 or bf16:
@@ -132,6 +133,16 @@ __global__ void __launch_bounds__(NT)
 gen_xi_kernel(const float* __restrict__ w_xi, const float* __restrict__ w_byz,
               float* __restrict__ xi, float* __restrict__ byz, rt::gen::Args ga, int64_t m,
               int64_t d) {
+  // grid y is the run: run r's weights, outputs and generator operands lie
+  // r strides past the first run's (a one-run launch has one)
+  if (blockIdx.y) {
+    const int64_t run = blockIdx.y;
+    ga = ga.at_run(run);
+    w_xi += run * m;
+    w_byz += run * m;
+    xi += run * d;
+    byz += run * d;
+  }
   constexpr int CH = rt::gen::ROW_CHUNK;
   __shared__ float sx[CH], sb[CH];
   __shared__ rt::gen::Row srow[CH];
@@ -216,35 +227,74 @@ extern "C" int rt_filtered_mean_runs(int64_t dtype, int64_t runs, int64_t saniti
 // what rt_fused_guard_gen wrote there for the same operands, and the step
 // runs one moments pass, not two.  Then the sums.  Returns 0 or the first
 // CUDA error.
-extern "C" int rt_gen_xi(int64_t dtype, const void* w_xi, const void* w_byz, void* xi,
-                         void* byz, const void* x, const void* h, const void* xs,
-                         const void* hd, const void* keys, const void* skew, const void* slot,
-                         const void* params, void* moments, int64_t moments_ready, int64_t m,
-                         int64_t d, int64_t device, void* stream) {
-  if (m < 1 || m > rt::MAX_WORKERS || d < 1) return (int)cudaErrorInvalidValue;
+namespace {
+
+int gen_xi_run(int64_t dtype, int64_t runs, const void* w_xi, const void* w_byz, void* xi,
+               void* byz, const rt::gen::Args& ga, int64_t moments_ready, int64_t m, int64_t d,
+               int64_t device, void* stream) {
+  if (m < 1 || m > rt::MAX_WORKERS || d < 1 || runs < 1 || runs > MAX_RUNS)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const rt::gen::Args ga{static_cast<const float*>(x),        static_cast<const float*>(h),
-                         static_cast<const float*>(xs),       static_cast<const float*>(hd),
-                         static_cast<const uint32_t*>(keys),  static_cast<const float*>(skew),
-                         static_cast<const int*>(slot),       static_cast<const float*>(params),
-                         static_cast<float*>(moments)};
   if (!moments_ready) {
-    err = rt::gen::launch_moments(ga, m, d, s);
+    err = rt::gen::launch_moments(ga, m, d, s, runs);
     if (err != cudaSuccess) return (int)err;
   }
   const int64_t n4 = (d + 3) / 4;
   const int64_t blocks = (n4 + NT - 1) / NT < (1 << 20) ? (n4 + NT - 1) / NT : (1 << 20);
+  const dim3 grid((unsigned)blocks, (unsigned)runs);
   const float* wx = static_cast<const float*>(w_xi);
   const float* wb = static_cast<const float*>(w_byz);
   float* ox = static_cast<float*>(xi);
   float* ob = static_cast<float*>(byz);
   if (dtype == 0)
-    gen_xi_kernel<float><<<(unsigned)blocks, NT, 0, s>>>(wx, wb, ox, ob, ga, m, d);
+    gen_xi_kernel<float><<<grid, NT, 0, s>>>(wx, wb, ox, ob, ga, m, d);
   else if (dtype == 1)
-    gen_xi_kernel<__nv_bfloat16><<<(unsigned)blocks, NT, 0, s>>>(wx, wb, ox, ob, ga, m, d);
+    gen_xi_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(wx, wb, ox, ob, ga, m, d);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int rt_gen_xi(int64_t dtype, const void* w_xi, const void* w_byz, void* xi,
+                         void* byz, const void* x, const void* h, const void* xs,
+                         const void* hd, const void* keys, const void* skew, const void* slot,
+                         const void* params, void* moments, int64_t moments_ready, int64_t m,
+                         int64_t d, int64_t device, void* stream) {
+  const rt::gen::Args ga{static_cast<const float*>(x),        static_cast<const float*>(h),
+                         static_cast<const float*>(xs),       static_cast<const float*>(hd),
+                         static_cast<const uint32_t*>(keys),  static_cast<const float*>(skew),
+                         static_cast<const int*>(slot),       static_cast<const float*>(params),
+                         static_cast<float*>(moments)};
+  return gen_xi_run(dtype, 1, w_xi, w_byz, xi, byz, ga, moments_ready, m, d, device, stream);
+}
+
+// gen_xi over a run axis, 1 <= runs <= 65535 (grid y): w_xi, w_byz
+// (runs, m); xi, byz (runs, d); keys (runs, m, 2), skew and slot (runs, m),
+// params (runs, 12), moments (runs, 2, d); x, h, x*, het_dir each
+// (runs, d), or (d,) shared by the runs when its bit of `shared` is set
+// (bit 0 x, 1 h, 2 x*, 3 het_dir), as rt_fused_guard_gen_runs takes them.
+// moments_ready: the buffer holds what rt_fused_guard_gen_runs wrote
+// there for the same operands.  Each run's ξ and byz are the bits of its
+// one-run rt_gen_xi.
+extern "C" int rt_gen_xi_runs(int64_t dtype, int64_t runs, int64_t shared, const void* w_xi,
+                              const void* w_byz, void* xi, void* byz, const void* x,
+                              const void* h, const void* xs, const void* hd, const void* keys,
+                              const void* skew, const void* slot, const void* params,
+                              void* moments, int64_t moments_ready, int64_t m, int64_t d,
+                              int64_t device, void* stream) {
+  const bool flags[4] = {(shared & 1) != 0, (shared & 2) != 0, (shared & 4) != 0,
+                         (shared & 8) != 0};
+  const rt::gen::Args ga = rt::gen::with_run_strides(
+      rt::gen::Args{static_cast<const float*>(x),       static_cast<const float*>(h),
+                    static_cast<const float*>(xs),      static_cast<const float*>(hd),
+                    static_cast<const uint32_t*>(keys), static_cast<const float*>(skew),
+                    static_cast<const int*>(slot),      static_cast<const float*>(params),
+                    static_cast<float*>(moments)},
+      m, d, flags);
+  return gen_xi_run(dtype, runs, w_xi, w_byz, xi, byz, ga, moments_ready, m, d, device,
+                    stream);
 }

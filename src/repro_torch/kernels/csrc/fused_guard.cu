@@ -63,13 +63,15 @@
 // The bf16 sweep (guard_sweep.cuh) keeps this grid, the partials and their
 // reduction.
 //
-// The run axis (entry rt_fused_guard_runs): what vmap of the Pallas call
-// computes, one launch for the R runs of a campaign group.  Grid x is
-// run · nb + split; each run reads its own g, B and δ and writes its own
-// partials (an R axis in front of the scratch) and outputs, and the
-// reductions walk each run's partials in the one-run order.  With the nb
-// of a one-run launch every run's outputs are that launch's bits; R = 1
-// is today's launch.  The run offsets are int64 (R·m·d may pass 2^31).
+// The run axis (entries rt_fused_guard_runs and rt_fused_guard_gen_runs):
+// what vmap of the Pallas call computes, one launch for the R runs of a
+// campaign group.  Grid x is run · nb + split; each run reads its own g
+// (GEN: its own generator operands, gen_rows.cuh's Args::at_run), B and δ
+// and writes its own partials (an R axis in front of the scratch) and
+// outputs, and the reductions walk each run's partials in the one-run
+// order.  With the nb of a one-run launch every run's outputs are that
+// launch's bits; R = 1 is today's launch.  The run offsets are int64
+// (R·m·d may pass 2^31).
 //
 // The sanitizing variant zeroes g where it is used, after the prefetch has
 // landed, so no extra instruction waits on a load.  Each entry of g is
@@ -109,7 +111,8 @@ fused_guard_kernel(const float* __restrict__ g, const float* __restrict__ B,
   // r strides past the first run's
   const int64_t run = blockIdx.x / nb, split = blockIdx.x % nb;
   if (run) {
-    g += run * m * d;
+    if constexpr (GEN) ga = ga.at_run(run);
+    else g += run * m * d;
     B += run * m * d;
     B_new += run * m * d;
     delta += run * d;
@@ -379,7 +382,7 @@ struct Sweep {
   float* a_part;
   int* nf_part;
   int64_t m, d, nb;
-  int64_t runs;  // runs of one launch, each with its own operands (GEN: 1)
+  int64_t runs;  // runs of one launch, each with its own operands
 };
 
 template <bool SAN, bool GEN>
@@ -442,14 +445,15 @@ cudaError_t launch_bf16(const Sweep& w, const rt::gen::Args& ga, cudaStream_t st
 template <bool SAN, bool GEN>
 int run(int64_t dtype, const Sweep& w, void* gram, void* cross, void* a_inc, void* nf,
         const rt::gen::Args& ga, int64_t device, void* stream) {
+  // GEN: the moments kernel's grid y is the run
   if (w.m < 1 || w.m > rt::MAX_WORKERS || w.d < 1 || w.nb < 1 || w.runs < 1 ||
-      w.nb * w.runs > 0x7fffffff || (GEN && w.runs != 1))
+      w.nb * w.runs > 0x7fffffff || (GEN && w.runs > 65535))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (GEN) {
-    err = rt::gen::launch_moments(ga, w.m, w.d, s);
+    err = rt::gen::launch_moments(ga, w.m, w.d, s, w.runs);
     if (err != cudaSuccess) return (int)err;
   }
   if (dtype == 0)
@@ -550,5 +554,38 @@ extern "C" int rt_fused_guard_gen(int64_t dtype, const void* B, const void* delt
   const Sweep w{nullptr, B, delta, B_new, static_cast<float*>(gram_part),
                 static_cast<float*>(cross_part), static_cast<float*>(a_part), nullptr, m, d,
                 nb, 1};
+  return run<false, true>(dtype, w, gram, cross, a_inc, nullptr, ga, device, stream);
+}
+
+// The generating variant over a run axis: one launch for `runs` sweeps of
+// one shape (a campaign group's runs), each with its own B, delta, B_new
+// (as rt_fused_guard_runs lays them out), worker keys (runs, m, 2), skew
+// and slot (runs, m), params (runs, 12) and moments (runs, 2, d); x, h, x*
+// and het_dir are each (runs, d), or (d,) shared by every run when its
+// flag in `shared` (bit 0 x, 1 h, 2 x*, 3 het_dir) is set.  The moments
+// kernel runs over the runs first (grid y), then the sweep; each run takes
+// the blocks, partials and reduction order of its one-run launch with the
+// same nb, so its outputs and moments are that launch's bits.  runs = 1
+// with no flag set is rt_fused_guard_gen.
+extern "C" int rt_fused_guard_gen_runs(int64_t dtype, int64_t runs, int64_t shared,
+                                       const void* B, const void* delta, void* B_new,
+                                       void* gram_part, void* cross_part, void* a_part,
+                                       void* gram, void* cross, void* a_inc, const void* x,
+                                       const void* h, const void* xs, const void* hd,
+                                       const void* keys, const void* skew, const void* slot,
+                                       const void* params, void* moments, int64_t m,
+                                       int64_t d, int64_t nb, int64_t device, void* stream) {
+  const bool flags[4] = {(shared & 1) != 0, (shared & 2) != 0, (shared & 4) != 0,
+                         (shared & 8) != 0};
+  const rt::gen::Args ga = rt::gen::with_run_strides(
+      rt::gen::Args{static_cast<const float*>(x),       static_cast<const float*>(h),
+                    static_cast<const float*>(xs),      static_cast<const float*>(hd),
+                    static_cast<const uint32_t*>(keys), static_cast<const float*>(skew),
+                    static_cast<const int*>(slot),      static_cast<const float*>(params),
+                    static_cast<float*>(moments)},
+      m, d, flags);
+  const Sweep w{nullptr, B, delta, B_new, static_cast<float*>(gram_part),
+                static_cast<float*>(cross_part), static_cast<float*>(a_part), nullptr, m, d,
+                nb, runs};
   return run<false, true>(dtype, w, gram, cross, a_inc, nullptr, ga, device, stream);
 }

@@ -37,6 +37,12 @@ enum {
 // The generator's operands: (d,) f32 coordinate data, (m,) worker data,
 // the parameters, and the honest column moments (2·d floats, written by
 // gen_moments_kernel; read only when an ALIE id is in play).
+//
+// The run axis (entries rt_*_gen_runs): run r's operands lie r run strides
+// past the first run's.  The worker data, the parameters and the moments
+// are each run's own; a (d,) vector may be each run's own (stride d) or
+// shared by the runs (stride 0), so a shared x* or h is not copied R
+// times.  One-run entries leave every stride 0.  Strides are in elements.
 struct Args {
   const float* x;
   const float* h;
@@ -47,6 +53,23 @@ struct Args {
   const int* slot;
   const float* params;
   float* moments;        // μ at [0, d), σ at [d, 2d)
+  int64_t x_rs, h_rs, xs_rs, hd_rs;  // 0 or d
+  int64_t keys_rs, row_rs, params_rs, moments_rs;  // 2·m, m, NPARAMS, 2·d
+
+  // run r's operands (int64 offsets: R·m·d may pass 2^31)
+  __host__ __device__ Args at_run(int64_t r) const {
+    Args a = *this;
+    a.x += r * x_rs;
+    a.h += r * h_rs;
+    a.xs += r * xs_rs;
+    a.hd += r * hd_rs;
+    a.keys += r * keys_rs;
+    a.skew += r * row_rs;
+    a.slot += r * row_rs;
+    a.params += r * params_rs;
+    a.moments += r * moments_rs;
+    return a;
+  }
 };
 
 // One worker's constants, resolved from its slot and the parameters.
@@ -218,9 +241,11 @@ constexpr int ROW_CHUNK = 128;
 // worker constants can be staged block-wide.  The whole grid returns at
 // once when no phase plays ids 4 or 8.  Launched before the generating
 // sweep, on the same stream; gen_xi launches it again only when the caller
-// does not hand it the sweep's moments.
+// does not hand it the sweep's moments.  Grid y is the run (Args::at_run);
+// each run decides from its own parameters.
 __global__ void __launch_bounds__(256)
 gen_moments_kernel(Args a, int64_t m, int64_t d) {
+  a = a.at_run(blockIdx.y);
   if (!needs_moments(a.params)) return;
   __shared__ uint32_t sk[2 * ROW_CHUNK];
   __shared__ float ss[ROW_CHUNK];
@@ -277,10 +302,27 @@ gen_moments_kernel(Args a, int64_t m, int64_t d) {
   }
 }
 
-inline cudaError_t launch_moments(const Args& a, int64_t m, int64_t d, cudaStream_t s) {
+// runs <= 65535 (grid y)
+inline cudaError_t launch_moments(const Args& a, int64_t m, int64_t d, cudaStream_t s,
+                                  int64_t runs = 1) {
   const int64_t blocks = (d + 255) / 256 < (1 << 20) ? (d + 255) / 256 : (1 << 20);
-  gen_moments_kernel<<<(unsigned)blocks, 256, 0, s>>>(a, m, d);
+  gen_moments_kernel<<<dim3((unsigned)blocks, (unsigned)runs), 256, 0, s>>>(a, m, d);
   return cudaGetLastError();
+}
+
+// The run strides of a launch over `runs` runs with m workers and d
+// coordinates; shared[q] tells whether (d,) vector q (x, h, x*, het_dir) is
+// one for all runs.
+inline Args with_run_strides(Args a, int64_t m, int64_t d, const bool shared[4]) {
+  a.x_rs = shared[0] ? 0 : d;
+  a.h_rs = shared[1] ? 0 : d;
+  a.xs_rs = shared[2] ? 0 : d;
+  a.hd_rs = shared[3] ? 0 : d;
+  a.keys_rs = 2 * m;
+  a.row_rs = m;
+  a.params_rs = NPARAMS;
+  a.moments_rs = 2 * d;
+  return a;
 }
 
 }  // namespace gen

@@ -146,7 +146,8 @@ guard_bf16_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __re
   // operands, partials and outputs lie r strides past the first run's
   const int64_t run = blockIdx.x / nb, split = blockIdx.x % nb;
   if (run) {
-    g += run * m * d;
+    if constexpr (GEN) ga = ga.at_run(run);  // the generator's operands of run r
+    else g += run * m * d;
     B += run * m * d;
     B_new += run * m * d;
     delta += run * d;

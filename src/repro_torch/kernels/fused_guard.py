@@ -29,6 +29,12 @@ once a step: ``fused_guard_gen_cuda(..., moments=buf)`` leaves them in
 ``buf`` and ``gen_xi_cuda(..., moments=buf)`` reads them.  Their plain
 versions are ``ref.fused_guard_gen_ref`` and ``ref.gen_xi_ref``; each
 counts its launches in ``.launches``.
+
+Every wrapper has a run-axis form for a campaign group, one launch for
+its R runs (``*_runs_cuda``; :mod:`repro_torch.kernels.run_axis` calls
+them under ``torch.func.vmap``).  ``fused_guard_gen_runs_cuda`` returns
+the (R, 2, d) moments as a fifth output, and ``gen_xi_runs_cuda`` takes
+them as an input, so neither mutates an argument.
 """
 from __future__ import annotations
 
@@ -98,27 +104,30 @@ def d_splits(n_tiles: int, tile_pairs: int, dev: torch.device) -> int:
 
 
 def _sweep_buffers(B: torch.Tensor, dev: torch.device):
-    """The d-split count and the buffers of one sweep over (m, d) ``B``:
+    """The d-split count and the buffers of one sweep over (m, d) ``B``, or
+    of one launch over the runs of (R, m, d) ``B`` (each run with a one-run
+    launch's d-split count, an R axis in front of every buffer):
     ``(nb, parts, a_part, gram_g, cross, a_inc, B_new)``; ``parts`` holds
     both Grams' per-split partials."""
-    m, d = B.shape
+    *lead, m, d = B.shape
     nt = -(-m // _TILE)
     mp = _TILE * nt
     nb = d_splits(-(-d // _SWEEP_TILE[B.dtype]), nt * nt, dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    return (nb, torch.empty((2, nb, mp, mp), **f32), torch.empty((nb, mp), **f32),
-            torch.empty((m, m), **f32), torch.empty((m, m), **f32), torch.empty((m,), **f32),
-            torch.empty_like(B))
+    return (nb, torch.empty((2, *lead, nb, mp, mp), **f32), torch.empty((*lead, nb, mp), **f32),
+            torch.empty((*lead, m, m), **f32), torch.empty((*lead, m, m), **f32),
+            torch.empty((*lead, m), **f32), torch.empty_like(B))
 
 
-def _moments_buffer(name: str, moments, d: int, dev: torch.device) -> torch.Tensor:
-    """``moments`` checked as a contiguous (2, d) f32 tensor on ``dev``, or
-    a new one when it is None."""
+def _moments_buffer(name: str, moments, shape: tuple, dev: torch.device) -> torch.Tensor:
+    """``moments`` checked as a contiguous f32 tensor of ``shape`` ((2, d),
+    or (R, 2, d) over a run axis) on ``dev``, or a new one when it is
+    None."""
     if moments is None:
-        return torch.empty((2, d), dtype=torch.float32, device=dev)
+        return torch.empty(shape, dtype=torch.float32, device=dev)
     if (moments.device != dev or moments.dtype != torch.float32
-            or moments.shape != (2, d) or not moments.is_contiguous()):
-        raise ValueError(f"{name}: moments must be a contiguous (2, {d}) f32 tensor on {dev}, "
+            or moments.shape != shape or not moments.is_contiguous()):
+        raise ValueError(f"{name}: moments must be a contiguous {shape} f32 tensor on {dev}, "
                          f"got {tuple(moments.shape)} {moments.dtype} on {moments.device}")
     return moments
 
@@ -196,17 +205,10 @@ def fused_guard_runs_cuda(grads: torch.Tensor, B: torch.Tensor, delta: torch.Ten
     check_workers("fused_guard", m)
     if d < 1:
         raise ValueError(f"fused_guard: needs d >= 1, got d={d}")
-    nt = -(-m // _TILE)
-    mp = _TILE * nt
-    nb = d_splits(-(-d // _SWEEP_TILE[B.dtype]), nt * nt, dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    parts = torch.empty((2, R, nb, mp, mp), **f32)
-    a_part = torch.empty((R, nb, mp), **f32)
-    gram_g, cross = torch.empty((R, m, m), **f32), torch.empty((R, m, m), **f32)
-    a_inc, B_new = torch.empty((R, m), **f32), torch.empty_like(B)
+    nb, parts, a_part, gram_g, cross, a_inc, B_new = _sweep_buffers(B, dev)
     nf_part = nf = None
     if sanitize:
-        nf_part = torch.empty((R, nb, mp), dtype=torch.int32, device=dev)
+        nf_part = torch.empty_like(a_part, dtype=torch.int32)
         nf = torch.empty((R, m), dtype=torch.int32, device=dev)
     fn = _build.load_function("fused_guard", "rt_fused_guard_runs", _RUNS_ARGTYPES)
     ptrs = [grads, B, delta, B_new, parts[0], parts[1], a_part, nf_part, gram_g, cross, a_inc,
@@ -224,11 +226,14 @@ def fused_guard_runs_cuda(grads: torch.Tensor, B: torch.Tensor, delta: torch.Ten
 
 
 def _gen_operands(name: str, dev: torch.device, m: int, d: int, x, h, x_star, het_dir,
-                  keys, skewsign, slot, params) -> list[torch.Tensor]:
+                  keys, skewsign, slot, params, runs: int | None = None) -> list[torch.Tensor]:
     """The generator's operands as the kernels take them, after checking
     that they lie on ``dev``: the (d,) f32 vectors, the keys as (m, 2)
     int32 bit patterns of their uint32 words (from int64), skewsign f32,
-    slot int32, params f32."""
+    slot int32, params f32.  With ``runs`` = R every per-worker operand
+    and params carry a leading run axis (keys (R, m, 2), skewsign and slot
+    (R, m), params (R, 12)) and each (d,) vector is (R, d) or (d,), one for
+    every run; the keys' words are converted in one pass over the stack."""
     f32 = {"x": x, "h": h, "x_star": x_star, "het_dir": het_dir, "skewsign": skewsign,
            "params": params}
     if check_cuda_inputs(name, {**f32, "keys": keys, "slot": slot},
@@ -238,16 +243,26 @@ def _gen_operands(name: str, dev: torch.device, m: int, d: int, x, h, x_star, he
             or slot.dtype != torch.int32):
         raise TypeError(f"{name}: expected f32 vectors, skewsign and params, int64 keys "
                         f"and int32 slot")
-    if (any(t.shape != (d,) for t in (x, h, x_star, het_dir)) or keys.shape != (m, 2)
-            or skewsign.shape != (m,) or slot.shape != (m,) or params.shape != (GEN_NPARAMS,)):
-        raise ValueError(f"{name}: expected ({d},) vectors, keys ({m}, 2), skewsign and slot "
-                         f"({m},), params ({GEN_NPARAMS},)")
+    lead = () if runs is None else (runs,)
+    vectors = ((d,),) if runs is None else ((d,), (runs, d))
+    if (any(t.shape not in vectors for t in (x, h, x_star, het_dir))
+            or keys.shape != (*lead, m, 2) or skewsign.shape != (*lead, m)
+            or slot.shape != (*lead, m) or params.shape != (*lead, GEN_NPARAMS)):
+        raise ValueError(f"{name}: expected vectors of shape {' or '.join(map(str, vectors))}, "
+                         f"keys {(*lead, m, 2)}, skewsign and slot {(*lead, m)}, params "
+                         f"{(*lead, GEN_NPARAMS)}")
     check_workers(name, m)
     if d < 1:
         raise ValueError(f"{name}: needs d >= 1, got d={d}")
     words = keys & MASK32
     words = torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
     return [x, h, x_star, het_dir, words, skewsign, slot, params]
+
+
+def _shared_bits(vectors) -> int:
+    """The run entries' ``shared`` flags: bit q set when (d,) vector q of
+    (x, h, x*, het_dir) is one for every run."""
+    return sum(1 << q for q, t in enumerate(vectors) if t.dim() == 1)
 
 
 def fused_guard_gen_cuda(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, params,
@@ -264,7 +279,7 @@ def fused_guard_gen_cuda(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, 
     m, d = B.shape
     gen = _gen_operands("fused_guard_gen", dev, m, d, x, h, x_star, het_dir, keys, skewsign,
                         slot, params)
-    moments = _moments_buffer("fused_guard_gen", moments, d, dev)
+    moments = _moments_buffer("fused_guard_gen", moments, (2, d), dev)
     nb, parts, a_part, gram_g, cross, a_inc, B_new = _sweep_buffers(B, dev)
     fn = _build.load_function("fused_guard", "rt_fused_guard_gen", _GEN_ARGTYPES)
     ptrs = [B, delta, B_new, parts[0], parts[1], a_part, gram_g, cross, a_inc, *gen, moments]
@@ -292,7 +307,7 @@ def gen_xi_cuda(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params
     gen = _gen_operands("gen_xi", dev, m, d, x, h, x_star, het_dir, keys, skewsign, slot,
                         params)
     ready = moments is not None
-    moments = _moments_buffer("gen_xi", moments, d, dev)
+    moments = _moments_buffer("gen_xi", moments, (2, d), dev)
     f32 = dict(dtype=torch.float32, device=dev)
     xi = torch.empty((d,), **f32)
     byz = torch.empty((d,), **f32)
@@ -308,3 +323,74 @@ def gen_xi_cuda(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params
 
 fused_guard_gen_cuda.launches = 0
 gen_xi_cuda.launches = 0
+
+_GEN_RUNS_ARGTYPES = ([ctypes.c_int64] * 3 + [ctypes.c_void_p] * 18
+                      + [ctypes.c_int64] * 4 + [ctypes.c_void_p])
+_GEN_XI_RUNS_ARGTYPES = ([ctypes.c_int64] * 3 + [ctypes.c_void_p] * 13
+                         + [ctypes.c_int64] * 4 + [ctypes.c_void_p])
+
+
+def fused_guard_gen_runs_cuda(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, params):
+    """:func:`fused_guard_gen_cuda` over a leading run axis, in one launch:
+    B (R, m, d), delta (R, d), keys (R, m, 2), skewsign and slot (R, m),
+    params (R, 12); x, h, x_star and het_dir each (R, d) or (d,), one for
+    every run (not copied R times) → gram_g, cross (R, m, m), a_inc
+    (R, m), B_new (R, m, d) and ALIE's honest moments (R, 2, d).  Run r's
+    outputs and moments are the bits of its own one-run launch (the same
+    d-split count, the same order of sums).  Counts one launch, in
+    ``fused_guard_gen_cuda.launches``."""
+    dev = check_cuda_inputs("fused_guard_gen", {"B": B, "delta": delta}, tuple(_DTYPE_CODES))
+    R = check_runs("fused_guard_gen", B, {"delta": (delta, (B.shape[0], B.shape[2]))})
+    if B.dtype != delta.dtype:
+        raise TypeError("fused_guard_gen: B and delta must share a dtype")
+    _, m, d = B.shape
+    if R > 65535:
+        raise ValueError(f"fused_guard_gen: takes at most 65535 runs, got {R}")
+    gen = _gen_operands("fused_guard_gen", dev, m, d, x, h, x_star, het_dir, keys, skewsign,
+                        slot, params, runs=R)
+    nb, parts, a_part, gram_g, cross, a_inc, B_new = _sweep_buffers(B, dev)
+    moments = torch.empty((R, 2, d), dtype=torch.float32, device=dev)
+    fn = _build.load_function("fused_guard", "rt_fused_guard_gen_runs", _GEN_RUNS_ARGTYPES)
+    ptrs = [B, delta, B_new, parts[0], parts[1], a_part, gram_g, cross, a_inc, *gen, moments]
+    rc = fn(_DTYPE_CODES[B.dtype], R, _shared_bits(gen[:4]), *(t.data_ptr() for t in ptrs),
+            m, d, nb, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_guard_gen: kernel launch failed with CUDA error {rc}")
+    fused_guard_gen_cuda.launches += 1
+    return gram_g, cross, a_inc, B_new, moments
+
+
+def gen_xi_runs_cuda(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,
+                     stats_dtype=torch.float32, moments=None):
+    """:func:`gen_xi_cuda` over a leading run axis, in one launch: w_xi and
+    w_byz (R, m), the generator's operands as
+    :func:`fused_guard_gen_runs_cuda` takes them, ``moments`` None or the
+    (R, 2, d) that it returned for the same operands → ξ and byz (R, d),
+    each run the bits of its own one-run launch.  Counts one launch, in
+    ``gen_xi_cuda.launches``."""
+    dev = check_cuda_inputs("gen_xi", {"w_xi": w_xi, "w_byz": w_byz}, (torch.float32,))
+    if w_xi.dim() != 2 or w_byz.shape != w_xi.shape:
+        raise ValueError(f"gen_xi: w_xi and w_byz must be (runs, m), got "
+                         f"{tuple(w_xi.shape)} and {tuple(w_byz.shape)}")
+    R, m = w_xi.shape
+    d = x.shape[-1]
+    if not 1 <= R <= 65535:
+        raise ValueError(f"gen_xi: takes 1 to 65535 runs, got {R}")
+    if stats_dtype not in _DTYPE_CODES:
+        raise TypeError(f"gen_xi: stats_dtype {stats_dtype} is not one of {tuple(_DTYPE_CODES)}")
+    gen = _gen_operands("gen_xi", dev, m, d, x, h, x_star, het_dir, keys, skewsign, slot,
+                        params, runs=R)
+    ready = moments is not None
+    moments = _moments_buffer("gen_xi", moments, (R, 2, d), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    xi = torch.empty((R, d), **f32)
+    byz = torch.empty((R, d), **f32)
+    fn = _build.load_function("filtered_mean", "rt_gen_xi_runs", _GEN_XI_RUNS_ARGTYPES)
+    ptrs = [w_xi, w_byz, xi, byz, *gen, moments]
+    rc = fn(_DTYPE_CODES[stats_dtype], R, _shared_bits(gen[:4]),
+            *(t.data_ptr() for t in ptrs), int(ready), m, d, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gen_xi: kernel launch failed with CUDA error {rc}")
+    gen_xi_cuda.launches += 1
+    return xi, byz

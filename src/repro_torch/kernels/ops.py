@@ -8,12 +8,14 @@ are the JAX package's ``ops.fused_guard(grads, B, delta, sanitize=False)``,
 ``ops.coordinate_median(x)``, ``ops.trimmed_mean(x, n_trim)`` and
 ``ops.countsketch(x, k, salt=0)``, ``ops.fused_guard_gen(B, delta, x, h,
 x_star, het_dir, keys, skewsign, slot, params)`` and ``ops.gen_xi(w_xi,
-w_byz, …, stats_dtype)``, without the TPU's ``d_block``.
+w_byz, …, stats_dtype)``, without the TPU's ``d_block``; the port's
+``fused_guard_gen(..., return_moments=True)`` also returns ALIE's
+moments for ``gen_xi(..., moments=…)`` of the same step.
 
 Under ``torch.func.vmap`` (a campaign group's runs) a CUDA tensor goes to
 the ops of :mod:`repro_torch.kernels.run_axis`, whose vmap rules launch
-each kernel once for the group; the generating kernels have no run axis
-yet and raise there.
+each kernel once for the group, never a loop of R launches and never a
+plain version.
 """
 from __future__ import annotations
 
@@ -34,12 +36,6 @@ def runs_kernel(t: torch.Tensor) -> bool:
     """True when ``t``'s device sends ``ops`` to the CUDA kernels, False
     when it runs the plain versions."""
     return t.device.type != "cpu"
-
-
-def _no_run_axis(name: str, *tensors) -> None:
-    if run_axis.under_vmap(*tensors):
-        raise NotImplementedError(f"{name} has no run axis yet (ROADMAP.md §1): a campaign's "
-                                  "'gen' variant is not ported")
 
 
 def fused_guard(grads: torch.Tensor, B: torch.Tensor, delta: torch.Tensor,
@@ -105,19 +101,24 @@ def countsketch(x: torch.Tensor, k: int, salt: int = 0) -> torch.Tensor:
 
 
 def fused_guard_gen(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, params,
-                    moments=None):
+                    return_moments=False):
     """:func:`fused_guard` with the (m, d) gradients generated from the
     worker keys and the attack parameters instead of read (see
     :func:`repro_torch.kernels.gradgen.gen_worker_rows`); the rows are
     rounded through ``B.dtype``.  ``keys`` are (m, 2) int64 uint32 words.
-    ``moments``, a (2, d) f32 tensor, receives ALIE's honest column
-    moments for :func:`gen_xi` of the same step."""
+    ``return_moments=True`` appends ALIE's (2, d) honest column moments,
+    for :func:`gen_xi` of the same step (written by the kernel only when
+    an ALIE id is in play)."""
+    operands = (x, h, x_star, het_dir, keys, skewsign, slot, params)
     if runs_kernel(B):
-        _no_run_axis("fused_guard_gen", B, x, keys, params)
-        return fused_guard_gen_cuda(B, delta, x, h, x_star, het_dir, keys, skewsign, slot,
-                                    params, moments=moments)
-    return ref.fused_guard_gen_ref(B, delta, x, h, x_star, het_dir, keys, skewsign, slot,
-                                   params, moments=moments)
+        if run_axis.under_vmap(B, delta, *operands):
+            out = run_axis.fused_guard_gen(B, delta, *operands)
+            return out if return_moments else out[:4]
+        moments = (torch.empty((2, x.shape[0]), dtype=torch.float32, device=x.device)
+                   if return_moments else None)
+        out = fused_guard_gen_cuda(B, delta, *operands, moments=moments)
+        return (*out, moments) if return_moments else out
+    return ref.fused_guard_gen_ref(B, delta, *operands, return_moments=return_moments)
 
 
 def gen_xi(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,
@@ -127,7 +128,10 @@ def gen_xi(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,
     what :func:`fused_guard_gen` left there for the same operands, read
     instead of taken again."""
     if runs_kernel(x):
-        _no_run_axis("gen_xi", w_xi, x, keys, params)
+        if run_axis.under_vmap(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot,
+                               params, moments):
+            return run_axis.gen_xi(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot,
+                                   params, moments, stats_dtype == torch.bfloat16)
         return gen_xi_cuda(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,
                            stats_dtype=stats_dtype, moments=moments)
     return ref.gen_xi_ref(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,

@@ -120,16 +120,15 @@ def gen_moments_ref(x, h, x_star, het_dir, keys, skewsign, slot, params) -> torc
 
 
 def fused_guard_gen_ref(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, params,
-                        moments=None):
+                        return_moments=False):
     """:func:`fused_guard_ref` over the generated batch, rounded once
     through the statistics dtype ``B.dtype`` as the materialising path
-    stores it.  ``moments``, a (2, d) f32 tensor, receives the honest
-    column moments (:func:`gen_moments_ref`) for :func:`gen_xi_ref`."""
+    stores it.  ``return_moments=True`` appends the (2, d) honest column
+    moments (:func:`gen_moments_ref`) for :func:`gen_xi_ref`."""
     operands = (x, h, x_star, het_dir, keys, skewsign, slot, params)
-    if moments is not None:
-        moments.copy_(gen_moments_ref(*operands))
-    rows = gen_rows_ref(*operands, moments=moments)
-    return fused_guard_ref(rows.to(B.dtype), B, delta)
+    mom = gen_moments_ref(*operands) if return_moments else None
+    out = fused_guard_ref(gen_rows_ref(*operands, moments=mom).to(B.dtype), B, delta)
+    return (*out, mom) if return_moments else out
 
 
 def gen_xi_ref(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,

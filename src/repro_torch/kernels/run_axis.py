@@ -13,22 +13,37 @@ launch for the R runs, counted once in the wrapper's ``launches``.
   launch their kernels' own run axis; run r's outputs are the bits of its
   own launch;
 * ``coordinate_median`` and ``trimmed_mean`` run over the (m, R·d)
-  columns of one copy, ``countsketch`` over R·m rows.
+  columns of one copy, ``countsketch`` over R·m rows;
+* the generating kernels ``fused_guard_gen`` and ``gen_xi`` launch their
+  own run axis, each run with its own worker keys, slots and attack
+  parameters; a (d,) vector the runs share (h, x*, het_dir) is passed
+  once, not copied R times.  Both ops are functional: ``fused_guard_gen``
+  returns ALIE's (2, d) honest moments as a fifth output, and ``gen_xi``
+  takes them as an input (a custom op that wrote into its argument would
+  not batch under ``vmap``).
 
 :mod:`ops` calls these ops only for a CUDA tensor under ``vmap``, so the
 single-run path launches as before; a CPU tensor runs the plain versions,
 which ``vmap`` batches by itself.  There is no other route: a CUDA tensor
 under ``vmap`` reaches a batched launch or raises, never a loop of R
-launches and never a plain version.  The generating kernels have no run
-axis yet (a campaign's ``gen`` variant raises).
+launches and never a plain version.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import Tensor
 
 from repro_torch.kernels.countsketch import countsketch_cuda, countsketch_runs_cuda
-from repro_torch.kernels.fused_guard import fused_guard_cuda, fused_guard_runs_cuda
+from repro_torch.kernels.fused_guard import (
+    fused_guard_cuda,
+    fused_guard_gen_cuda,
+    fused_guard_gen_runs_cuda,
+    fused_guard_runs_cuda,
+    gen_xi_cuda,
+    gen_xi_runs_cuda,
+)
 from repro_torch.kernels.pairdist import gram_cuda, gram_runs_cuda
 from repro_torch.kernels.robust_reduce import (
     coordinate_median_cuda,
@@ -54,6 +69,13 @@ def _stacked(info, in_dims, *tensors) -> list[Tensor]:
         t = t.expand(info.batch_size, *t.shape) if dim is None else t.movedim(dim, 0)
         out.append(t.contiguous())
     return out
+
+
+def _per_run_or_shared(in_dims, *tensors) -> list[Tensor]:
+    """Each (d,) vector with its run axis first, or as it is when the runs
+    share it (the run entries read a shared vector with stride 0)."""
+    return [t.contiguous() if dim is None else t.movedim(dim, 0).contiguous()
+            for t, dim in zip(tensors, in_dims)]
 
 
 @torch.library.custom_op("repro_torch::fused_guard", mutates_args=())
@@ -127,3 +149,44 @@ def countsketch(x: Tensor, k: int, salt: int) -> Tensor:
 @countsketch.register_vmap
 def _(info, in_dims, x, k, salt):
     return countsketch_runs_cuda(*_stacked(info, in_dims[:1], x), k, salt), 0
+
+
+@torch.library.custom_op("repro_torch::fused_guard_gen", mutates_args=())
+def fused_guard_gen(B: Tensor, delta: Tensor, x: Tensor, h: Tensor, x_star: Tensor,
+                    het_dir: Tensor, keys: Tensor, skewsign: Tensor, slot: Tensor,
+                    params: Tensor) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    moments = torch.empty((2, B.shape[1]), dtype=torch.float32, device=B.device)
+    out = fused_guard_gen_cuda(B, delta, x, h, x_star, het_dir, keys, skewsign, slot, params,
+                               moments=moments)
+    return (*out, moments)
+
+
+@fused_guard_gen.register_vmap
+def _(info, in_dims, B, delta, x, h, x_star, het_dir, keys, skewsign, slot, params):
+    B, delta = _stacked(info, in_dims[:2], B, delta)
+    vectors = _per_run_or_shared(in_dims[2:6], x, h, x_star, het_dir)
+    rows = _stacked(info, in_dims[6:], keys, skewsign, slot, params)
+    return fused_guard_gen_runs_cuda(B, delta, *vectors, *rows), (0, 0, 0, 0, 0)
+
+
+@torch.library.custom_op("repro_torch::gen_xi", mutates_args=())
+def gen_xi(w_xi: Tensor, w_byz: Tensor, x: Tensor, h: Tensor, x_star: Tensor,
+           het_dir: Tensor, keys: Tensor, skewsign: Tensor, slot: Tensor, params: Tensor,
+           moments: Optional[Tensor], stats_bf16: bool) -> tuple[Tensor, Tensor]:
+    sd = torch.bfloat16 if stats_bf16 else torch.float32
+    return gen_xi_cuda(w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,
+                       stats_dtype=sd,
+                       moments=None if moments is None else moments.contiguous())
+
+
+@gen_xi.register_vmap
+def _(info, in_dims, w_xi, w_byz, x, h, x_star, het_dir, keys, skewsign, slot, params,
+      moments, stats_bf16):
+    w_xi, w_byz = _stacked(info, in_dims[:2], w_xi, w_byz)
+    vectors = _per_run_or_shared(in_dims[2:6], x, h, x_star, het_dir)
+    rows = _stacked(info, in_dims[6:10], keys, skewsign, slot, params)
+    if moments is not None:
+        moments = _stacked(info, in_dims[10:11], moments)[0]
+    sd = torch.bfloat16 if stats_bf16 else torch.float32
+    return gen_xi_runs_cuda(w_xi, w_byz, *vectors, *rows, stats_dtype=sd,
+                            moments=moments), (0, 0)

@@ -61,7 +61,8 @@ __all__ = [
     "ATTACK_TABLE", "AdvState", "ScenarioAdversary", "attack_id",
     "GUARD_AGGREGATOR", "CampaignResult", "RunStats", "build_campaign_fn", "expand_variants",
     "run_campaign", "run_campaign_looped",
-    "degraded_pairs", "summarize_campaign", "theorem38_bound", "write_report",
+    "campaign_trace_events", "degraded_pairs", "filter_timelines", "summarize_campaign",
+    "theorem38_bound", "write_report",
     "CampaignGrid", "GridEntry", "expand_grid",
     "FAULT_KEY_TAG", "FAULT_TABLE", "FaultPlan", "apply_fault_plan", "fault_bitflip",
     "fault_garbage", "fault_id", "fault_inf_rows", "fault_knobs", "fault_nan_rows",
@@ -78,7 +79,8 @@ _LAZY = {**{name: "campaign" for name in (
     "GUARD_AGGREGATOR", "CampaignResult", "RunStats", "build_campaign_fn", "expand_variants",
     "run_campaign", "run_campaign_looped")},
     **{name: "report" for name in (
-        "degraded_pairs", "summarize_campaign", "theorem38_bound", "write_report")}}
+        "campaign_trace_events", "degraded_pairs", "filter_timelines", "summarize_campaign",
+        "theorem38_bound", "write_report")}}
 
 
 def __getattr__(name: str):

@@ -18,15 +18,20 @@ than the single run's.
 variant per entry of ``backends``; ``"agg@backend"`` spellings pass
 through; a backend may carry a stats-dtype suffix (``"fused@bf16"``).  The
 pseudo-backend ``"gen"`` maps to the fused guard with
-``generate="kernel"``, as in the JAX package, but a campaign with a
-``gen`` variant raises NotImplementedError: the generating kernels get
-their run axis in a later slice (ROADMAP.md §1).
+``generate="kernel"``, as in the JAX package: its group's steps launch the
+two generating kernels once each for the group's runs, and no (m, d)
+batch is built.
 
 **Chunking.**  ``chunk_size=c`` runs each group in chunks of at most c
 runs, one after another, so at most c runs are live on the device; any c
-gives the same decisions, and the guard variants' stats bit for bit.
+gives the same decisions, and the guard variants' stats (their telemetry
+rings included) bit for bit.
 
-``telemetry=`` raises NotImplementedError, as ``run_sgd`` does.
+**Telemetry.**  ``telemetry=`` (a :class:`repro_torch.obs.TelemetryConfig`)
+arms the flight recorder in every run: ``RunStats.telemetry`` is the JAX
+package's block, ``{"ring": TelemetryRing(lanes (N, ring_size, width),
+head (N,)), "first_filter_step": (N, m), "byz_alive": (N, T), "byz_mask":
+(N, m)}`` in grid order.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from repro_torch import prng, resolve_device
 from repro_torch.core.guard_backends import parse_backend_spec
 from repro_torch.core.solver import Problem, SolverConfig, run_sgd
 from repro_torch.kernels import _build
+from repro_torch.obs.telemetry import TelemetryRing, telemetry_on
 from repro_torch.scenarios.adversary import ScenarioAdversary
 from repro_torch.scenarios.spec import CampaignGrid, WorkerProfile
 
@@ -54,7 +60,8 @@ class RunStats(NamedTuple):
     detect_latency: torch.Tensor  # first k with |good_k| ≤ m − n_byz_ever; -1 = never
     ever_filtered_good: torch.Tensor  # did the filter ever drop a never-Byzantine worker
     gaps: torch.Tensor | None = None  # (N, T) traces, only when return_gaps
-    telemetry: dict | None = None     # not ported: always None
+    telemetry: dict | None = None     # the flight recorder's block when armed
+    #                                   (module docstring), else None
     report_frac: torch.Tensor | None = None  # mean reporter fraction a step under
     #                                          partial participation, else None
 
@@ -90,7 +97,25 @@ def _summarize(problem: Problem, cfg: SolverConfig, res, return_gaps: bool) -> d
         out["gaps"] = res.gaps
     if res.n_reporting is not None:
         out["report_frac"] = torch.mean(res.n_reporting.to(torch.float32)) / cfg.m
+    if res.telemetry is not None:
+        # byz_mask rides along so the report splits timelines into
+        # Byzantine and good workers
+        out.update({"telemetry.lanes": res.telemetry.ring.lanes,
+                    "telemetry.first_filter_step": res.telemetry.first_filter_step,
+                    "telemetry.byz_alive": res.telemetry.byz_alive,
+                    "telemetry.byz_mask": res.byz_mask})
     return out
+
+
+def _telemetry_block(stats: dict, T: int) -> dict:
+    """The flat ``telemetry.*`` columns of a variant's stats as the JAX
+    package's block (every run pushed one frame a step)."""
+    lanes = stats.pop("telemetry.lanes")
+    head = torch.full((lanes.shape[0],), T, dtype=torch.int32, device=lanes.device)
+    return {"ring": TelemetryRing(lanes=lanes, head=head),
+            "first_filter_step": stats.pop("telemetry.first_filter_step"),
+            "byz_alive": stats.pop("telemetry.byz_alive"),
+            "byz_mask": stats.pop("telemetry.byz_mask")}
 
 
 GUARD_AGGREGATOR = "byzantine_sgd"
@@ -161,16 +186,6 @@ def _rows(tree, idx):
     return type(tree)(*(leaf[idx] for leaf in tree))
 
 
-def _check_variants(cfgs: dict[str, SolverConfig], telemetry) -> None:
-    if telemetry is not None:
-        raise NotImplementedError("not ported yet (ROADMAP.md §1): telemetry")
-    gen = [name for name, cfg in cfgs.items() if cfg.generate == "kernel"]
-    if gen:
-        raise NotImplementedError(
-            f"variants {gen}: the generating kernels have no run axis yet (ROADMAP.md §1), "
-            "so a campaign's 'gen' variant is not ported")
-
-
 def build_campaign_fn(problem: Problem, base_cfg: SolverConfig, aggregators: Sequence[str],
                       return_gaps: bool = False, backends: Sequence[str] | None = None,
                       telemetry=None, chunk_size: int | None = None, device="cuda"):
@@ -181,9 +196,10 @@ def build_campaign_fn(problem: Problem, base_cfg: SolverConfig, aggregators: Seq
     nominal α that sizes Krum's f and the trimmed-mean fraction; each run's
     own α is a grid axis the adversary owns.  Each group of
     :func:`run_groups` is one ``vmap`` of ``run_sgd`` (in chunks of at most
-    ``chunk_size`` runs), each variant in turn."""
+    ``chunk_size`` runs), each variant in turn; ``telemetry`` arms the
+    flight recorder in every run."""
     cfgs = expand_variants(base_cfg, aggregators, backends)
-    _check_variants(cfgs, telemetry)
+    tel_on = telemetry_on(telemetry)
     dev = resolve_device(device)
 
     def campaign(grid: CampaignGrid) -> dict[str, RunStats]:
@@ -210,11 +226,14 @@ def build_campaign_fn(problem: Problem, base_cfg: SolverConfig, aggregators: Seq
                     prof = None if prof is None else WorkerProfile(*prof)
                     adv = ScenarioAdversary(scenario=scn, alpha=alpha, profile=prof,
                                             faults=plan)
-                    res = run_sgd(problem, cfg, key, adversary=adv, device=dev)
+                    res = run_sgd(problem, cfg, key, adversary=adv, telemetry=telemetry,
+                                  device=dev)
                     return _summarize(problem, cfg, res, return_gaps)
 
                 parts.append(_chunked_vmap(one, axes, len(idx), chunk_size))
             stats = {k: torch.cat([p[k] for p in parts])[inverse] for k in parts[0]}
+            if tel_on:
+                stats["telemetry"] = _telemetry_block(stats, cfg.T)
             out[name] = RunStats(**stats)
         return out
 
@@ -268,7 +287,6 @@ def run_campaign_looped(problem: Problem, base_cfg: SolverConfig, grid: Campaign
     dev = resolve_device(device)
     t0 = time.perf_counter()
     cfgs = expand_variants(base_cfg, aggregators, backends)
-    _check_variants(cfgs, None)
     gaps: dict[str, list[float]] = {name: [] for name in cfgs}
     f_star = problem.f(problem.x_star)
     for name, cfg in cfgs.items():

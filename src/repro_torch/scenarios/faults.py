@@ -19,7 +19,11 @@ package's bits: ``garbage`` draws :func:`repro_torch.prng.uniform`,
 ``bitflip`` :func:`repro_torch.prng.randint` and flips through a
 same-width integer view (16 bits for bf16).  One difference: a bit flip
 that makes a bf16 NaN keeps its payload here, where XLA on the CPU turns
-it into the canonical NaN of its sign.
+it into the canonical NaN of its sign.  The flip is the custom op
+``repro_torch::flip_bits`` with its own vmap rule (an elementwise op, so
+the rule flips the stacked runs in one call): ``torch.func.vmap`` has no
+rule for a dtype view in every torch the port runs on, and a campaign
+with a ``bitflip`` fault axis maps the step over its runs.
 """
 from __future__ import annotations
 
@@ -38,6 +42,26 @@ FAULT_TABLE: tuple[str, ...] = (
 FAULT_KEY_TAG = 104729
 
 _INT_VIEWS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def _flip(grads: torch.Tensor, which: torch.Tensor) -> torch.Tensor:
+    """``grads`` with bit ``which`` of each entry flipped (``which`` in the
+    entries' same-width integer type)."""
+    flipped = grads.view(which.dtype) ^ torch.bitwise_left_shift(torch.ones_like(which), which)
+    return flipped.view(grads.dtype)
+
+
+@torch.library.custom_op("repro_torch::flip_bits", mutates_args=())
+def flip_bits(grads: torch.Tensor, which: torch.Tensor) -> torch.Tensor:
+    return _flip(grads, which)
+
+
+@flip_bits.register_vmap
+def _(info, in_dims, grads, which):
+    # elementwise: the runs' entries flip as one stacked tensor
+    grads, which = (t.expand(info.batch_size, *t.shape) if dim is None else t.movedim(dim, 0)
+                    for t, dim in zip((grads, which), in_dims))
+    return _flip(grads.contiguous(), which.contiguous()), 0
 
 
 def fault_id(name: str) -> int:
@@ -139,5 +163,4 @@ def apply_fault_plan(plan: FaultPlan, key: torch.Tensor, grads: torch.Tensor,
     view = _INT_VIEWS[dtype]
     nbits = torch.iinfo(view).bits
     which = prng.randint(key, (m, d), 0, nbits).to(view)
-    flipped = grads.view(view) ^ torch.bitwise_left_shift(torch.ones_like(which), which)
-    return torch.where(row, flipped.view(dtype), grads)
+    return torch.where(row, flip_bits(grads.contiguous(), which), grads)

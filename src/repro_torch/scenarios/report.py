@@ -10,12 +10,14 @@ seeds into the JAX package's record:
 * the **guard bound check** — each guard variant's gap against the
   Theorem-3.8 prediction at the run's realized ever-Byzantine fraction;
 * the **aggregator ranking** — mean rank, worst-case gap and break count
-  per aggregator over every (scenario × α) cell.
+  per aggregator over every (scenario × α) cell;
+* the **filter timelines** (when the campaign ran with the flight
+  recorder armed) — per cell, how fast the guard caught the corrupted
+  workers, whether it spent a good one, and a Byzantine survival curve.
 
-The flight recorder is not ported (ROADMAP.md §1, item 7): a campaign
-carries no telemetry, :func:`filter_timelines` gives ``[]`` as the JAX
-package's does for such a campaign, and ``campaign_trace_events`` is not
-here.  :func:`write_report` takes its path with no default.
+:func:`campaign_trace_events` drains an armed campaign's rings into an
+:class:`~repro_torch.obs.events.EventLog`.  :func:`write_report` takes its
+path with no default.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.core.solver import Problem, SolverConfig
 from repro_torch.obs.provenance import provenance_meta
+from repro_torch.obs.telemetry import TelemetryRing, ring_read
 from repro_torch.scenarios.campaign import CampaignResult
 
 # "survives" / "breaks" thresholds on f(x̄) − f*, in units of the
@@ -76,13 +79,73 @@ def _np(t) -> np.ndarray:
 
 
 def filter_timelines(result: CampaignResult, max_curve_points: int = 64) -> list[dict]:
-    """The flight recorder's per-cell forensics (first-filter steps, the
-    Byzantine survival curve): empty when the campaign ran without
-    telemetry, which every campaign of the port does until the recorder is
-    ported (ROADMAP.md §1, item 7)."""
-    if any(st.telemetry is not None for st in result.stats.values()):
-        raise NotImplementedError("not ported yet (ROADMAP.md §1): telemetry")
-    return []
+    """The flight recorder's reduction: one row per (scenario, α, variant)
+    cell of an armed campaign.  Splits each worker's first-filter step by
+    its ever-Byzantine flag (how fast the guard catches corrupted workers,
+    and whether it ever spent a good one) and attaches a Byzantine
+    survival curve from the cell's first seed.  Empty when the campaign
+    ran without telemetry."""
+    groups: dict[tuple[str, float], list[int]] = {}
+    for i, e in enumerate(result.entries):
+        groups.setdefault((_entry_label(e), e["alpha"]), []).append(i)
+
+    rows = []
+    for agg in sorted(result.stats):
+        tel = result.stats[agg].telemetry
+        if tel is None:
+            continue
+        ffs = _np(tel["first_filter_step"])          # (N, m), -1 = never
+        byz = _np(tel["byz_mask"]).astype(bool)      # (N, m)
+        surv = _np(tel["byz_alive"])                 # (N, T)
+        for (scn, alpha), idx in sorted(groups.items()):
+            ii = np.asarray(idx)
+            byz_ffs = ffs[ii][byz[ii]]
+            good_ffs = ffs[ii][~byz[ii]]
+            caught = byz_ffs[byz_ffs > 0].astype(float)
+            rep = ii[0]  # the seed whose curve is kept
+            rows.append({
+                "scenario": scn,
+                "alpha": alpha,
+                "aggregator": agg,
+                "n_seeds": len(idx),
+                "n_byz_workers": int(byz[ii].sum()),
+                "n_byz_caught": int((byz_ffs > 0).sum()),
+                "first_filter_byz_med": _percentile(caught, 50) if caught.size else -1.0,
+                "first_filter_byz_p90": _percentile(caught, 90) if caught.size else -1.0,
+                "n_good_filtered": int((good_ffs > 0).sum()),
+                "byz_survival": _survival_curve(surv[rep], max_curve_points),
+                "survival_seed": int(result.entries[rep]["seed"]),
+            })
+    return rows
+
+
+def campaign_trace_events(result: CampaignResult, log, select=None) -> int:
+    """Drain an armed campaign's per-cell rings into an ``EventLog``: one
+    ``guard_step`` event per kept frame and one ``timeline`` event
+    (first-filter steps, the Byzantine mask, the survival curve) per
+    selected cell, labelled ``<scenario>/a<alpha>/<variant>/s<seed>``.
+    ``select(entry) -> bool`` filters grid rows.  Each variant's block
+    goes to the host in one copy.  Returns the number of cells exported."""
+    n_cells = 0
+    for agg in sorted(result.stats):
+        tel = result.stats[agg].telemetry
+        if tel is None:
+            continue
+        lanes, head = _np(tel["ring"].lanes), _np(tel["ring"].head)
+        ffs, mask = _np(tel["first_filter_step"]), _np(tel["byz_mask"])
+        surv = _np(tel["byz_alive"])
+        for i, e in enumerate(result.entries):
+            if select is not None and not select(e):
+                continue
+            run = f"{_entry_label(e)}/a{e['alpha']:g}/{agg}/s{e['seed']}"
+            for frame in ring_read(TelemetryRing(lanes=lanes[i], head=int(head[i]))):
+                log.guard_step(frame, run=run)
+            log.event("timeline", run=run, first_filter_step=ffs[i], byz_mask=mask[i],
+                      # the whole horizon (the ring keeps only its last
+                      # frames), change-point compressed
+                      byz_survival=_survival_curve(surv[i]))
+            n_cells += 1
+    return n_cells
 
 
 def summarize_campaign(result: CampaignResult, problem: Problem, base_cfg: SolverConfig,

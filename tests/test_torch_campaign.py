@@ -17,8 +17,9 @@ the CPU (the JAX campaign runs its fused guard in interpret mode).
 * Each row against the port's ``run_sgd`` of that row alone: decisions
   equal, gaps within 1e-6 relative (a batched product may sum in another
   order than the single run's).
-* ``chunk_size`` < 1, ``telemetry=`` and the ``gen`` variant raise; the
-  looped campaign gives the batched one's gaps.
+* ``chunk_size`` < 1 and a ``telemetry`` that is no TelemetryConfig
+  raise, ``gen`` on a problem without a generator raises the reference's
+  ValueError; the looped campaign gives the batched one's gaps.
 * ``summarize_campaign``, ``theorem38_bound`` and ``degraded_pairs``
   against the reference's on the same grid.
 
@@ -44,6 +45,7 @@ from repro_torch.core import guard_backends
 from repro_torch.core.solver import SolverConfig, run_sgd
 from repro_torch.data import problems
 from repro_torch.experiments import table1
+from repro_torch.obs import TelemetryConfig
 from repro_torch.scenarios import campaign, faults, report, spec
 from repro_torch.scenarios.adversary import ScenarioAdversary
 
@@ -245,16 +247,23 @@ def test_rows_equal_their_runs_alone(quadratic, main_campaigns, variant):
 
 
 def test_chunk_size_below_one_and_unported_axes_raise(quadratic):
+    """``chunk_size`` < 1 and a ``telemetry`` that is not a
+    TelemetryConfig raise; the axes that raised before they were ported
+    (``telemetry=``, the ``gen`` variants) now run: on the quadratic, which
+    has no generator, ``gen`` raises the reference's ValueError."""
     _, tp = quadratic
     tgrid = spec.expand_grid(_scenarios(spec)[:1], [0.25], [0])
     with pytest.raises(ValueError, match="chunk_size"):
         campaign.run_campaign(tp, _cfg(campaign), tgrid, ["byzantine_sgd"], chunk_size=0,
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="telemetry"):
+    with pytest.raises(TypeError, match="TelemetryConfig"):
         campaign.run_campaign(tp, _cfg(campaign), tgrid, ["mean"], telemetry=object(),
                               device="cpu")
+    res = campaign.run_campaign(tp, _cfg(campaign, T=4), tgrid, ["mean"],
+                                telemetry=TelemetryConfig(ring_size=2), device="cpu")
+    assert res.stats["mean"].telemetry["ring"].lanes.shape == (1, 2, 4 * M + 12)
     for backends in (["gen"], ["fused", "gen@bf16"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="counter-generatable"):
             campaign.run_campaign(tp, _cfg(campaign), tgrid, ["byzantine_sgd"],
                                   backends=backends, device="cpu")
 

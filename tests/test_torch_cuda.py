@@ -47,10 +47,14 @@ The run axis (a campaign group's R runs in one launch): ``fused_guard``
 and ``filtered_mean`` (plain and sanitizing, f32 and bf16) and ``gram`` at
 R ∈ {1, 3, 4} bit-equal to R launches alone and within the tolerances
 above of their plain versions; the folded median, trimmed mean and
-``countsketch`` bit-equal to per-run calls; ``ops`` under
-``torch.func.vmap`` launches each kernel once (an operand the runs share
-is expanded), never reaches a plain version, and the generating kernels
-raise; a campaign's rows on the card decide as their runs alone.
+``countsketch`` bit-equal to per-run calls; ``fused_guard_gen`` and
+``gen_xi`` over a run axis at R = 1 bit-equal to the one-run entries and
+at R = 3 to three launches, ALIE's moments included, with a (d,) operand
+shared by the runs or each run's own; ``ops`` under ``torch.func.vmap``
+launches each kernel once (an operand the runs share is expanded, or for
+the generator passed once), never reaches a plain version; a campaign's
+rows on the card decide as their runs alone, its ``gen`` rows as its
+``fused`` rows, and a ``bitflip`` fault axis runs in a campaign.
 """
 import pytest
 import torch
@@ -806,9 +810,32 @@ def test_ops_under_vmap_launch_once_and_never_reach_a_plain_version(cuda_device,
     for r in range(R):
         for a, b in zip(shared, fused_guard_cuda(g[r], B[0], dlt[0])):
             assert torch.equal(a[r], b)
-    operands = gen_operands(m, d, 1, cuda_device)
-    with pytest.raises(NotImplementedError, match="no run axis"):
-        vmap(lambda B: ops.fused_guard_gen(B, dlt[0], *operands))(B)
+    # the generating kernels: one launch each for the R runs (their own
+    # keys, slots and parameters; x* and h shared), never a plain version
+    for name in ("fused_guard_gen_ref", "gen_xi_ref", "gen_moments_ref"):
+        monkeypatch.setattr(ref, name, refuse)
+    runs = [gen_operands(m, d, 4, cuda_device, seed=r) for r in range(R)]
+    stacked = [torch.stack([o[q] for o in runs]) for q in range(8)]
+    for q in (1, 2, 3):   # h, x*, het_dir: one for every run
+        stacked[q] = runs[0][q]
+        for o in runs:
+            o[q] = runs[0][q]
+    before = fused_guard_gen_cuda.launches, gen_xi_cuda.launches
+
+    def gen_step(B, dlt, x, keys, skewsign, slot, params, w):
+        ops_in = (x, stacked[1], stacked[2], stacked[3], keys, skewsign, slot, params)
+        *out, mom = ops.fused_guard_gen(B, dlt, *ops_in, return_moments=True)
+        return (*out, mom, *ops.gen_xi(w, w, *ops_in, stats_dtype=tdt, moments=mom))
+
+    got = vmap(gen_step, in_dims=(0, 0, 0, 0, 0, 0, 0, 0))(
+        B, dlt, stacked[0], *stacked[4:], w)
+    assert (fused_guard_gen_cuda.launches - before[0], gen_xi_cuda.launches - before[1]) == (1, 1)
+    for r in range(R):
+        mom = torch.empty((2, d), device=cuda_device)
+        want = fused_guard_gen_cuda(B[r], dlt[r], *runs[r], moments=mom)
+        want = (*want, mom, *gen_xi_cuda(w[r], w[r], *runs[r], stats_dtype=tdt, moments=mom))
+        for a, b in zip(got, want):
+            assert torch.equal(a[r], b)
 
 
 @pytest.mark.cuda
@@ -838,3 +865,108 @@ def test_campaign_rows_on_the_card_equal_their_runs_alone(cuda_device):
             assert int(st.n_alive_final[i]) == int(run.n_alive[-1]), (name, i)
             assert bool(st.ever_filtered_good[i]) == bool(run.ever_filtered_good)
             torch.testing.assert_close(st.gaps[i], run.gaps, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("m,d", [(17, 555), (33, 1000)])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("aid", (1, 4))
+def test_batched_generating_kernels_equal_their_runs_alone(cuda_device, R, m, d, dt, aid):
+    """``fused_guard_gen_runs_cuda`` and ``gen_xi_runs_cuda``: each run's
+    outputs, ALIE's moments included, are the bits of its one-run launch;
+    x per run, h, x* and het_dir shared (R = 3) or per run (R = 1); gen_xi
+    with the sweep's moments and with its own moments pass."""
+    from repro_torch.kernels.fused_guard import fused_guard_gen_runs_cuda, gen_xi_runs_cuda
+
+    tdt, _ = DTYPES[dt]
+    runs = [gen_operands(m, d, aid, cuda_device, seed=7 * r + 1) for r in range(R)]
+    stacked = [torch.stack([o[q] for o in runs]) for q in range(8)]
+    if R > 1:
+        for q in (1, 2, 3):   # one h, x* and het_dir for every run
+            stacked[q] = runs[0][q]
+            for o in runs:
+                o[q] = runs[0][q]
+    gen = torch.Generator(device=cuda_device).manual_seed(R * 31 + m)
+    B = (3 * torch.randn(R, m, d, device=cuda_device, generator=gen)).to(tdt)
+    dlt = torch.randn(R, d, device=cuda_device, generator=gen).to(tdt)
+    w_xi = torch.rand(R, m, device=cuda_device, generator=gen) / m
+    w_byz = (torch.stack([o[6] for o in runs]) > 0).float()
+    before = fused_guard_gen_cuda.launches, gen_xi_cuda.launches
+    got = fused_guard_gen_runs_cuda(B, dlt, *stacked)
+    xi = gen_xi_runs_cuda(w_xi, w_byz, *stacked, stats_dtype=tdt, moments=got[4])
+    xi_own = gen_xi_runs_cuda(w_xi, w_byz, *stacked, stats_dtype=tdt)
+    assert (fused_guard_gen_cuda.launches - before[0], gen_xi_cuda.launches - before[1]) == (1, 2)
+    for r in range(R):
+        mom = torch.empty((2, d), device=cuda_device)
+        alone = fused_guard_gen_cuda(B[r], dlt[r], *runs[r], moments=mom)
+        # the moments are written only when an ALIE id is in play
+        for a, b in zip(got, (*alone, mom) if aid in MOMENT_IDS else alone):
+            assert torch.equal(a[r], b)
+        for a, b, c in zip(xi, xi_own, gen_xi_cuda(w_xi[r], w_byz[r], *runs[r],
+                                                   stats_dtype=tdt)):
+            assert torch.equal(a[r], c) and torch.equal(b[r], c)
+    with pytest.raises(ValueError, match="moments"):
+        gen_xi_runs_cuda(w_xi, w_byz, *stacked, moments=got[4][:, :, :-1].contiguous())
+
+
+@pytest.mark.cuda
+def test_gen_campaign_on_the_card_decides_as_fused(cuda_device):
+    """A campaign's ``gen`` and ``gen@bf16`` variants on the card: the two
+    generating kernels T times a group, no materialising guard kernel; the
+    ``gen`` rows decide as the ``fused`` rows with gaps within 1e-6 (the
+    reference's criterion, tests/test_campaign_chunked.py)."""
+    from repro_torch.scenarios import expand_grid, run_campaign, scenario_churn
+
+    prob = make_generated_problem(d=16, sigma=1.0, L=8.0, V=1.0, seed=0, device=cuda_device)
+    cfg = SolverConfig(m=16, T=25, eta=0.05, alpha=0.25)
+    grid = expand_grid([("static_sign_flip", scenario_static("sign_flip")),
+                        ("churn", scenario_churn("sign_flip", period=10, stride=2))],
+                       [0.125, 0.25], range(3))
+    before = (fused_guard_cuda.launches, fused_guard_gen_cuda.launches, gen_xi_cuda.launches)
+    res = run_campaign(prob, cfg, grid, ["byzantine_sgd"], backends=("gen", "gen@bf16"),
+                       device=cuda_device)
+    after = (fused_guard_cuda.launches, fused_guard_gen_cuda.launches, gen_xi_cuda.launches)
+    # 4 groups (2 scenarios x 2 alphas), 2 generating variants
+    assert [a - b for a, b in zip(after, before)] == [0, 2 * 4 * cfg.T, 2 * 4 * cfg.T]
+    fused = run_campaign(prob, cfg, grid, ["byzantine_sgd"], backends=("fused",),
+                         device=cuda_device).stats["byzantine_sgd@fused"]
+    gen = res.stats["byzantine_sgd@gen"]
+    assert torch.equal(gen.n_alive_final, fused.n_alive_final)
+    assert torch.equal(gen.detect_latency, fused.detect_latency)
+    torch.testing.assert_close(gen.gap_final, fused.gap_final, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_bitflip_fault_axis_runs_in_a_campaign_on_the_card(cuda_device):
+    """A campaign with a ``bitflip`` fault axis (the flip is the custom op
+    ``repro_torch::flip_bits`` with its own vmap rule): every row equals
+    its run alone in decisions, and the flipped batch of one step is
+    bit-equal to the single-run flip."""
+    from torch.func import vmap
+
+    from repro_torch.scenarios import expand_grid, faults, run_campaign
+
+    prob = make_quadratic_problem(d=16, sigma=1.0, L=8.0, V=1.0, seed=0, device=cuda_device)
+    cfg = SolverConfig(m=16, T=20, eta=0.05, alpha=0.25, sanitize="quarantine")
+    plan = faults.fault_bitflip(0.125, start_step=5)
+    grid = expand_grid([("sign_flip", scenario_static("sign_flip"))], [0.25], range(3),
+                       faults=[("none", None), ("bitflip", plan)])
+    res = run_campaign(prob, cfg, grid, ["byzantine_sgd@fused", "coordinate_median"],
+                       device=cuda_device)
+    for name, st in res.stats.items():
+        agg, _, be = name.partition("@")
+        one = cfg._replace(aggregator=agg, guard_backend=be or "dense")
+        for i, e in enumerate(res.entries):
+            run = run_sgd(prob, one, prng.PRNGKey(e["seed"], device=cuda_device),
+                          adversary=ScenarioAdversary(grid.scenarios[i], e["alpha"],
+                                                      faults=grid.faults[i]),
+                          device=cuda_device)
+            assert int(st.n_alive_final[i]) == int(run.n_alive[-1]), (name, i)
+    keys = torch.stack([prng.PRNGKey(s, device=cuda_device) for s in range(3)])
+    grads = torch.randn(3, 16, 64, device=cuda_device)
+    rank = torch.arange(16, device=cuda_device)
+    got = vmap(lambda k, g: faults.apply_fault_plan(plan, k, g, rank, 5))(keys, grads)
+    for r in range(3):
+        want = faults.apply_fault_plan(plan, keys[r], grads[r], rank, 5)
+        assert torch.equal(got[r].view(torch.int32), want.view(torch.int32))

@@ -14,7 +14,7 @@ against the JAX package and against itself.
 * The generating path never builds the batch (``stoch_grad`` is never
   called) and runs only the two generating ops, once each per step.
 * Every ``ValueError`` gate of the reference's ``generate="kernel"``, and
-  NotImplementedError for what is not ported.
+  TypeError for a ``telemetry`` that is not a TelemetryConfig.
 * Staleness and partial participation without a worker profile: ignored,
   as in the reference, on the dense and the fused guard.
 """
@@ -33,6 +33,7 @@ from repro_torch import convert, prng
 from repro_torch.core.solver import SolverConfig, run_sgd
 from repro_torch.data.problems import heterogenize_problem, make_generated_problem
 from repro_torch.kernels import ops
+from repro_torch.obs import TelemetryConfig
 from repro_torch.scenarios import adversary, faults, spec
 
 M, D, T = 16, 16, 40
@@ -170,20 +171,26 @@ def test_generate_gates_raise_value_error(over, match):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(telemetry=object()), "telemetry"),
+    (dict(telemetry=object()), "TelemetryConfig"),
     (dict(generate="off", attack="random_gaussian"), None),
 ], ids=["telemetry", "random_gaussian"])
 def test_unported_parts_raise_not_implemented(over, match):
-    """Telemetry is not ported and raises.  ``random_gaussian`` (id 2) is
-    ported: on the materialising path its run finishes with finite values
-    and its noise in the attackers' rows filters all of them."""
+    """Telemetry is ported: anything but None or a TelemetryConfig raises
+    TypeError, and an armed generating run decides as the run without it.
+    ``random_gaussian`` (id 2) is ported: on the materialising path its run
+    finishes with finite values and its noise in the attackers' rows
+    filters all of them."""
     if match is None:
         res = _gen_run(**over)
         assert bool(torch.isfinite(res.x_avg).all() and torch.isfinite(res.gaps).all())
         assert not bool((res.final_alive & res.byz_mask).any())
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(TypeError, match=match):
         _gen_run(**over)
+    armed = _gen_run(telemetry=TelemetryConfig(ring_size=4))
+    off = _gen_run()
+    assert torch.equal(armed.gaps, off.gaps) and torch.equal(armed.n_alive, off.n_alive)
+    assert armed.telemetry.ring.head == 4 and off.telemetry is None
 
 
 def test_worker_profile_still_raises_not_implemented():
@@ -246,16 +253,18 @@ def test_convert_carries_a_jax_scenario_into_a_run():
 @pytest.mark.parametrize("sd", ["f32", "bf16"])
 def test_gen_step_hands_alie_moments_to_gen_xi(name, sd, monkeypatch):
     """ALIE's honest moments are taken once a step: every step's
-    ``ops.gen_xi`` reads the (2, d) buffer that the same step's
-    ``ops.fused_guard_gen`` filled, and the run equals JAX's generating
+    ``ops.gen_xi`` reads the (2, d) moments that the same step's
+    ``ops.fused_guard_gen`` returned, and the run equals JAX's generating
     run (Pallas in interpret mode): decisions exactly, values within
     1e-6."""
     seen = []
     fg, gx = ops.fused_guard_gen, ops.gen_xi
 
-    def sweep(*a, moments=None, **k):
-        seen.append(moments)
-        return fg(*a, moments=moments, **k)
+    def sweep(*a, **k):
+        assert k.get("return_moments")
+        out = fg(*a, **k)
+        seen.append(out[4])
+        return out
 
     def xi_pass(*a, moments=None, **k):
         assert moments is not None and moments is seen[-1]

@@ -131,8 +131,8 @@ def test_gen_xi_matches_pallas(m, d, dt, aid):
 @pytest.mark.parametrize("aid", MOMENT_IDS)
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 def test_moments_handoff_matches_pallas(dt, aid):
-    """``ops.fused_guard_gen(..., moments=buf)`` leaves ALIE's honest
-    moments in ``buf`` and changes none of its outputs; ``ops.gen_xi``
+    """``ops.fused_guard_gen(..., return_moments=True)`` returns ALIE's
+    honest moments and changes none of its outputs; ``ops.gen_xi``
     reading them gives its own bits, and both kernels match the Pallas
     kernels (interpret)."""
     jdt, tdt, tol = DTYPES[dt]
@@ -141,8 +141,7 @@ def test_moments_handoff_matches_pallas(dt, aid):
     rng = np.random.default_rng(7)
     B = torch.from_numpy((3.0 * rng.normal(size=(m, d))).astype(np.float32)).to(tdt)
     delta = torch.from_numpy(rng.normal(size=d).astype(np.float32)).to(tdt)
-    mom = torch.full((2, d), float("nan"))
-    got = ops.fused_guard_gen(B, delta, *_gen_args(tops), moments=mom)
+    *got, mom = ops.fused_guard_gen(B, delta, *_gen_args(tops), return_moments=True)
     assert torch.equal(mom, ref.gen_moments_ref(*_gen_args(tops)))
     assert bool(torch.isfinite(mom).all()) and bool((mom[1] > 0).all())
     for a, b in zip(got, ops.fused_guard_gen(B, delta, *_gen_args(tops))):

@@ -38,7 +38,10 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
             "repro_torch.kernels.countsketch", "repro_torch.scenarios.spec",
             "repro_torch.scenarios.adversary", "repro_torch.scenarios.campaign",
             "repro_torch.scenarios.report", "repro_torch.obs.provenance",
-            "repro_torch.experiments.table1", "repro_torch.kernels.run_axis"} <= set(mods)
+            "repro_torch.experiments.table1", "repro_torch.kernels.run_axis",
+            "repro_torch.obs.telemetry", "repro_torch.obs.events", "repro_torch.obs.spans",
+            "repro_torch.obs.roofline_compare", "repro_torch.roofline.hw",
+            "repro_torch.roofline.guard_cost"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -140,8 +140,10 @@ def test_run_sgd_rejects_unported_options(field, value):
     want = run_sgd(problem, cfg, prng.PRNGKey(0), device="cpu")
     for f in want._fields:
         g, w = getattr(got, f), getattr(want, f)
-        # n_reporting is None in both: no profile arms partial participation
-        assert (g is None and w is None) if f == "n_reporting" else torch.equal(g, w), f
+        # n_reporting is None in both: no profile arms partial participation;
+        # telemetry too: the recorder is off
+        none_fields = ("n_reporting", "telemetry")
+        assert (g is None and w is None) if f in none_fields else torch.equal(g, w), f
 
 
 @pytest.mark.parametrize("aggregator", ["coordinate_median", "bucket2:krum", "byzantine_sgd"])
@@ -174,7 +176,7 @@ def test_run_sgd_rejects_an_unknown_sanitize_mode():
 def test_run_sgd_rejects_unported_attack_and_aggregator():
     problem = make_generated_problem(d=8, device="cpu")
     cfg = SolverConfig(m=4, T=2, eta=0.1)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="TelemetryConfig"):
         run_sgd(problem, cfg, prng.PRNGKey(0), device="cpu", telemetry=object())
     with pytest.raises(KeyError, match="no_such_attack"):
         run_sgd(problem, SolverConfig(m=4, T=2, eta=0.1, attack="no_such_attack"),
