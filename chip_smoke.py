@@ -254,16 +254,45 @@ and then no result line is printed):
    α = 0, 0.125 and 0.375, backend and m sections at TABLE1_OTHER_T
    (``T_reduced_from`` 4000); each part's kernels launched T times, once
    a step for its group;
-17. the script's total seconds, the kernels line (24 entries: twelve
-   kernels, the generating two over a run axis among them, × f32/bf16),
+17. lm_train_launcher — ``repro_torch.launch.train.run_training`` of
+   internlm2-1.8b at its reduced width (d_model 128, 2 layers, vocab
+   512), W = 8, seq 64, 40 steps, dp_exact, sign_flip, on the card and
+   then on the CPU: ``filtered_mean`` launched once a step and nothing
+   else, decisions equal to the CPU's at every step, losses within 1e-4
+   relative over the first 10 steps and 1e-3 over all 40 (AdamW
+   amplifies f32 rounding: the JAX package and the port on one CPU part
+   by 3.3e-4 at step 36), n_alive 6 at the end;
+18. lm_train_full_width — the LM trainer at internlm2-1.8b's published
+   widths cut to 2 layers (d = 504,899,584 parameters, bf16), W = 8, α =
+   0.25, sign_flip, per-worker batch 2, seq 128, AdamW, T = 20 steps (40
+   on dp_sketch, whose V is widened 1.5×: one attacker outlives step 20),
+   built as ``run_training`` builds it (``build_model``,
+   ``init_train_state``, ``build_train_step``, ``make_worker_batch``):
+   ``dp_exact@bf16``, ``dp_sketch@bf16``, ``fused@bf16`` (V the step-0
+   v_est of dp_exact@bf16) and ``dp_exact@f32`` where its peak, reckoned
+   from the code's allocations and printed first, is at most
+   LM_PEAK_LIMIT_GB: every kernel of the run launched exactly T times
+   and no other, no honest worker filtered at any step, no Byzantine
+   worker alive at the end, the loss falling; step 0's operands of each
+   launched kernel held against its plain version by column blocks, with
+   the kernel's and the plain version's ms beside the bound; ms a step
+   split by CUDA events into forward/backward, ravel, attack, guard and
+   optimizer, and the peak memory;
+19. the script's total seconds, the kernels line (24 entries: twelve
+   kernels, the generating two over a run axis among them, × f32/bf16;
+   each also with ``lm_train_launches``, its launches in phases 17–18),
    the card line and the result line.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import functools
 import json
+import math
 import multiprocessing
+import os
 import re
 import statistics
 import subprocess
@@ -271,12 +300,24 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# before torch reaches the card: the full-width LM runs (phase 18) allocate
+# and free (8, d) blocks of 8–16 GB, which fragment the fixed segments of
+# the default allocator past the card's 80 GB
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import prng  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.tree_harness import params_harness  # noqa: E402
+from repro_torch.data.synthetic import SyntheticTokens, make_worker_batch  # noqa: E402
+from repro_torch.distributed.trainer import build_train_step, init_train_state  # noqa: E402
+from repro_torch.launch.train import fetch_metrics, run_training  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.optim import adamw, linear_warmup_cosine  # noqa: E402
 from repro_torch.core import aggregators, attacks  # noqa: E402
 from repro_torch.core.attacks import alie_z_max  # noqa: E402
 from repro_torch.core.epoch_solver import EpochSolverConfig, solve_strongly_convex  # noqa: E402
@@ -298,7 +339,7 @@ from repro_torch.data.problems import (  # noqa: E402
     make_logistic_problem,
     make_quadratic_problem,
 )
-from repro_torch.kernels import _build, gradgen, ref  # noqa: E402
+from repro_torch.kernels import _build, gradgen, ops, ref  # noqa: E402
 from repro_torch.kernels.countsketch import countsketch_cuda, launch_plan  # noqa: E402
 from repro_torch.kernels.fused_guard import (  # noqa: E402
     MAX_WORKERS,
@@ -3487,6 +3528,335 @@ def convex_harness(card: dict, cpu: dict, lower: dict) -> None:
          lower_bound_seconds=sum(res["seconds"] for res in lower.values()))
 
 
+# ---------------------------------------------------------------- phase 18: the LM path
+
+LM_ARCH = "internlm2-1.8b"
+LM_LAYERS = 2            # the depth cut from 24; every width as published
+LM_D = 504_899_584       # its parameter count, already a multiple of 128
+LM_W, LM_ALPHA, LM_BATCH, LM_SEQ, LM_LR = 8, 0.25, 2, 128, 3e-3
+# steps a run: 20, and 40 for the sketch guard, whose V carries a 1.5 slack
+LM_T = {"dp_exact": 20, "fused": 20, "dp_sketch": 40}
+LM_SKETCH_K = 4096
+LM_PEAK_LIMIT_GB = 72.0  # dp_exact@f32 runs at full width only below this reckoning
+LM_STEP_PHASES = ("forward_backward", "ravel", "attack", "guard", "optimizer")
+# the kernels each full-width run launches, T times each, and no other
+LM_RUN_KERNELS = {"dp_exact": ("filtered_mean",), "dp_sketch": ("countsketch", "filtered_mean"),
+                  "fused": ("fused_guard", "filtered_mean")}
+# the launcher phase (repro_torch.launch.train at its reduced width)
+LM_LAUNCH = dict(reduced=True, d_model=128, workers=8, seq_len=64, steps=40,
+                 guard_backend="dp_exact", log_every=10)
+# its losses against the CPU's: 1e-4 relative over the first LM_LOSS_FIRST
+# steps, 1e-3 over all 40.  AdamW amplifies f32 rounding from step to
+# step: the JAX package and the port, both on one CPU, drift apart by up
+# to 3.3e-4 at step 36 of this run (their decisions equal throughout)
+LM_LOSS_FIRST, LM_LOSS_TOL = 10, (1e-4, 1e-3)
+
+
+class PhaseTimer:
+    """CUDA events at the trainer's phase marks: ms a phase, summed over the
+    steps between :meth:`start` and :meth:`stop`, and ms a step; and each
+    phase's peak memory (the allocator's peak since the previous mark, a
+    host-side count that waits for nothing)."""
+
+    def __init__(self):
+        self.events: list = []
+        self.peaks: dict = {}
+        self.on = False
+
+    def _record(self, name: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append((name, ev))
+        if name != "start":
+            self.peaks[name] = max(self.peaks.get(name, 0), torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    def start(self) -> None:
+        self.on = True
+        self._record("start")
+
+    def stop(self) -> None:
+        self._record("stop")
+        self.on = False
+
+    def __call__(self, name: str) -> None:
+        if self.on:
+            self._record(name)
+
+    def totals(self) -> tuple[dict, list]:
+        torch.cuda.synchronize()
+        split, steps, t0, prev = dict.fromkeys(LM_STEP_PHASES, 0.0), [], None, None
+        for name, ev in self.events:
+            if name == "start":
+                t0 = ev
+            elif name == "stop":
+                steps.append(t0.elapsed_time(ev))
+            else:
+                split[name] += prev.elapsed_time(ev)
+            prev = ev
+        return split, steps
+
+
+@contextlib.contextmanager
+def first_call_operands(names):
+    """Route ``ops.<name>`` through a recorder that keeps the first call's
+    arguments (references: the step drops, the check holds them) and
+    calls through; the launch counts are the run's own."""
+    saved = {n: getattr(ops, n) for n in names}
+    calls: dict = {}
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            calls.setdefault(name, args)
+            return saved[name](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(ops, n, recorder(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+def lm_kernel_checks(calls: dict, dt: str) -> dict:
+    """Each kernel the run launched against its plain version (by column
+    blocks: the rows have no room for f32 copies) on step 0's operands,
+    with the kernel's and the plain version's ms beside its bound; the
+    launches made here are put back out of the run's counts."""
+    saved = read_counts()
+    out = {}
+    elt = DTYPES[dt].itemsize
+    for name, args in calls.items():
+        if name == "fused_guard":
+            g, B, dlt = args[:3]
+            m, d = g.shape
+            got = fused_guard_cuda(g, B, dlt)
+            want = ref.fused_guard_ref_blocked(g, B, dlt)
+            fields = {"B_new_bit_equal": torch.equal(got[3], want[3]),
+                      "rel_abs": {k: rel_err(a, b) for k, a, b in
+                                  zip(("gram_g", "cross", "a_inc"), got[:3], want[:3])}}
+            ok = fields["B_new_bit_equal"] and all(
+                within(a, b, TOL[dt]) for a, b in zip(got[:3], want[:3]))
+            del got, want
+            ms = median_ms(lambda: fused_guard_cuda(g, B, dlt), batches=3, per_batch=5)
+            plain = median_ms(lambda: ref.fused_guard_ref_blocked(g, B, dlt), batches=3,
+                              per_batch=1)
+            nbytes, nops = (3 * m * d + d) * elt, 2.0 * (2 * m * m + m) * d + m * d
+        elif name == "filtered_mean":
+            x, w, denom = args[:3]
+            m, d = x.shape
+            got = filtered_mean_cuda(x, w, denom)
+            want = ref.filtered_mean_ref_blocked(x, w, denom)
+            fields = {"rel_abs": rel_err(got, want)}
+            ok = within(got, want, TOL[dt])
+            del got, want
+            ms = median_ms(lambda: filtered_mean_cuda(x, w, denom), batches=3, per_batch=5)
+            plain = median_ms(lambda: ref.filtered_mean_ref_blocked(x, w, denom), batches=3,
+                              per_batch=1)
+            nbytes, nops = m * d * elt + 4 * d, 2.0 * m * d
+        else:
+            x, k, salt = args[:3]
+            m, d = x.shape
+            got = countsketch_cuda(x, k, salt)
+            want = ref.countsketch_ref_blocked(x, k, salt)
+            fields = {"rel_abs": rel_err(got, want), "plan": launch_plan(
+                m, d, k, x.dtype, x.data_ptr() % 16 == 0)._asdict()}
+            ok = within(got, want, TOL[dt])
+            del got, want
+            ms = median_ms(lambda: countsketch_cuda(x, k, salt), batches=3, per_batch=5)
+            plain = median_ms(lambda: ref.countsketch_ref_blocked(x, k, salt), batches=3,
+                              per_batch=1)
+            nbytes, nops = m * d * elt + 4 * m * k, 2.0 * m * d + 9.0 * d
+        b_ms, b_by = bound(nbytes, nops, PEAK_FLOPS[dt])
+        out[name] = {"m": m, "d": d, "dtype": dt, "ms": ms, "plain_ms": plain,
+                     "bound_ms": b_ms, "bound_by": b_by, "tol": TOL[dt], **fields}
+        require(ok, f"lm_train_full_width: {name} {dt} against its plain version at d={d}")
+        torch.cuda.empty_cache()
+    for name, (fn, attr) in COUNTERS.items():
+        setattr(fn, attr, saved[name])
+    return out
+
+
+def lm_reckon_gb(backend: str, stats: str, n_params: int, d: int, W: int) -> dict:
+    """The run's peak memory reckoned from the code's allocations, in GB:
+    what lives across steps, then the largest of the gradients' moment
+    (the worker-stacked tree and the rows), the attack's (the pre-attack
+    rows, the attack's −scale·g and its output), the guard's (the attacked
+    rows, B and B_new, the f32 ξ) and the optimizer's."""
+    p = 2.0 * n_params                                  # bf16 parameters
+    rows = W * d * 2.0                                  # bf16 rows at either stats dtype
+    b = 0.0 if backend == "dp_sketch" else W * d * (4.0 if stats == "f32" else 2.0)
+    cent = rows if backend == "dp_sketch" else 0.0      # the centred rows
+    static = p + 8.0 * n_params + 2.0 * d + 2.0 * d + b  # params, moments, anchor, prev ξ, B
+    # the worker-stacked gradient tree beside the matrix it is ravelled into
+    gradients = 2.0 * d + 2 * rows
+    attack = 2.0 * d + 3 * rows
+    guard = 2.0 * d + rows + b + cent + 4.0 * d
+    # B_new beside the old B, ξ in f32 and unravelled, AdamW's new m, v
+    # and their bias-corrected copies
+    optimizer = 2.0 * d + b + 6.0 * d + 16.0 * n_params
+    stages = {"gradients": gradients, "attack": attack, "guard": guard,
+              "optimizer": optimizer}
+    out = {f"{k}_gb": (static + v) / 1e9 for k, v in stages.items()}
+    return {"static_gb": static / 1e9, **out,
+            "peak_gb": (static + max(stages.values())) / 1e9}
+
+
+def lm_run(model, backend: str, stats: str, V: float, T: int, dev) -> dict:
+    """T steps of the trainer at full width, built as ``run_training``
+    builds them; step 0's kernel operands are held against the plain
+    versions; returns the run's summary."""
+    cfg = model.cfg
+    stream = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=LM_SEQ, seed=0)
+    opt = adamw(linear_warmup_cosine(LM_LR, warmup=max(T // 20, 1), total_steps=T),
+                grad_clip=1.0)
+    scfg = SolverConfig(m=LM_W, T=T, eta=LM_LR, alpha=LM_ALPHA, attack="sign_flip",
+                        mean_over_alive=True, guard_backend=backend, stats_dtype=stats,
+                        guard_opts=(("sketch_dim", LM_SKETCH_K),) if backend == "dp_sketch"
+                        else ())
+    timer = PhaseTimer()
+    step = build_train_step(model, opt, scfg, V=V, timer=timer)
+    init_key, mask_key, _, loop_key = prng.split(prng.PRNGKey(0, device=dev), 4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, opt, scfg, init_key, V=V)
+    rank = byz_rank(mask_key, LM_W)
+    torch.cuda.synchronize()
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    metrics, checks = [], {}
+    for i in range(T):
+        batch = make_worker_batch(stream, LM_W, LM_BATCH, i, device=dev)
+        if i == 0:
+            with first_call_operands(LM_RUN_KERNELS[backend]) as calls:
+                state, m = step(state, batch, rank, prng.fold_in(loop_key, i))
+            torch.cuda.synchronize()
+            checks = lm_kernel_checks(calls, "bf16")
+            del calls
+            # the peak is the steps' (the checks hold step 0's operands)
+            check_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+        else:
+            timer.start()
+            state, m = step(state, batch, rank, prng.fold_in(loop_key, i))
+            timer.stop()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    split, steps = timer.totals()
+    phase_peak_gb = {k: timer.peaks[k] / 1e9 for k in LM_STEP_PHASES}
+    peak_gb = max(phase_peak_gb.values())
+    hist = fetch_metrics(metrics)
+    del state, step, metrics
+    torch.cuda.empty_cache()
+    loss = [float(h["loss_good_workers"]) for h in hist]
+    out = {"backend": f"{backend}@{stats}", "ms_per_step": statistics.mean(steps),
+           "split_ms_per_step": {k: v / len(steps) for k, v in split.items()},
+           "peak_gb": peak_gb, "peak_gb_by_phase": phase_peak_gb, "init_peak_gb": init_peak_gb,
+           "step0_check_peak_gb": check_peak_gb,
+           "launches": launches,
+           "n_alive": [int(h["n_alive"]) for h in hist],
+           "byz_alive": [int(h["byz_alive"]) for h in hist],
+           "good_filtered": [int(h["good_filtered"]) for h in hist],
+           "loss_good_workers": loss, "v_est_step0": float(hist[0]["v_est"]),
+           "kernels": checks}
+    return out
+
+
+def lm_checks(out: dict, backend: str, T: int, n_byz: int) -> None:
+    """The full-width run's requirements (emitted first, so a failed one
+    leaves its numbers)."""
+    stats = out["backend"]
+    launches, loss = out["launches"], out["loss_good_workers"]
+    want = counts(**{k: T for k in LM_RUN_KERNELS[backend]})
+    require(launches == want, f"lm {stats}: launches {launches} != {want}")
+    require(all(g == 0 for g in out["good_filtered"]), f"lm {stats}: an honest worker was "
+            "filtered")
+    require(out["byz_alive"][-1] == 0, f"lm {stats}: a Byzantine worker survived")
+    require(out["n_alive"][-1] == LM_W - n_byz, f"lm {stats}: n_alive at the end")
+    require(all(math.isfinite(v) for v in loss), f"lm {stats}: finite losses")
+    require(statistics.mean(loss[-3:]) < statistics.mean(loss[:3]), f"lm {stats}: the loss falls")
+
+
+def lm_train_full_width(dev) -> dict:
+    """internlm2-1.8b at its published widths, 2 layers (d = 504,899,584),
+    W = 8, α = 0.25, sign_flip, per-worker batch 2, seq 128, T = LM_T[backend]:
+    dp_exact@bf16, dp_sketch@bf16, fused@bf16 (its V the step-0 v_est
+    dp_exact@bf16 printed) and, where its reckoned peak is at most
+    LM_PEAK_LIMIT_GB, dp_exact@f32.  Returns the launches of the kernels
+    by (name, dtype)."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+    model = build_model(cfg, device=dev)
+    harness = params_harness(model)
+    require(model.n_params == LM_D and harness.d == LM_D,
+            f"internlm2-1.8b at 2 layers has d = {model.n_params} (pad {harness.d})")
+    launches: dict = {}
+    plan = [("dp_exact", "bf16"), ("dp_sketch", "bf16"), ("fused", "bf16"), ("dp_exact", "f32")]
+    v_fused, failures = None, []
+    for backend, stats in plan:
+        reckon = lm_reckon_gb(backend, stats, model.n_params, harness.d, LM_W)
+        if reckon["peak_gb"] > LM_PEAK_LIMIT_GB:
+            emit("lm_train_full_width", backend=f"{backend}@{stats}", skipped=True,
+                 reckoned=reckon, limit_gb=LM_PEAK_LIMIT_GB)
+            continue
+        V = v_fused if backend == "fused" else 0.0
+        t0 = time.perf_counter()
+        T = LM_T[backend]
+        res = lm_run(model, backend, stats, V, T, dev)
+        if (backend, stats) == ("dp_exact", "bf16"):
+            v_fused = res["v_est_step0"]
+        emit("lm_train_full_width", arch=LM_ARCH, n_layers=LM_LAYERS, d=harness.d, W=LM_W,
+             alpha=LM_ALPHA, attack="sign_flip", T=T, batch=LM_BATCH, seq_len=LM_SEQ,
+             V=V, reckoned=reckon, seconds=time.perf_counter() - t0, card=card_line(), **res)
+        try:
+            lm_checks(res, backend, T, int(LM_ALPHA * LM_W))
+        except RuntimeError as err:   # every configuration runs; all failures reported
+            failures.append(str(err))
+        for name, n in res["launches"].items():
+            if n:
+                launches[(name, "bf16")] = launches.get((name, "bf16"), 0) + n
+    require(not failures, "; ".join(failures))
+    return launches
+
+
+def lm_train_launcher(dev) -> dict:
+    """``run_training`` of the launcher at its reduced width on the card and
+    on the CPU: decisions equal at every step, losses within LM_LOSS_TOL,
+    n_alive 6 at the end (the JAX package's own system test expects it).
+    Returns the card run's launches by (name, dtype)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    _, card = run_training(LM_ARCH, device=dev, verbose=False, **LM_LAUNCH)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = read_counts()
+    t0 = time.perf_counter()
+    _, cpu = run_training(LM_ARCH, device="cpu", verbose=False, **LM_LAUNCH)
+    cpu_s = time.perf_counter() - t0
+    keys = ("n_alive", "byz_alive", "good_filtered", "n_byz")
+    decisions_equal = all(a[k] == b[k] for a, b in zip(card, cpu) for k in keys)
+    rel = [abs(a["loss_good_workers"] - b["loss_good_workers"]) / abs(b["loss_good_workers"])
+           for a, b in zip(card, cpu)]
+    loss_rel, loss_rel_first = max(rel), max(rel[:LM_LOSS_FIRST])
+    steps = LM_LAUNCH["steps"]
+    emit("lm_train_launcher", **{k: v for k, v in LM_LAUNCH.items()}, card_seconds=card_s,
+         cpu_seconds=cpu_s, launches=launches, decisions_equal=decisions_equal,
+         loss_rel_max=loss_rel, loss_rel_max_first_steps=loss_rel_first,
+         n_alive=[int(r["n_alive"]) for r in card],
+         loss_first_last=[card[0]["loss_good_workers"], card[-1]["loss_good_workers"]])
+    require(launches == counts(filtered_mean=steps), f"lm launcher launches {launches}")
+    require(decisions_equal, "lm launcher: decisions equal to the CPU's at every step")
+    require(loss_rel_first <= LM_LOSS_TOL[0] and loss_rel <= LM_LOSS_TOL[1],
+            f"lm launcher: losses within {LM_LOSS_TOL} of the CPU's ({loss_rel_first}, "
+            f"{loss_rel})")
+    require(int(card[-1]["n_alive"]) == 6, "lm launcher: n_alive 6 at the end")
+    return {("filtered_mean", "f32"): steps}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3549,6 +3919,14 @@ def main() -> int:
     detection_latency(convex, cpu)
     convex_harness(convex, cpu, lower)
     table1_phase(convex, cpu)
+    lm_launches = lm_train_launcher(dev)
+    for key, n in lm_train_full_width(dev).items():
+        lm_launches[key] = lm_launches.get(key, 0) + n
+    for e in entries:
+        # the LM phases' launches of this kernel at this dtype (their own
+        # runs, counted from 0 before each)
+        name, dt = e["name"].rstrip("]").split("[")
+        e["lm_train_launches"] = lm_launches.get((name, dt), 0)
 
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

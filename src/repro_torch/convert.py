@@ -3,7 +3,8 @@
 The port never imports JAX; a caller holding the JAX package's
 ``Problem`` (generated, quadratic, least squares or logistic),
 ``GuardState``, ``DPGuardState``, ``Scenario``, ``AdvState``,
-``WorkerProfile`` or ``FaultPlan`` passes its arrays through
+``WorkerProfile``, ``FaultPlan``, LM parameters or ``TrainState`` passes
+its arrays through
 ``numpy.asarray`` and hands them here.  bf16 arrays arrive with numpy's
 ``bfloat16`` extension dtype (two bytes per element) and are
 reinterpreted bit for bit.
@@ -18,9 +19,11 @@ from repro_torch.core.byzantine_sgd import GuardState
 from repro_torch.core.solver import Problem
 from repro_torch.data import problems
 from repro_torch.distributed.byzantine_dp import DPGuardState
+from repro_torch.distributed.trainer import TrainState
 from repro_torch.scenarios.adversary import AdvState
 from repro_torch.scenarios.faults import FaultPlan
 from repro_torch.scenarios.spec import Scenario, WorkerProfile
+from repro_torch.utils import tree_map
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -145,3 +148,75 @@ def fault_plan_from_numpy(mode, frac, start_step, period, magnitude) -> FaultPla
     i, f = (lambda a: int(np.asarray(a))), (lambda a: np.float32(np.asarray(a)))
     return FaultPlan(mode=i(mode), frac=f(frac), start_step=i(start_step), period=i(period),
                      magnitude=f(magnitude))
+
+
+# ---------------------------------------------------------------------------
+# the LM training path: parameters and the trainer's state
+# ---------------------------------------------------------------------------
+
+def params_from_numpy(tree, device="cuda"):
+    """A parameter (or optimizer-moment) tree of numpy arrays — the JAX
+    package's, through ``numpy.asarray`` — as tensors on ``device``; dicts
+    and lists keep their structure, bf16 arrays their bits."""
+    return tree_map(lambda a: tensor_from_numpy(a, device), tree)
+
+
+def params_to_numpy(params):
+    """The tree's tensors as numpy arrays; a bf16 leaf comes back upcast to
+    f32 (exact)."""
+    return tree_map(_f32_numpy, params)
+
+
+def _guard_from_numpy(guard, device):
+    if guard is None:
+        return None
+    if hasattr(guard, "v_est"):
+        return dp_guard_state_from_numpy(*guard, device=device)
+    if hasattr(guard, "gram_B"):
+        return guard_state_from_numpy(*guard, device=device)
+    return params_from_numpy(guard, device)
+
+
+def train_state_from_numpy(params, opt_state, guard, anchor, step, ever_byz, adv, prev_xi,
+                           prev_alive, prev_n_alive, grad_buf=(), device="cuda") -> TrainState:
+    """The port's ``TrainState`` from the JAX package's fields, in its field
+    order (``train_state_from_numpy(*jax.tree_util.tree_map(np.asarray,
+    state), device=...)``): the guard state through
+    :func:`guard_state_from_numpy` or :func:`dp_guard_state_from_numpy`, an
+    ``AdvState`` through :func:`adv_state_from_numpy`, ``step`` a host int."""
+    adv = (adv_state_from_numpy(adv.adapt_scale, device) if hasattr(adv, "adapt_scale")
+           else tensor_from_numpy(adv, device))
+    buf = () if isinstance(grad_buf, tuple) and not grad_buf else tensor_from_numpy(grad_buf,
+                                                                                    device)
+    return TrainState(
+        params=params_from_numpy(params, device), opt_state=params_from_numpy(opt_state, device),
+        guard=_guard_from_numpy(guard, device), anchor=tensor_from_numpy(anchor, device),
+        step=int(np.asarray(step)), ever_byz=tensor_from_numpy(ever_byz, device).to(torch.bool),
+        adv=adv, prev_xi=tensor_from_numpy(prev_xi, device),
+        prev_alive=tensor_from_numpy(prev_alive, device).to(torch.bool),
+        prev_n_alive=tensor_from_numpy(np.asarray(prev_n_alive, np.int32), device),
+        grad_buf=buf)
+
+
+def train_state_to_numpy(state: TrainState) -> dict:
+    """The state's fields as numpy (bf16 upcast to f32, exactly); the guard
+    state through :func:`guard_state_to_numpy` or
+    :func:`dp_guard_state_to_numpy`."""
+    guard = state.guard
+    if isinstance(guard, DPGuardState):
+        guard = dp_guard_state_to_numpy(guard)
+    elif isinstance(guard, GuardState):
+        guard = guard_state_to_numpy(guard)
+    elif guard is not None:
+        guard = params_to_numpy(guard)
+    adv = state.adv
+    adv = ({"adapt_scale": adv.adapt_scale.cpu().numpy()} if isinstance(adv, AdvState)
+           else _f32_numpy(adv))
+    return {"params": params_to_numpy(state.params),
+            "opt_state": params_to_numpy(state.opt_state), "guard": guard,
+            "anchor": _f32_numpy(state.anchor), "step": state.step,
+            "ever_byz": state.ever_byz.cpu().numpy(), "adv": adv,
+            "prev_xi": _f32_numpy(state.prev_xi), "prev_alive": state.prev_alive.cpu().numpy(),
+            "prev_n_alive": state.prev_n_alive.cpu().numpy(),
+            "grad_buf": (_f32_numpy(state.grad_buf) if isinstance(state.grad_buf, torch.Tensor)
+                         else ())}

@@ -34,8 +34,13 @@ bf16 × bf16 products are exact as under ``preferred_element_type=f32``).
 On a GPU the f32 products need ``torch.backends.cuda.matmul.allow_tf32``
 False, PyTorch's default.
 
-Not ported here: the ``sq_norm_mean`` diag key, ``apply_tree_attack`` and
-the mesh code (``distributed/sharding.py``, ``specs.py``).
+The step's diag carries ``sq_norm_mean``, the workers' mean ‖g_i‖², as in
+the JAX package.  Every worker-axis product takes a leaf by column blocks
+of ``COL_BLOCK``, so a leaf the size of a whole model keeps its f32
+temporaries small; a leaf within one block is contracted whole.
+:func:`apply_tree_attack` is the gradient-level attack simulation on
+worker-stacked pytrees.  Not ported here: the mesh code
+(``distributed/sharding.py``, ``specs.py``).
 """
 from __future__ import annotations
 
@@ -52,7 +57,9 @@ from repro_torch.core.byzantine_sgd import (
     pairwise_sq_dists_from_gram,
     resolve_stats_dtype,
 )
-from repro_torch.kernels import ops
+from repro_torch import prng
+from repro_torch.kernels import ops, ref
+from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 
 F32 = torch.float32
 
@@ -114,6 +121,38 @@ def _sum(parts: list) -> torch.Tensor:
 # tree ↔ worker-axis algebra
 # ---------------------------------------------------------------------------
 
+# columns of a (W, n) leaf that one f32 product takes at once: a leaf the
+# size of a whole model (d = 5·10⁸) is contracted in blocks, so its f32
+# temporaries stay at W·2²⁴ floats; a leaf within one block is contracted
+# whole, as before
+COL_BLOCK = 1 << 24
+
+
+# a block's Gram is taken as a batch of products over pieces of SPLIT_K
+# columns, summed: one long, thin f32 product (8 × 2²⁴ by 2²⁴ × 8) keeps
+# too few of the card's SMs busy (PERF.md §6, PR 30)
+SPLIT_K = 1 << 16
+
+
+def col_blocks(n: int) -> list:
+    """Slices of COL_BLOCK columns covering a leaf's n."""
+    return ref.column_blocks(n, COL_BLOCK)
+
+
+def _gram_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(W, V) a bᵀ of two f32 (·, n) blocks, by pieces of SPLIT_K columns
+    when n holds at least two."""
+    n = a.shape[1]
+    pieces = n // SPLIT_K
+    if pieces < 2:
+        return a @ b.T
+    main = pieces * SPLIT_K
+    a3 = a[:, :main].reshape(a.shape[0], pieces, SPLIT_K).transpose(0, 1)
+    b3 = b[:, :main].reshape(b.shape[0], pieces, SPLIT_K).transpose(0, 1)
+    out = torch.sum(torch.bmm(a3, b3.transpose(1, 2)), dim=0)
+    return out + a[:, main:] @ b[:, main:].T if main < n else out
+
+
 def worker_vdot(ga, gb, low_precision: bool = False) -> torch.Tensor:
     """(W,) ⟨g_i, h_i⟩ per worker.  gb's leaves share ga's leading W or are
     unbatched (broadcast).  With ``low_precision`` an operand of another
@@ -121,10 +160,17 @@ def worker_vdot(ga, gb, low_precision: bool = False) -> torch.Tensor:
     def one(a, b):
         if low_precision and a.dtype != b.dtype:
             b = b.to(a.dtype)
-        a2 = a.reshape(a.shape[0], -1).to(F32)
-        if b.dim() == a.dim() - 1:
-            return a2 @ b.reshape(-1).to(F32)
-        return torch.bmm(a2[:, None, :], b.reshape(b.shape[0], -1, 1).to(F32)).reshape(-1)
+        a2 = a.reshape(a.shape[0], -1)
+        shared = b.dim() == a.dim() - 1
+        b2 = b.reshape(-1) if shared else b.reshape(b.shape[0], -1)
+        parts = []
+        for blk in col_blocks(a2.shape[1]):
+            x = a2[:, blk].to(F32)
+            if shared:
+                parts.append(x @ b2[blk].to(F32))
+            else:
+                parts.append(torch.sum(x * b2[:, blk].to(F32), dim=1))
+        return _sum(parts)
     return _sum([one(a, b) for a, b in zip(_leaves(ga), _leaves(gb))])
 
 
@@ -139,15 +185,26 @@ def worker_pair_gram(ga, gb, low_precision: bool = False) -> torch.Tensor:
     def one(a, b):
         if low_precision:
             a = a.to(b.dtype)
-        a2 = a.reshape(a.shape[0], -1).to(F32)
-        b2 = b.reshape(b.shape[0], -1).to(F32)
-        return a2 @ b2.T
+        a2 = a.reshape(a.shape[0], -1)
+        b2 = b.reshape(b.shape[0], -1)
+        return _sum([_gram_f32(a2[:, blk].to(F32), b2[:, blk].to(F32))
+                     for blk in col_blocks(a2.shape[1])])
     return _sum([one(a, b) for a, b in zip(_leaves(ga), _leaves(gb))])
 
 
 def worker_cross_gram(g, low_precision: bool = False) -> torch.Tensor:
     """(W, W) Gram of a worker-stacked pytree (exact mode)."""
     return worker_pair_gram(g, g, low_precision)
+
+
+def _worker_sum(x: torch.Tensor) -> torch.Tensor:
+    """(1, ...) f32 sum over the leading worker axis, by column blocks
+    (out of place, so a campaign's vmap batches it)."""
+    x2 = x.reshape(x.shape[0], -1)
+    parts = [torch.sum(x2[:, blk].to(F32), dim=0, keepdim=True)
+             for blk in col_blocks(x2.shape[1])]
+    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return out.reshape((1, *x.shape[1:]))
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +284,8 @@ def _calibrate_v(cfg: DPGuardConfig, gram_g: torch.Tensor, v_prev: torch.Tensor,
 def guard_step(cfg: DPGuardConfig, state: DPGuardState, grads_w, params, anchor,
                report=None):
     """One filter and aggregation step; returns ``(state', ξ, diag)`` with
-    ξ in the structure of ``grads_w`` and diag = {"n_alive", "v_est"}.
+    ξ in the structure of ``grads_w`` and diag = {"n_alive", "v_est",
+    "sq_norm_mean"}.
     ``report`` ((W,) bool) zeroes the other workers' rows on entry and
     restricts the medians and the V quantile to reporters."""
     W = cfg.n_workers
@@ -251,12 +309,13 @@ def guard_step(cfg: DPGuardConfig, state: DPGuardState, grads_w, params, anchor,
     if lp:
         delta = [dl.to(p.dtype) for dl, p in zip(delta, _leaves(params))]
     A = state.A + worker_vdot(g, delta, lp)
+    sq_g = worker_sq_norms(g, lp)
 
     if cfg.mode == "sketch":
         # centre before sketching: the distances do not move, the sketch
         # noise scales with ‖g_i − ḡ‖ instead of ‖g_i‖
         n_mean = W if report is None else torch.clamp(torch.sum(report), min=1).to(F32)
-        g_mean = [torch.sum(x.to(F32), dim=0, keepdim=True) / n_mean for x in g]
+        g_mean = [_worker_sum(x) / n_mean for x in g]
         if lp:
             g_cent = [x - c.to(x.dtype) for x, c in zip(g, g_mean)]
         else:
@@ -273,7 +332,9 @@ def guard_step(cfg: DPGuardConfig, state: DPGuardState, grads_w, params, anchor,
     else:
         # B and g are both in the stats dtype: a bf16 add rounds the f32 sum
         # once, which is the JAX package's rounding under either switch
-        B = _like(state.B, [b + x.to(b.dtype) for b, x in zip(_leaves(state.B), g)])
+        # (an f32 B takes a bf16 g's exact upcast inside the add)
+        B = _like(state.B, [b + x if b.dtype == F32 else b + x.to(b.dtype)
+                            for b, x in zip(_leaves(state.B), g)])
         gram_g = worker_cross_gram(g, lp)
         resync = cfg.gram_resync_every > 0 and k_new % cfg.gram_resync_every == 0
         if cfg.incremental_gram and not resync:
@@ -299,6 +360,45 @@ def guard_step(cfg: DPGuardConfig, state: DPGuardState, grads_w, params, anchor,
         xi.append(ops.filtered_mean(x.reshape(W, -1), wx, 1.0)
                   .reshape(x.shape[1:]).to(x.dtype))
 
-    diag = dict(diag, v_est=v_eff)
+    diag = dict(diag, v_est=v_eff, sq_norm_mean=torch.mean(sq_g))
     new_state = DPGuardState(A=A, B=B, alive=good_k, k=k_new, v_est=v_eff, gram_B=gram_B)
     return new_state, _like(grads_w, xi), diag
+
+
+# ---------------------------------------------------------------------------
+# gradient-level attack simulation on the worker axis
+# ---------------------------------------------------------------------------
+
+def apply_tree_attack(name: str, key: torch.Tensor, grads_w, byz_mask: torch.Tensor,
+                      scale: float = 3.0):
+    """Overwrite Byzantine workers' gradient trees (leaves lead with W);
+    ``byz_mask``: (W,) bool.  ``noise`` draws :func:`repro_torch.prng.normal`
+    under ``split(key, n_leaves)``, one key a leaf in leaf order (f32
+    leaves: jax draws another dtype from other bits)."""
+    def mask_like(leaf):
+        return byz_mask.reshape((-1,) + (1,) * (leaf.dim() - 1))
+
+    if name == "none":
+        return grads_w
+    if name == "sign_flip":
+        return tree_map(lambda g: torch.where(mask_like(g), -scale * g, g), grads_w)
+    if name == "noise":
+        leaves = tree_leaves(grads_w)
+        keys = prng.split(key, len(leaves))
+        noisy = [torch.where(mask_like(g), scale * prng.normal(keys[i], g.shape, g.dtype), g)
+                 for i, g in enumerate(leaves)]
+        return tree_unflatten(grads_w, noisy)
+    if name == "constant_drift":
+        def drift(g):
+            fill = float(np.float32(scale) / np.sqrt(np.float32(g[0].numel())))
+            return torch.where(mask_like(g), torch.full_like(g, fill), g)
+        return tree_map(drift, grads_w)
+    if name == "scaled_copy":
+        # colluders send mean-of-good × scale: inflates the step magnitude
+        def one(g):
+            mu = torch.mean(torch.where(mask_like(g), 0.0, g), dim=0, keepdim=True)
+            n_good = torch.clamp(torch.sum(~byz_mask, dtype=torch.int32), min=1)
+            mu = mu * (byz_mask.shape[0] / n_good.to(F32))
+            return torch.where(mask_like(g), scale * mu, g)
+        return tree_map(one, grads_w)
+    raise KeyError(f"unknown tree attack {name!r}")

@@ -155,13 +155,15 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & MASK32
 
 
-def sketch_sign(n: int, salt: int, device="cpu") -> torch.Tensor:
-    """(n,) f32 ±1 per flat coordinate i, from the uint32 hash shared with
-    the JAX package's ``sketch_sign``: h = (i + s)·2654435761 with
+def sketch_sign(n: int, salt: int, device="cpu", start: int = 0) -> torch.Tensor:
+    """(n,) f32 ±1 per flat coordinate i = start, …, start + n − 1, from the
+    uint32 hash shared with the JAX package's ``sketch_sign``: h =
+    (i + s)·2654435761 with
     s = (salt·0x9E3779B9 + 1) mod 2³², h ^= h >> 15, h *= 0x85EBCA6B,
     h ^= h >> 13, σ = 1 − 2·(h & 1).  The uint32 words live in int64."""
     s = (salt * 0x9E3779B9 + 1) & MASK32
-    h = _mul32((torch.arange(n, dtype=torch.int64, device=device) + s) & MASK32, 2654435761)
+    i = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    h = _mul32((i + s) & MASK32, 2654435761)
     h = h ^ (h >> 15)
     h = _mul32(h, 0x85EBCA6B)
     h = h ^ (h >> 13)
@@ -179,3 +181,63 @@ def countsketch_ref(x: torch.Tensor, k: int, salt: int = 0) -> torch.Tensor:
     if pad:
         signed = F.pad(signed, (0, pad))
     return torch.sum(signed.reshape(m, -1, k), dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the same plain versions by column blocks: a whole model's (m, d) rows
+# (d = 5·10⁸) have no room for their f32 copies, a block of them does
+# ---------------------------------------------------------------------------
+
+COLS = 1 << 24   # a multiple of every sketch size the port uses
+
+
+def column_blocks(d: int, cols: int) -> list:
+    """Slices of ``cols`` columns covering 0..d (one, empty, when d = 0)."""
+    return [slice(lo, min(lo + cols, d)) for lo in range(0, max(d, 1), cols)]
+
+
+def fused_guard_ref_blocked(grads: torch.Tensor, B: torch.Tensor, delta: torch.Tensor,
+                            cols: int = COLS):
+    """:func:`fused_guard_ref` one column block at a time; the products
+    add up block by block (only the order of the f32 sums differs) and
+    ``B_new`` is the same bits."""
+    m, d = grads.shape
+    gram_g = torch.zeros((m, m), dtype=torch.float32, device=grads.device)
+    cross = torch.zeros_like(gram_g)
+    a_inc = torch.zeros((m,), dtype=torch.float32, device=grads.device)
+    B_new = torch.empty_like(B)
+    for blk in column_blocks(d, cols):
+        gg, cr, ai, bn = fused_guard_ref(grads[:, blk], B[:, blk], delta[blk])
+        gram_g += gg
+        cross += cr
+        a_inc += ai
+        B_new[:, blk] = bn
+    return gram_g, cross, a_inc, B_new
+
+
+def filtered_mean_ref_blocked(x: torch.Tensor, mask: torch.Tensor, denom: float,
+                              cols: int = COLS) -> torch.Tensor:
+    """:func:`filtered_mean_ref` one column block at a time (each column's
+    sum is the same)."""
+    out = torch.empty((x.shape[1],), dtype=torch.float32, device=x.device)
+    for blk in column_blocks(x.shape[1], cols):
+        out[blk] = filtered_mean_ref(x[:, blk], mask, denom)
+    return out
+
+
+def countsketch_ref_blocked(x: torch.Tensor, k: int, salt: int = 0,
+                            cols: int = COLS) -> torch.Tensor:
+    """:func:`countsketch_ref` one column block at a time; ``cols`` is a
+    multiple of k, so every block folds onto the buckets from 0."""
+    if cols % k:
+        raise ValueError(f"countsketch_ref_blocked: cols={cols} is not a multiple of k={k}")
+    m, d = x.shape
+    out = torch.zeros((m, k), dtype=torch.float32, device=x.device)
+    for blk in column_blocks(d, cols):
+        n = blk.stop - blk.start
+        signed = x[:, blk].to(torch.float32) * sketch_sign(n, salt, x.device, start=blk.start)
+        pad = (-n) % k
+        if pad:
+            signed = F.pad(signed, (0, pad))
+        out += torch.sum(signed.reshape(m, -1, k), dim=1)
+    return out

@@ -1,6 +1,6 @@
 """The JAX key chain on torch tensors: ``PRNGKey``, ``split``,
-``fold_in``, ``permutation``, ``uniform``, ``randint``, ``normal`` and
-``bernoulli`` with ``jax.random``'s threefry semantics under
+``fold_in``, ``permutation``, ``uniform``, ``randint``, ``normal``,
+``truncated_normal`` and ``bernoulli`` with ``jax.random``'s threefry semantics under
 ``jax_threefry_partitionable=True``.
 
 A key is an ``int64[2]`` tensor holding two uint32 words.  ``split`` is
@@ -14,6 +14,9 @@ flat element index, as ``jax.random.bits`` does for 32-bit words.
 ``normal`` is ``√2·erf_inv(u)`` of a uniform u on (nextafter(−1, 0), 1),
 with ``erf_inv`` Giles' single-precision polynomial as XLA evaluates it
 (:func:`erf_inv`); ``bernoulli`` is ``uniform < p``.
+
+``truncated_normal`` is ``√2·erf_inv`` of a uniform between the bounds'
+erf, clamped inside the bounds.
 
 ``split``, ``uniform``, ``randint``, ``normal`` and ``bernoulli`` also take
 a batch of keys, an ``(..., 2)`` tensor, and then draw once per key, as
@@ -66,11 +69,25 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([x0, x1])
 
 
+# counters a threefry call takes at once: a draw the size of a model's
+# embedding table goes through in pieces, so its int64 temporaries stay
+# near 1 GiB
+_BITS_CHUNK = 1 << 25
+
+
 def _random_bits32(key: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.bits(key, (n,), uint32)``: ``b0 ^ b1`` of threefry on
     the counters (0, i); ``(..., n)`` for a batch of keys."""
-    counters = torch.arange(n, dtype=torch.int64, device=key.device)
     k0, k1 = _words(key)
+    if n > _BITS_CHUNK:
+        out = torch.empty(key.shape[:-1] + (n,), dtype=torch.int64, device=key.device)
+        for lo in range(0, n, _BITS_CHUNK):
+            counters = torch.arange(lo, min(lo + _BITS_CHUNK, n), dtype=torch.int64,
+                                    device=key.device)
+            b0, b1 = threefry2x32(k0, k1, torch.zeros_like(counters), counters)
+            out[..., lo:lo + counters.shape[0]] = b0 ^ b1
+        return out
+    counters = torch.arange(n, dtype=torch.int64, device=key.device)
     b0, b1 = threefry2x32(k0, k1, torch.zeros_like(counters), counters)
     return b0 ^ b1
 
@@ -98,15 +115,19 @@ def _bits(key: torch.Tensor, shape) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
-    23 bits as the mantissa of a float in [1, 2), minus 1, scaled and
-    shifted in f32, and held at or above ``minval``."""
+    23 bits as the mantissa of a float in [1, 2), minus 1, times the f32
+    span ``maxval − minval`` plus ``minval`` in one fused multiply-add (XLA
+    contracts the two), and held at or above ``minval``."""
     # the float with those 23 mantissa bits in [1, 2), minus 1, is k·2⁻²³
     # for the 23-bit k: exact in f32 either way, and a product where a bit
     # view would be (vmap has no rule for a dtype view in every torch)
-    floats = (_bits(key, shape) >> 9).to(torch.float32) * (2.0 ** -23)
-    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
-    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    floats = (_bits(key, shape) >> 9).to(torch.float64) * (2.0 ** -23)
+    lo32 = np.float32(minval)
+    span = float(np.float32(maxval) - lo32)
+    # an f32 product is exact in f64, so the f64 sum rounded to f32 is the
+    # FMA's result
+    out = (floats * span + float(lo32)).to(torch.float32)
+    return torch.clamp(out, min=float(lo32))
 
 
 def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
@@ -165,6 +186,23 @@ def normal(key: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
     if dtype != torch.float32:
         raise ValueError(f"normal draws float32 only, got {dtype}")
     return _SQRT2 * erf_inv(uniform(key, shape, _NORMAL_LO, 1.0))
+
+
+def truncated_normal(key: torch.Tensor, lower: float, upper: float,
+                     shape=()) -> torch.Tensor:
+    """``jax.random.truncated_normal(key, lower, upper, shape, float32)``:
+    u uniform on [erf(lower/√2), erf(upper/√2)), then √2·erf_inv(u),
+    clamped to [nextafter(lower, +inf), nextafter(upper, −inf)].  The bounds'
+    erf is taken in double and rounded to f32 (XLA's f32 erf gives the same
+    bits at ±2/√2, the bounds the models draw with); the draws inherit
+    :func:`normal`'s few-ulp difference from ``erf_inv``."""
+    lo, hi = np.float32(lower), np.float32(upper)
+    sqrt2 = np.float32(np.sqrt(2.0))
+    a = float(np.float32(math.erf(float(lo / sqrt2))))
+    b = float(np.float32(math.erf(float(hi / sqrt2))))
+    out = _SQRT2 * erf_inv(uniform(key, shape, a, b))
+    return torch.clamp(out, float(np.nextafter(lo, np.float32(np.inf))),
+                       float(np.nextafter(hi, np.float32(-np.inf))))
 
 
 def bernoulli(key: torch.Tensor, p: float = 0.5, shape=()) -> torch.Tensor:

@@ -970,3 +970,30 @@ def test_bitflip_fault_axis_runs_in_a_campaign_on_the_card(cuda_device):
     for r in range(3):
         want = faults.apply_fault_plan(plan, keys[r], grads[r], rank, 5)
         assert torch.equal(got[r].view(torch.int32), want.view(torch.int32))
+
+
+# a whole model's gradient rows: internlm2-1.8b at 2 layers (d = its
+# parameter count) and the LM trainer's 8 workers, m·d between 2^31 and 2^32
+LM_M, LM_D = 8, 504_899_584
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused_guard", "filtered_mean", "countsketch"])
+def test_lm_width_kernels_match_plain(cuda_device, kernel):
+    """The LM path's kernels at m = 8, d = 504,899,584 in bf16 against their
+    plain versions, taken by column blocks (no room for the f32 copies)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(LM_D % 7919)
+    x = torch.randn(LM_M, LM_D, device=cuda_device, generator=gen, dtype=torch.bfloat16)
+    if kernel == "fused_guard":
+        B = torch.randn(LM_M, LM_D, device=cuda_device, generator=gen, dtype=torch.bfloat16)
+        dlt = torch.randn(LM_D, device=cuda_device, generator=gen, dtype=torch.bfloat16)
+        got = fused_guard_cuda(x, B, dlt)
+        want = ref.fused_guard_ref_blocked(x, B, dlt)
+        assert torch.equal(got[3], want[3])
+        for a, b in zip(got[:3], want[:3]):
+            _within(a, b, 1e-4)
+    elif kernel == "filtered_mean":
+        w = torch.tensor([1, 1, 0, 1, 1, 0, 1, 1], dtype=torch.float32, device=cuda_device)
+        _within(filtered_mean_cuda(x, w, 6.0), ref.filtered_mean_ref_blocked(x, w, 6.0), 1e-4)
+    else:
+        _within(countsketch_cuda(x, 4096, 0), ref.countsketch_ref_blocked(x, 4096, 0), 1e-4)
