@@ -278,10 +278,42 @@ and then no result line is printed):
    the kernel's and the plain version's ms beside the bound; ms a step
    split by CUDA events into forward/backward, ravel, attack, guard and
    optimizer, and the peak memory;
-19. the script's total seconds, the kernels line (24 entries: twelve
+19. lm_checkpoint — ``run_training`` at phase 17's width (40 steps) on
+   dp_exact@f32 and fused@bf16 (V the dp_exact run's step-0 v_est; the
+   guard's B a bf16 leaf): uninterrupted, then stopped after 20 steps
+   with ``ckpt_dir`` and resumed — the final state bit-equal leaf by leaf
+   and the history equal, each kernel of the run 40 times over the two
+   halves; save and restore seconds and the file's MB; the card's
+   checkpoint restored on the CPU and a CPU-written one on the card, bit
+   for bit, each on its template's device; the newest file truncated
+   (skipped: no complete unit) and then silently corrupted (quarantined),
+   restore falling back to step 20;
+20. lm_train_campaign — ``run_train_campaign`` of internlm2-1.8b at that
+   width (per-worker batch 1, W = 8, α = 0.25, T = 10) over static and
+   churning sign_flip × 2 seeds (2 groups of 2 rows) for
+   byzantine_sgd@dp_exact, @dp_sketch, @fused and @fused@bf16 (V a
+   dp_exact step's v_est) and mean, each with the counts set to 0 just
+   before it: each kernel T times a group; every row deciding as its run
+   alone with losses within 1e-5; the CPU's campaign deciding alike
+   (losses within 1e-4); no honest worker filtered by a guard; the
+   batched seconds against the rows run alone;
+21. lm_serve_full_width — ``launch.serve.run_serving(reduced=False)``:
+   internlm2-1.8b at all 24 layers and every published width (1.89·10⁹
+   bf16 parameters from PRNGKey(0)), batch 4, prompt 64, 32 tokens,
+   cache 256: no guard kernel launched, prefill ms, ms a token, tokens/s,
+   peak GB, its logits against a teacher-forced forward (printed; the
+   reference's init leaves 24 layers of near one-hot attention, which
+   decorrelates two orders of the same sums); the same weights with the
+   attention projections rescaled to their fan-in, in bf16 and f32,
+   through ``generate``: every position within 5e-2 / 1e-5 of the
+   teacher-forced forward; then at the reduced width the card's greedy
+   tokens equal to the CPU's for the plain cache, the int8 cache and a
+   starcoder2-3b window-32 ring that wraps (prompt 16, 40 steps);
+22. the script's total seconds, the kernels line (24 entries: twelve
    kernels, the generating two over a run axis among them, × f32/bf16;
-   each also with ``lm_train_launches``, its launches in phases 17–18),
-   the card line and the result line.
+   each also with ``lm_train_launches``, its launches in phases 17–18,
+   ``lm_checkpoint_launches`` and ``lm_train_campaign_launches``, its
+   launches in phases 19 and 20), the card line and the result line.
 """
 from __future__ import annotations
 
@@ -294,10 +326,12 @@ import math
 import multiprocessing
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 # before torch reaches the card: the full-width LM runs (phase 18) allocate
@@ -311,12 +345,15 @@ import torch  # noqa: E402
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import prng  # noqa: E402
+from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.tree_harness import params_harness  # noqa: E402
 from repro_torch.data.synthetic import SyntheticTokens, make_worker_batch  # noqa: E402
 from repro_torch.distributed.trainer import build_train_step, init_train_state  # noqa: E402
+from repro_torch.launch.serve import generate, run_serving  # noqa: E402
 from repro_torch.launch.train import fetch_metrics, run_training  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.model import _lm_head  # noqa: E402
 from repro_torch.optim import adamw, linear_warmup_cosine  # noqa: E402
 from repro_torch.core import aggregators, attacks  # noqa: E402
 from repro_torch.core.attacks import alie_z_max  # noqa: E402
@@ -380,6 +417,8 @@ from repro_torch.scenarios import (  # noqa: E402
     worker_profile,
 )
 from repro_torch.scenarios.campaign import _summarize, expand_variants, run_groups  # noqa: E402
+from repro_torch.scenarios.train_campaign import run_train_campaign  # noqa: E402
+from repro_torch.utils import tree_flatten_with_path, tree_leaves, tree_map  # noqa: E402
 
 M, D, T = 32, 2 ** 20, 128
 # Kernel against plain version on the card: both upcast bf16 to f32 exactly
@@ -3857,6 +3896,454 @@ def lm_train_launcher(dev) -> dict:
     return {("filtered_mean", "f32"): steps}
 
 
+# ---------------------------------------------------------------- phases 19-21: checkpoints,
+# train campaigns, serving
+
+CKPT_STOP = 20            # lm_checkpoint stops after 20 of LM_LAUNCH's 40 steps
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "lm_checkpoint"
+# (name, run_training overrides); fused@bf16's V is the step-0 v_est of the
+# dp_exact run, and its guard state carries a bf16 B leaf
+CKPT_RUNS = (("dp_exact@f32", dict(guard_backend="dp_exact", stats_dtype="f32")),
+             ("fused@bf16", dict(guard_backend="fused", stats_dtype="bf16")))
+CKPT_KERNELS = {"dp_exact": ("filtered_mean",), "fused": ("fused_guard", "filtered_mean")}
+
+
+def leaves_differ(a, b) -> list:
+    """The checkpoint keys at which two trees of one structure differ in
+    bits (a tensor's device aside), or in a host number."""
+    out = []
+    for (k, x), (_, y) in zip(tree_flatten_with_path(a), tree_flatten_with_path(b)):
+        if isinstance(x, torch.Tensor):
+            same = x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+        else:
+            same = x == y
+        if not same:
+            out.append(k)
+    return out
+
+
+def histories_equal(a: list, b: list) -> bool:
+    """Two run histories equal record by record (NaN equal to NaN)."""
+    try:
+        np.testing.assert_equal(a, b)
+    except AssertionError:
+        return False
+    return True
+
+
+def lm_checkpoint(dev) -> dict:
+    """``run_training`` at LM_LAUNCH's reduced width, uninterrupted and then
+    stopped after CKPT_STOP steps with a checkpoint and resumed, on
+    dp_exact@f32 and fused@bf16 (its guard's B a bf16 leaf): the final
+    state bit-equal to the uninterrupted one leaf by leaf and the history
+    equal; a card-written checkpoint restored on the CPU and a CPU-written
+    one on the card, bit for bit; a truncated newest checkpoint skipped and
+    a silently corrupted one quarantined, restore falling back to the one
+    before.  The stopped and resumed runs count their launches.  Returns
+    them by (name, dtype)."""
+    t_phase = time.perf_counter()
+    steps = LM_LAUNCH["steps"]
+    launches: dict = {}
+    v_given = None
+    for name, over in CKPT_RUNS:
+        backend, stats = name.split("@")
+        kw = {**LM_LAUNCH, **over}
+        if backend == "fused":
+            kw["guard_v"] = v_given
+        d = CKPT_DIR / name
+        shutil.rmtree(d, ignore_errors=True)
+        t0 = time.perf_counter()
+        full, full_hist = run_training(LM_ARCH, device=dev, verbose=False, **kw)
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        if backend == "dp_exact":
+            v_given = full_hist[0]["v_est"]
+        reset_counts()
+        t0 = time.perf_counter()
+        run_training(LM_ARCH, device=dev, verbose=False, ckpt_dir=str(d), stop_after=CKPT_STOP,
+                     **kw)
+        stopped_at = latest_step(str(d))
+        resumed, hist = run_training(LM_ARCH, device=dev, verbose=False, ckpt_dir=str(d),
+                                     resume=True, **kw)
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+        got = read_counts()
+        want = counts(**{k: steps for k in CKPT_KERNELS[backend]})
+        for k, n in got.items():
+            if n:
+                launches[(k, stats)] = launches.get((k, stats), 0) + n
+        differ = leaves_differ(full, resumed)
+        b_dtype = str(full.guard.B.dtype)
+
+        # save and restore alone, timed; the file's size
+        sd = d / "timed"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(str(sd), resumed.step, resumed)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, _ = restore_checkpoint(str(sd), resumed)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        mb = os.path.getsize(path) / 1e6
+        # across devices: the card's checkpoint restored on the CPU, and a
+        # CPU-written one restored on the card
+        cpu_tmpl = to_cpu(resumed)
+        on_cpu, _ = restore_checkpoint(str(sd), cpu_tmpl)
+        cd = d / "from_cpu"
+        save_checkpoint(str(cd), on_cpu.step, on_cpu)
+        on_card, _ = restore_checkpoint(str(cd), resumed)
+        cross = {"restore_on_card_differs": leaves_differ(back, resumed),
+                 "card_to_cpu_differs": leaves_differ(on_cpu, resumed),
+                 "cpu_to_card_differs": leaves_differ(on_card, resumed),
+                 "cpu_restore_device": str(first_tensor(on_cpu).device),
+                 "card_restore_device": str(first_tensor(on_card).device)}
+        # damage: the newest truncated (not a complete unit: skipped), then
+        # rewritten with a leaf changed under its old checksum (quarantined)
+        newest = d / f"ckpt_{steps:08d}.npz"
+        with open(newest, "r+b") as f:
+            f.truncate(os.path.getsize(newest) // 2)
+        truncated_latest = latest_step(str(d))
+        fell_back, at = restore_checkpoint(str(d), resumed)
+        damage = {"truncated_latest_step": truncated_latest, "truncated_restored_step": at}
+        os.remove(newest)
+        save_checkpoint(str(d), steps, resumed)
+        with np.load(newest) as data:
+            arrays = {k: data[k] for k in data.files}
+        arrays["leaf_0"] = arrays["leaf_0"] + np.float32(1.0)
+        np.savez(newest, **arrays)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _, q_at = restore_checkpoint(str(d), resumed)
+        damage.update(corrupt_restored_step=q_at,
+                      quarantined=os.path.exists(str(newest) + ".corrupt"),
+                      warned=any("quarantined" in str(w.message) for w in caught))
+        emit("lm_checkpoint", run=name, arch=LM_ARCH, d_model=LM_LAUNCH["d_model"],
+             W=LM_LAUNCH["workers"], steps=steps, stop_after=CKPT_STOP, stopped_at=stopped_at,
+             guard_v=kw.get("guard_v", 0.0), guard_B_dtype=b_dtype, launches=got,
+             resume_differs=differ, history_equal=histories_equal(hist, full_hist),
+             n_alive_last=int(hist[-1]["n_alive"]), uninterrupted_s=full_s,
+             stopped_and_resumed_s=resumed_s, save_s=save_s, restore_s=restore_s,
+             checkpoint_mb=mb, cross_device=cross, damage=damage, card=card_line())
+        require(got == want, f"lm_checkpoint {name}: launches {got} != {want}")
+        require(stopped_at == CKPT_STOP, f"lm_checkpoint {name}: stopped at {stopped_at}")
+        require(not differ, f"lm_checkpoint {name}: resumed state differs at {differ}")
+        require(histories_equal(hist, full_hist), f"lm_checkpoint {name}: history")
+        require(b_dtype == ("torch.bfloat16" if stats == "bf16" else "torch.float32"),
+                f"lm_checkpoint {name}: the guard's B is {b_dtype}")
+        require(not any(v for k, v in cross.items() if k.endswith("differs")),
+                f"lm_checkpoint {name}: across devices {cross}")
+        require(cross["cpu_restore_device"] == "cpu"
+                and cross["card_restore_device"].startswith("cuda"),
+                f"lm_checkpoint {name}: restored onto the template's device")
+        require(truncated_latest == CKPT_STOP and at == CKPT_STOP,
+                f"lm_checkpoint {name}: the truncated newest is skipped {damage}")
+        require(q_at == CKPT_STOP and damage["quarantined"] and damage["warned"],
+                f"lm_checkpoint {name}: the corrupted newest is quarantined {damage}")
+        del full, resumed, back, on_cpu, on_card, fell_back
+    emit("lm_checkpoint", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def to_cpu(tree):
+    return tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t, tree)
+
+
+def first_tensor(tree) -> torch.Tensor:
+    return next(t for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
+
+
+# the campaign phase: the launcher's reduced width, per-worker batch 1
+TC_T, TC_SEEDS, TC_BATCH = 10, (0, 1), 1
+TC_LOSS_RTOL = 1e-5          # a row against its run alone
+TC_CPU_LOSS_RTOL = 1e-4      # the card's rows against the CPU's
+# variant -> the kernels one step of a group launches, once for its runs;
+# the fused variants take the V of a dp_exact step (TC_FUSED)
+TC_VARIANTS = {"byzantine_sgd@dp_exact": ("filtered_mean",),
+               "byzantine_sgd@dp_sketch": ("countsketch", "filtered_mean"),
+               "byzantine_sgd@fused": ("fused_guard", "filtered_mean"),
+               "byzantine_sgd@fused@bf16": ("fused_guard", "filtered_mean"),
+               "mean": ()}
+TC_FUSED = ("byzantine_sgd@fused", "byzantine_sgd@fused@bf16")
+TC_DECISIONS = ("n_alive_final", "byz_alive_final", "n_byz_ever", "ever_filtered_good")
+
+
+def tc_setup(dev):
+    cfg = get_config(LM_ARCH).reduced(max_d_model=LM_LAUNCH["d_model"])
+    model = build_model(cfg, device=dev)
+    stream = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=LM_LAUNCH["seq_len"], seed=0)
+    opt = adamw(linear_warmup_cosine(LM_LR, warmup=max(TC_T // 20, 1), total_steps=TC_T),
+                grad_clip=1.0)
+    scfg = SolverConfig(m=LM_LAUNCH["workers"], T=TC_T, eta=LM_LR, alpha=LM_ALPHA,
+                        attack="sign_flip", mean_over_alive=True)
+    grid = expand_grid([("static", scenario_static("sign_flip")),
+                        ("churn", scenario_churn("sign_flip", period=TC_T // 2, stride=1))],
+                       [LM_ALPHA], TC_SEEDS)
+    return model, stream, opt, scfg, grid
+
+
+def tc_row_alone(model, opt, cfg, grid, i: int, V: float, stream) -> dict:
+    """Grid row ``i`` as a run of its own (no run axis), as the campaign
+    runs a row."""
+    dev = model.device
+    adv = ScenarioAdversary(scenario=grid.scenarios[i], alpha=grid.alpha[i])
+    step = build_train_step(model, opt, cfg, V=V, adversary=adv)
+    init_key, mask_key, loop_key = prng.split(prng.PRNGKey(int(grid.seeds[i]), device=dev), 3)
+    state = init_train_state(model, opt, cfg, init_key, V=V, adversary=adv)
+    rank = byz_rank(mask_key, cfg.m)
+    losses, goodf = [], []
+    for k in range(TC_T):
+        batch = make_worker_batch(stream, cfg.m, TC_BATCH, k, device=dev)
+        state, m = step(state, batch, rank, prng.fold_in(loop_key, k))
+        losses.append(m["loss_good_workers"])
+        goodf.append(m["good_filtered"])
+    return {"loss_first": float(losses[0]), "loss_final": float(losses[-1]),
+            "n_alive_final": int(state.prev_n_alive), "byz_alive_final": int(m["byz_alive"]),
+            "n_byz_ever": int(state.ever_byz.sum()),
+            "ever_filtered_good": bool(any(int(g) > 0 for g in goodf))}
+
+
+def tc_rows(st) -> list:
+    """A variant's stats as one dict a row."""
+    cols = {f: getattr(st, f).cpu().tolist() for f in st._fields}
+    return [{f: cols[f][i] for f in cols} for i in range(len(cols["loss_first"]))]
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def lm_train_campaign(dev) -> dict:
+    """``run_train_campaign`` of internlm2-1.8b at the launcher's reduced
+    width (d_model 128, seq 64, per-worker batch 1, W = 8, α = 0.25, T =
+    TC_T) over static and churning sign_flip × 2 seeds (2 groups of 2
+    rows), each variant of TC_VARIANTS with the launch counts set to 0 just
+    before it and read just after: each kernel T times a group; every row
+    deciding as its run alone (losses within TC_LOSS_RTOL); the same
+    campaign on the CPU deciding alike (losses within TC_CPU_LOSS_RTOL); no
+    honest worker filtered by a guard; the batched wall time against the
+    rows' alone.  Returns the launches by (name, dtype)."""
+    t_phase = time.perf_counter()
+    model, stream, opt, scfg, grid = tc_setup(dev)
+    groups = run_groups(grid)
+    require(len(groups) == 2 and all(len(g) == 2 for g in groups), "2 groups of 2 rows")
+    # the fused guards' V: a dp_exact step's v_est at this width and batch
+    _, h = run_training(LM_ARCH, device=dev, verbose=False, d_model=LM_LAUNCH["d_model"],
+                        workers=scfg.m, seq_len=LM_LAUNCH["seq_len"],
+                        per_worker_batch=TC_BATCH, steps=TC_T, stop_after=1)
+    v_fused = h[0]["v_est"]
+    cpu_model, cpu_stream, cpu_opt, _, cpu_grid = tc_setup("cpu")
+    launches: dict = {}
+    for variant, kernels in TC_VARIANTS.items():
+        V = v_fused if variant in TC_FUSED else 0.0
+        vcfg = expand_variants(scfg, [variant])[variant]
+        torch.cuda.synchronize()
+        reset_counts()
+        res = run_train_campaign(model, opt, scfg, grid, steps=TC_T, stream=stream,
+                                 per_worker_batch=TC_BATCH, aggregators=[variant], V=V)
+        got = read_counts()
+        want = counts(**{k: TC_T * len(groups) for k in kernels})
+        dt = vcfg.stats_dtype
+        for k, n in got.items():
+            if n:
+                launches[(k, dt)] = launches.get((k, dt), 0) + n
+        rows = tc_rows(res.stats[variant])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alone = [tc_row_alone(model, opt, vcfg, grid, i, V, stream) for i in range(grid.n_runs)]
+        torch.cuda.synchronize()
+        alone_s = time.perf_counter() - t0
+        cpu = tc_rows(run_train_campaign(cpu_model, cpu_opt, scfg, cpu_grid, steps=TC_T,
+                                         stream=cpu_stream, per_worker_batch=TC_BATCH,
+                                         aggregators=[variant], V=V).stats[variant])
+        alone_equal = all(r[f] == a[f] for r, a in zip(rows, alone) for f in TC_DECISIONS)
+        alone_rel = max(rel(r[f], a[f]) for r, a in zip(rows, alone)
+                        for f in ("loss_first", "loss_final"))
+        cpu_equal = all(r[f] == c[f] for r, c in zip(rows, cpu) for f in TC_DECISIONS)
+        cpu_rel = max(rel(r[f], c[f]) for r, c in zip(rows, cpu)
+                      for f in ("loss_first", "loss_final"))
+        emit("lm_train_campaign", variant=variant, arch=LM_ARCH, d_model=LM_LAUNCH["d_model"],
+             W=scfg.m, T=TC_T, batch=TC_BATCH, seq_len=LM_LAUNCH["seq_len"], V=V,
+             runs=grid.n_runs, groups=len(groups), launches=got, rows=rows,
+             rows_alone_decisions_equal=alone_equal, rows_alone_loss_rel_max=alone_rel,
+             cpu_decisions_equal=cpu_equal, cpu_loss_rel_max=cpu_rel,
+             batched_s=res.wall_s, rows_alone_s=alone_s, compile_s=res.compile_s,
+             peak_bytes=res.memory["peak_bytes"], card=card_line())
+        require(got == want, f"lm_train_campaign {variant}: launches {got} != {want}")
+        require(alone_equal and alone_rel <= TC_LOSS_RTOL,
+                f"lm_train_campaign {variant}: rows as their runs alone ({alone_rel})")
+        require(cpu_equal and cpu_rel <= TC_CPU_LOSS_RTOL,
+                f"lm_train_campaign {variant}: the card decides as the CPU ({cpu_rel})")
+        require(all(math.isfinite(r["loss_final"]) for r in rows),
+                f"lm_train_campaign {variant}: finite losses")
+        if variant != "mean":
+            require(not any(r["ever_filtered_good"] for r in rows),
+                    f"lm_train_campaign {variant}: an honest worker was filtered")
+    emit("lm_train_campaign", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+# the serve phase: internlm2-1.8b at its full published configuration
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS, SERVE_CACHE = 4, 64, 32, 256
+SERVE_PARAMS = 1_889_110_016   # every layer and width as published
+# Decoded logits against a teacher-forced forward over the prompt and the
+# generated tokens: ‖got − want‖ ≤ rtol·‖want‖ at each position.  The two
+# take each product in another shape (B x 1 against B x S rows): in bf16
+# each layer rounds its outputs apart, and 5e-2 is about 13 units of 2^-8
+# after 24 layers; in f32, 1e-5.  The argmax is held where the forward's
+# top two logits lie further apart than twice rtol·max|logit|.
+SERVE_LOGIT_RTOL = {"bfloat16": 5e-2, "float32": 1e-5}
+SERVE_RING = dict(window=32, prompt=16, steps=40)   # a swa ring that wraps
+
+
+def attention_rescaled(params: dict, cfg) -> dict:
+    """The weights with each attention projection scaled to 1/√(its
+    contracted fan-in).  The reference's init takes a stacked (L, d, H, hd)
+    leaf's fan-in as H (wq std 1/4, wk and wv 1/√8, wo 1/√128 at
+    internlm2-1.8b's widths), which leaves the attention near one-hot at
+    full width: one rounding apart in any layer flips a head's choice, and
+    by layer 24 the logits of two equal computations in two orders
+    decorrelate.  Rescaled, the same weights hold a decode check."""
+    H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    factor = {"wq": math.sqrt(H / d), "wk": math.sqrt(KV / d), "wv": math.sqrt(KV / d),
+              "wo": 1.0 / math.sqrt(H)}
+    out = dict(params)
+    out["groups"] = [
+        {**gp, "mixer": {k: (w.float() * factor[k]).to(w.dtype) for k, w in gp["mixer"].items()}}
+        for gp in params["groups"]]
+    return out
+
+
+def serve_logit_check(model, params, res) -> dict:
+    """Prefill's last logits and each decode step's (``res.logits``) against
+    a teacher-forced ``forward`` over the prompt and ``res.tokens``."""
+    cfg = model.cfg
+    rtol = SERVE_LOGIT_RTOL[cfg.activation_dtype]
+    key = prng.PRNGKey(0, device=model.device)
+    prompt = prng.randint(key, (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab_size)
+    seq = torch.cat([prompt, res.tokens[:, :-1]], dim=1)
+    with torch.no_grad():
+        h, _, _ = model.forward(params, {"tokens": seq})
+        want = _lm_head(cfg, params, h[:, SERVE_PROMPT - 1:]).float()   # (B, T, V)
+    got = torch.cat(res.logits, dim=1).float()
+    err = (got - want).norm(dim=-1) / want.norm(dim=-1)                 # (B, T)
+    top2 = torch.topk(want, 2, dim=-1).values
+    held = top2[..., 0] - top2[..., 1] > 2 * rtol * want.abs().amax(-1)
+    argmax_equal = torch.argmax(got, -1) == torch.argmax(want, -1)
+    return {"dtype": cfg.activation_dtype, "rtol": rtol,
+            "logits_rel_err_max": float(err.max()), "logits_rel_err_mean": float(err.mean()),
+            "rel_err_max_by_step": [round(float(e), 6) for e in err.amax(0)],
+            "argmax_held": int(held.sum()), "argmax_held_equal": bool(argmax_equal[held].all()),
+            "argmax_equal": int(argmax_equal.sum()), "positions": int(err.numel()),
+            "tokens_are_argmax": bool(torch.equal(res.tokens,
+                                                  torch.argmax(got, -1).to(torch.int32)))}
+
+
+def serve_check_passed(check: dict) -> bool:
+    return (check["logits_rel_err_max"] <= check["rtol"] and check["argmax_held_equal"]
+            and check["tokens_are_argmax"])
+
+
+def serve_reduced(cfg, device, ring: bool = False):
+    """Greedy tokens of a reduced config from PRNGKey(0): ``run_serving``'s
+    sizes, or the ring's (prompt 16, 40 decode steps into caches of the
+    window's size)."""
+    model = build_model(cfg, device=device)
+    key = prng.PRNGKey(0, device=model.device)
+    params = model.init(key)
+    if ring:
+        prompt = prng.randint(key, (SERVE_BATCH, SERVE_RING["prompt"]), 0, cfg.vocab_size)
+        res = generate(model, params, prompt, gen_tokens=SERVE_RING["steps"] + 1,
+                       cache_len=SERVE_RING["window"])
+    else:
+        prompt = prng.randint(key, (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab_size)
+        res = generate(model, params, prompt, gen_tokens=SERVE_TOKENS, cache_len=SERVE_CACHE)
+    return res.tokens.cpu()
+
+
+def lm_serve_full_width(dev) -> None:
+    """``run_serving(reduced=False)`` of internlm2-1.8b (24 layers, every
+    published width, bf16, weights from PRNGKey(0)): batch 4, prompt 64, 32
+    tokens, cache_len 256, with the launch counts set to 0 just before and
+    read just after (no guard kernel launches); prefill ms, ms a decoded
+    token, tokens/s, peak GB, and its logits against the teacher-forced
+    forward (printed: with the reference's init they decorrelate by layer
+    24, see attention_rescaled).  The held check: the same weights with
+    the attention rescaled, through ``generate`` (run_serving's loop), in
+    bf16 and in f32, each within SERVE_LOGIT_RTOL of the teacher-forced
+    forward at every position.  Then at the reduced width the card's
+    greedy tokens against the CPU's for the plain cache, the int8 cache and
+    a sliding-window ring that wraps."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_counts()
+    res = run_serving(LM_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                      gen_tokens=SERVE_TOKENS, cache_len=SERVE_CACHE, seed=0, reduced=False,
+                      device=dev, keep_logits=True, verbose=False)
+    got = read_counts()
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg, device=dev)
+    key = prng.PRNGKey(0, device=dev)
+    params = model.init(key)
+    as_initialized = serve_logit_check(model, params, res)
+    emit("lm_serve_full_width", arch=LM_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         n_params=model.n_params, dtype=cfg.param_dtype, batch=SERVE_BATCH,
+         prompt_len=SERVE_PROMPT, gen_tokens=SERVE_TOKENS, cache_len=SERVE_CACHE,
+         prefill_ms=1e3 * res.prefill_s, ms_per_token=res.ms_per_token,
+         tokens_per_s=res.tokens_per_s, peak_gb=res.peak_bytes / 1e9,
+         # a token's least time: every bf16 weight read once
+         decode_bound_ms=1e3 * 2.0 * model.n_params / HBM_BYTES_PER_S, launches=got,
+         sample=res.tokens[0, :16].tolist(), logits_as_initialized=as_initialized,
+         card=card_line())
+    require(model.n_params == SERVE_PARAMS, f"lm_serve_full_width: {model.n_params} parameters")
+    require(got == counts(), f"lm_serve_full_width: guard kernels launched {got}")
+    require(res.tokens.shape == (SERVE_BATCH, SERVE_TOKENS) and as_initialized[
+        "tokens_are_argmax"], "lm_serve_full_width: greedy tokens")
+    prompt = prng.randint(key, (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab_size)
+    for dtype in ("bfloat16", "float32"):
+        if dtype == "float32":
+            cfg = dataclasses.replace(cfg, param_dtype=dtype, activation_dtype=dtype)
+            model = build_model(cfg, device=dev)
+            params = model.init(key)
+        scaled = attention_rescaled(params, cfg)
+        del params
+        reset_counts()
+        out = generate(model, scaled, prompt, gen_tokens=SERVE_TOKENS, cache_len=SERVE_CACHE,
+                       keep_logits=True)
+        launches = read_counts()
+        check = serve_logit_check(model, scaled, out)
+        emit("lm_serve_full_width", check="attention_rescaled",
+             ms_per_token=out.ms_per_token, peak_gb=out.peak_bytes / 1e9, launches=launches,
+             **check)
+        require(serve_check_passed(check) and launches == counts(),
+                f"lm_serve_full_width: decode against the teacher-forced forward ({dtype})")
+        del scaled, out
+    del model
+    torch.cuda.empty_cache()
+
+    reduced = get_config(LM_ARCH).reduced()
+    ring = get_config("starcoder2-3b").reduced()   # its window cut to 32
+    require(ring.sliding_window == SERVE_RING["window"], "starcoder2-3b reduced: window 32")
+    cases = {"plain_cache": (reduced, False),
+             "int8_cache": (dataclasses.replace(reduced, kv_cache_dtype="int8"), False),
+             "swa_ring": (ring, True)}
+    for name, (rcfg, is_ring) in cases.items():
+        reset_counts()
+        card = serve_reduced(rcfg, dev, is_ring)
+        card_launches = read_counts()
+        cpu = serve_reduced(rcfg, "cpu", is_ring)
+        equal = bool(torch.equal(card, cpu))
+        emit("lm_serve_full_width", case=name, arch=rcfg.name, d_model=rcfg.d_model,
+             kv_cache_dtype=rcfg.kv_cache_dtype, activation_dtype=rcfg.activation_dtype,
+             sliding_window=rcfg.sliding_window,
+             tokens=card.shape[1], tokens_equal_to_cpu=equal, launches=card_launches,
+             first_row=card[0, :16].tolist())
+        require(equal, f"lm_serve_full_width {name}: the card's greedy tokens are the CPU's")
+        require(card_launches == counts(), f"lm_serve_full_width {name}: launches")
+    emit("lm_serve_full_width", seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3922,11 +4409,16 @@ def main() -> int:
     lm_launches = lm_train_launcher(dev)
     for key, n in lm_train_full_width(dev).items():
         lm_launches[key] = lm_launches.get(key, 0) + n
+    ckpt_launches = lm_checkpoint(dev)
+    tc_launches = lm_train_campaign(dev)
+    lm_serve_full_width(dev)
     for e in entries:
         # the LM phases' launches of this kernel at this dtype (their own
-        # runs, counted from 0 before each)
+        # runs, counted from 0 before each); serving launches none
         name, dt = e["name"].rstrip("]").split("[")
         e["lm_train_launches"] = lm_launches.get((name, dt), 0)
+        e["lm_checkpoint_launches"] = ckpt_launches.get((name, dt), 0)
+        e["lm_train_campaign_launches"] = tc_launches.get((name, dt), 0)
 
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -3,8 +3,8 @@
 The port never imports JAX; a caller holding the JAX package's
 ``Problem`` (generated, quadratic, least squares or logistic),
 ``GuardState``, ``DPGuardState``, ``Scenario``, ``AdvState``,
-``WorkerProfile``, ``FaultPlan``, LM parameters or ``TrainState`` passes
-its arrays through
+``WorkerProfile``, ``FaultPlan``, LM parameters, ``TrainState`` or decode
+caches passes its arrays through
 ``numpy.asarray`` and hands them here.  bf16 arrays arrive with numpy's
 ``bfloat16`` extension dtype (two bytes per element) and are
 reinterpreted bit for bit.
@@ -20,6 +20,7 @@ from repro_torch.core.solver import Problem
 from repro_torch.data import problems
 from repro_torch.distributed.byzantine_dp import DPGuardState
 from repro_torch.distributed.trainer import TrainState
+from repro_torch.models.attention import KVCache, QuantKVCache
 from repro_torch.scenarios.adversary import AdvState
 from repro_torch.scenarios.faults import FaultPlan
 from repro_torch.scenarios.spec import Scenario, WorkerProfile
@@ -220,3 +221,27 @@ def train_state_to_numpy(state: TrainState) -> dict:
             "prev_n_alive": state.prev_n_alive.cpu().numpy(),
             "grad_buf": (_f32_numpy(state.grad_buf) if isinstance(state.grad_buf, torch.Tensor)
                          else ())}
+
+
+# ---------------------------------------------------------------------------
+# serving: the decode caches
+# ---------------------------------------------------------------------------
+
+def kv_cache_from_numpy(cache, device="cuda") -> dict:
+    """The port's decode cache from the JAX package's (``{"layers": [one
+    KVCache or QuantKVCache a layer group, leaves stacked on the group's
+    layer axis]}`` through ``numpy.asarray`` leaf by leaf): a group with
+    ``k_scale`` becomes a ``QuantKVCache``; bf16 keys and values keep their
+    bits."""
+    def group(c):
+        kind = QuantKVCache if hasattr(c, "k_scale") else KVCache
+        return kind(*(tensor_from_numpy(getattr(c, f), device) for f in kind._fields))
+
+    return {"layers": [group(c) for c in cache["layers"]]}
+
+
+def kv_cache_to_numpy(cache: dict) -> dict:
+    """The cache's groups as dicts of numpy arrays by field (bf16 upcast to
+    f32, exactly)."""
+    return {"layers": [{f: _f32_numpy(getattr(c, f)) for f in c._fields}
+                       for c in cache["layers"]]}

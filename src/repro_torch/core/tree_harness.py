@@ -71,29 +71,25 @@ class TreeHarness:
 
     # -- tree → flat ---------------------------------------------------------
 
+    def _cat(self, parts: list, lead: tuple, dtype: torch.dtype) -> torch.Tensor:
+        """The leaves' pieces, each cast, then the zero padding, joined along
+        the last axis in one out-of-place copy (so a ``torch.func.vmap`` over
+        runs maps it as well)."""
+        pad = torch.zeros(lead + (self.d - self.d_raw,), dtype=dtype, device=parts[0].device)
+        return torch.cat([p.to(dtype) for p in parts] + [pad], dim=-1)
+
     def ravel(self, tree: PyTree, dtype: torch.dtype | None = None) -> torch.Tensor:
         """(d,) flat view of a parameter-shaped tree (zero-padded), in
         ``flat_dtype`` or ``dtype``; each leaf is cast as it is copied in."""
-        leaves = tree_leaves(tree)
-        out = torch.empty((self.d,), dtype=dtype or self.flat_dtype, device=leaves[0].device)
-        ofs = 0
-        for leaf, size in zip(leaves, self.sizes):
-            out[ofs: ofs + size].copy_(leaf.reshape(-1))
-            ofs += size
-        out[self.d_raw:].zero_()
-        return out
+        return self._cat([leaf.reshape(-1) for leaf in tree_leaves(tree)], (),
+                         dtype or self.flat_dtype)
 
     def ravel_workers(self, tree: PyTree, dtype: torch.dtype | None = None) -> torch.Tensor:
         """(W, d) flat view of a worker-stacked tree (leaves lead with W)."""
         leaves = tree_leaves(tree)
         W = leaves[0].shape[0]
-        out = torch.empty((W, self.d), dtype=dtype or self.flat_dtype, device=leaves[0].device)
-        ofs = 0
-        for leaf, size in zip(leaves, self.sizes):
-            out[:, ofs: ofs + size].copy_(leaf.reshape(W, -1))
-            ofs += size
-        out[:, self.d_raw:].zero_()
-        return out
+        return self._cat([leaf.reshape(W, -1) for leaf in leaves], (W,),
+                         dtype or self.flat_dtype)
 
     # -- flat → tree ---------------------------------------------------------
 

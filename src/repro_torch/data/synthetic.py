@@ -56,12 +56,12 @@ class SyntheticTokens(NamedTuple):
         if shift.dim() == 1:
             shift = shift[:, None]
         const = self.b + shift
-        tok = x0
-        out = torch.empty(noise.shape, dtype=torch.int64, device=keys.device)
+        tok, out = x0, []
         for t in range(self.seq_len + 1):
             tok = torch.remainder(self.a * tok + const + noise[..., t], self.vocab_size)
-            out[..., t] = tok
-        return out.to(torch.int32)
+            out.append(tok)
+        # joined out of place, so a vmap over runs with per-run shifts maps it
+        return torch.stack(out, dim=-1).to(torch.int32)
 
     def sample(self, worker: int, step: int, batch: int, b_shift=0,
                device="cuda") -> torch.Tensor:

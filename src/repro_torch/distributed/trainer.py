@@ -261,3 +261,23 @@ def build_train_step(model, optimizer: Optimizer, cfg: SolverConfig, *, V: float
         return new_state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# serve step (decode shapes)
+# ---------------------------------------------------------------------------
+
+def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
+    """(B, S, V) logits → (B, 1) int32: the last position's argmax."""
+    return torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+
+
+def build_serve_step(model) -> Callable:
+    """``serve_step(params, cache, tokens (B, 1)) → (next_tokens (B, 1)
+    int32, cache')``: one greedy decode step."""
+
+    def serve_step(params, cache, tokens):
+        logits, cache = model.decode_step(params, cache, tokens)
+        return greedy_tokens(logits), cache
+
+    return serve_step

@@ -21,8 +21,15 @@ PRNG: ``split(PRNGKey(seed), 4)`` fans the seed into init / mask / data /
 loop keys; step i's attack key is ``fold_in(loop_key, i)`` and the
 Byzantine ranks are ``byz_rank(mask_key, W)``, as in the JAX package.
 
-Checkpoints (``ckpt_dir``, ``resume``, ``ckpt_every``, ``keep_last``) wait
-for the checkpoint slice (``ROADMAP.md`` §1 item 8).
+Checkpoints: ``ckpt_dir`` gets a final checkpoint of the whole
+``TrainState`` (labelled with its own step) and ``history.json``;
+``ckpt_every`` adds one at every segment boundary that is a multiple of
+it, ``keep_last`` keeps the newest N, and ``resume`` continues from the
+newest valid one, keeping the history records of the steps before it.  A
+SIGTERM sets a flag the drivers read at segment boundaries: the run stops
+there and writes its final checkpoint (a launcher off the main thread
+installs no handler).  The format is :mod:`repro_torch.checkpoint`'s, the
+JAX package's.
 
 Examples:
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
@@ -32,12 +39,16 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import signal
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import prng, resolve_device
+from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.core.solver import SolverConfig, byz_rank
 from repro_torch.data.synthetic import SyntheticTokens, make_worker_batch
@@ -48,7 +59,6 @@ from repro_torch.optim import adamw, linear_warmup_cosine
 
 GUARD_BACKENDS = ("dp_exact", "dp_sketch", "dense", "fused")
 SCENARIOS = ("static", "lie_low", "churn", "adaptive", "coalition")
-_CKPT = "checkpoints are not ported yet (ROADMAP.md §1 item 8, checkpoint/ckpt.py)"
 
 
 def _make_scenario_adversary(name: str, attack: str, alpha: float, steps: int, workers: int):
@@ -114,9 +124,8 @@ def run_training(
     the frames ride the metrics flush and are written with ``train/chunk``
     host spans and the run's provenance as JSONL at that path.
     ``stop_after`` stops after that many steps while every schedule stays
-    sized by ``steps``.  ``verbose`` prints a line a chunk."""
-    if ckpt_dir or resume or ckpt_every or keep_last:
-        raise NotImplementedError(f"repro_torch.launch.train: {_CKPT}")
+    sized by ``steps``.  ``verbose`` prints a line a chunk.  Checkpoints:
+    the module docstring."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -156,9 +165,20 @@ def run_training(
     rank = byz_rank(mask_key, workers)
     static_mask = rank < scfg.n_byzantine
     poison = static_mask if attack == "label_flip" else None
-    stop = steps if stop_after is None else min(stop_after, steps)
+    start = 0
     history: list[dict] = []
+    if resume and ckpt_dir and latest_step(ckpt_dir) is not None:
+        state, start = restore_checkpoint(ckpt_dir, state)
+        if verbose:
+            print(f"resumed from {ckpt_dir} at step {start}")
+        hist_path = os.path.join(ckpt_dir, "history.json")
+        if os.path.exists(hist_path):
+            # keep the records before the restart so history.json stays whole
+            with open(hist_path) as f:
+                history = [r for r in json.load(f) if r["step"] < start]
+    stop = steps if stop_after is None else min(stop_after, steps)
     run_label = f"train/{arch}"
+    n_prior = len(history)
 
     def one_step(st, i):
         batch = make_worker_batch(stream, workers, per_worker_batch, i, poison_mask=poison,
@@ -180,6 +200,24 @@ def run_training(
             if elog is not None and frame:
                 elog.guard_step(frame, run=run_label)
 
+    # preemption: SIGTERM sets a flag the drivers read at segment
+    # boundaries; the run stops there and the tail below writes the final
+    # checkpoint and history, instead of dying with its progress on the card
+    preempted = {"hit": False}
+    prev_sigterm = None
+    if ckpt_dir:
+        def _on_sigterm(signum, frame):
+            preempted["hit"] = True
+        try:
+            prev_sigterm = signal.signal(signal.SIGTERM, _on_sigterm)
+        except ValueError:
+            prev_sigterm = None  # not the main thread: no handler, no flush
+
+    def maybe_ckpt(state, lo):
+        """A mid-run save at a segment boundary."""
+        if ckpt_dir and ckpt_every and lo < stop and lo % ckpt_every == 0:
+            save_checkpoint(ckpt_dir, state.step, state, keep_last=keep_last)
+
     t0 = time.time()
 
     def log(rec):
@@ -188,31 +226,59 @@ def run_training(
                   f"alive={int(rec['n_alive'])}/{workers}  "
                   f"byz_alive={int(rec.get('byz_alive', 0))}  "
                   f"good_filtered={int(rec.get('good_filtered', 0))}  "
-                  f"({(time.time() - t0) / max(len(history), 1):.2f}s/step)", flush=True)
+                  f"({(time.time() - t0) / max(len(history) - n_prior, 1):.2f}s/step)",
+                  flush=True)
 
-    if driver == "scan":
-        lo = 0
-        while lo < stop:
-            hi = min(lo + log_every, stop)
-            with trace_span("train/chunk", log=elog, lo=lo, hi=hi):
-                ms = []
-                for i in range(lo, hi):
-                    state, m = one_step(state, i)
-                    ms.append(m)
-                flush_recs(ms, lo)
-            log(history[-1])
-            lo = hi
-    elif driver == "loop":
-        for i in range(stop):
-            state, m = one_step(state, i)
-            flush_recs([m], i)
-            if i % log_every == 0 or i == stop - 1:
+    try:
+        if driver == "scan":
+            def run_segment(state, lo, hi):
+                with trace_span("train/chunk", log=elog, lo=lo, hi=hi):
+                    ms = []
+                    for i in range(lo, hi):
+                        state, m = one_step(state, i)
+                        ms.append(m)
+                    flush_recs(ms, lo)
                 log(history[-1])
-    else:
-        raise KeyError(f"unknown driver {driver!r}; have scan|loop")
+                return state
 
+            # segments end on multiples of log_every: a resume from an unaligned
+            # step first runs the head up to the next multiple
+            lo = start
+            head = max(min((log_every - start % log_every) % log_every, stop - start), 0)
+            if head:
+                state = run_segment(state, lo, lo + head)
+                lo += head
+                maybe_ckpt(state, lo)
+            while lo < stop and not preempted["hit"]:
+                hi = min(lo + log_every, stop)
+                state = run_segment(state, lo, hi)
+                lo = hi
+                maybe_ckpt(state, lo)
+        elif driver == "loop":
+            for i in range(start, stop):
+                if preempted["hit"]:
+                    break
+                state, m = one_step(state, i)
+                flush_recs([m], i)
+                if i % log_every == 0 or i == stop - 1:
+                    log(history[-1])
+                maybe_ckpt(state, i + 1)
+        else:
+            raise KeyError(f"unknown driver {driver!r}; have scan|loop")
+
+        if preempted["hit"] and verbose:
+            print(f"SIGTERM: preempted at step {state.step} — flushing final checkpoint")
+        if ckpt_dir:
+            # labelled with the state's own count: a resume at or past `stop`
+            # runs no step, and the label must not go backwards
+            save_checkpoint(ckpt_dir, state.step, state, keep_last=keep_last)
+            with open(os.path.join(ckpt_dir, "history.json"), "w") as f:
+                json.dump(history, f)
+    finally:
+        if prev_sigterm is not None:
+            signal.signal(signal.SIGTERM, prev_sigterm)
     if elog is not None:
-        elog.add_meta(wall_s=time.time() - t0, steps_run=stop)
+        elog.add_meta(wall_s=time.time() - t0, steps_run=max(stop - start, 0))
         elog.write_jsonl(trace)
         if verbose:
             print(f"wrote trace {trace} ({len(elog.events)} events)")
@@ -249,6 +315,13 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=None, metavar="N",
+                    help="also checkpoint every N steps mid-run (at segment boundaries)")
+    ap.add_argument("--keep-last", type=int, default=None, metavar="K",
+                    help="retain only the newest K complete checkpoints")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in --ckpt-dir")
     ap.add_argument("--stop-after", type=int, default=None, metavar="N",
                     help="stop after N steps (schedules stay sized by --steps)")
     ap.add_argument("--trace", default=None, metavar="PATH",
@@ -261,8 +334,10 @@ def main(argv=None):
         alpha=args.alpha, attack=args.attack, aggregator=args.aggregator,
         guard_backend=args.guard_backend, stats_dtype=args.stats_dtype,
         guard_v=args.guard_v, scenario=args.scenario, driver=args.driver, lr=args.lr,
-        seed=args.seed, log_every=args.log_every, trace=args.trace,
-        stop_after=args.stop_after, d_model=args.d_model, device=args.device,
+        seed=args.seed, ckpt_dir=args.ckpt_dir, resume=args.resume,
+        log_every=args.log_every, trace=args.trace, ckpt_every=args.ckpt_every,
+        keep_last=args.keep_last, stop_after=args.stop_after, d_model=args.d_model,
+        device=args.device,
     )
 
 

@@ -1,5 +1,6 @@
-"""Attention mixers for training: GQA and sliding-window GQA (the
-counterpart of the train half of :mod:`repro.models.attention`).
+"""Attention mixers: GQA and sliding-window GQA for training and
+prefill, and their decode caches (the counterpart of
+:mod:`repro.models.attention` for the dense decoder).
 
 Attention is chunked over KV blocks with an online softmax (the
 flash-attention recurrence in plain PyTorch): the (S, S) score matrix never
@@ -8,13 +9,16 @@ materialises, the peak temporary is (Sq, chunk).  The JAX package's
 same order, with the same guards for a block where every score is masked
 and for a −inf running maximum.
 
-MLA, the encoder and cross attention and the decode caches (KV, int8)
-wait for a later slice (``ROADMAP.md`` §1 item 8).
+Decode keeps a preallocated cache: :class:`KVCache` (the activations'
+dtype) or :class:`QuantKVCache` (int8 values, f16 absmax scales a slot
+and head), written as a ring (slot = pos % L) and read by a one-query
+attention.  MLA, the encoder and cross attention wait for a later slice
+(``ROADMAP.md`` §1 item 8).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -102,8 +106,10 @@ def chunked_attention(
 
 
 def gqa_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-              window: Optional[int] = None) -> torch.Tensor:
-    """x: (B, S, D) → (B, S, D), causal, sliding when ``window`` is set."""
+              window: Optional[int] = None, return_kv: bool = False):
+    """x: (B, S, D) → (B, S, D), causal, sliding when ``window`` is set;
+    with ``return_kv`` also the RoPE'd keys and the values (B, S, KV, hd)
+    for a prefill cache."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
@@ -111,4 +117,134 @@ def gqa_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tenso
     k = apply_rope(k, positions, cfg.rope_theta)
     o = chunked_attention(q, k, v, positions, positions, causal=True, window=window,
                           chunk=cfg.attn_chunk)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# KV caches + decode
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    """Preallocated decode cache; ``L = k.shape[1]`` is its capacity (the
+    window or the longest sequence), ``pos`` the tokens seen so far."""
+
+    k: torch.Tensor     # (B, L, KV, hd) — RoPE-applied keys
+    v: torch.Tensor     # (B, L, KV, hd)
+    pos: torch.Tensor   # () int32
+
+
+class QuantKVCache(NamedTuple):
+    """int8 KV cache: per-(batch, slot, head) absmax scales, dequantized
+    inside the decode attention's products."""
+
+    k: torch.Tensor        # (B, L, KV, hd) int8
+    v: torch.Tensor        # (B, L, KV, hd) int8
+    k_scale: torch.Tensor  # (B, L, KV) f16
+    v_scale: torch.Tensor  # (B, L, KV) f16
+    pos: torch.Tensor      # () int32
+
+
+def _quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (..., hd) → (int8 values, (...) f16 absmax scales)."""
+    x32 = x.to(F32)
+    scale = torch.amax(torch.abs(x32), dim=-1) / 127.0
+    safe = torch.clamp(scale, min=1e-8)
+    q = torch.clamp(torch.round(x32 / safe[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.float16)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, length: int, dtype: torch.dtype,
+                  device="cpu"):
+    """An empty cache of capacity ``length``: int8 when
+    ``cfg.kv_cache_dtype == "int8"``, else ``dtype``."""
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    pos = torch.zeros((), dtype=torch.int32, device=device)
+    if cfg.kv_cache_dtype == "int8":
+        return QuantKVCache(
+            k=torch.zeros((batch, length, kv, hd), dtype=torch.int8, device=device),
+            v=torch.zeros((batch, length, kv, hd), dtype=torch.int8, device=device),
+            k_scale=torch.zeros((batch, length, kv), dtype=torch.float16, device=device),
+            v_scale=torch.zeros((batch, length, kv), dtype=torch.float16, device=device),
+            pos=pos)
+    return KVCache(k=torch.zeros((batch, length, kv, hd), dtype=dtype, device=device),
+                   v=torch.zeros((batch, length, kv, hd), dtype=dtype, device=device),
+                   pos=pos)
+
+
+def cache_from_prefill(k: torch.Tensor, v: torch.Tensor, length: int, pos: torch.Tensor,
+                       quantize: bool = False):
+    """Prefill K/V (B, S, KV, hd) as a decode cache of capacity ``length``,
+    ring-aligned (position p in slot p % length)."""
+    S = k.shape[1]
+    if S <= length:
+        pad = (0, 0, 0, 0, 0, length - S)
+        k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+    else:
+        off = S % length
+        k = torch.roll(k[:, -length:], off, dims=1)
+        v = torch.roll(v[:, -length:], off, dims=1)
+    if quantize:
+        kq, ks = _quantize(k)
+        vq, vs = _quantize(v)
+        return QuantKVCache(k=kq, v=vq, k_scale=ks, v_scale=vs, pos=pos)
+    return KVCache(k=k, v=v, pos=pos)
+
+
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """``cache`` with ``new`` (B, 1, ...) in slot ``slot`` (a 0-d tensor) of
+    axis 1, out of place and without reading the slot on the host."""
+    return torch.index_copy(cache, 1, slot.reshape(1).long(), new.to(cache.dtype))
+
+
+def gqa_decode_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, cache,
+                     window: Optional[int] = None):
+    """One-token decode.  x: (B, 1, D) → ((B, 1, D), cache').  The new key
+    and value go to slot pos % L, so a cache of the window's size is a
+    ring and a full one whose pos passes L wraps as well; ``window`` is
+    not read (the cache's capacity is the window), as in the JAX
+    package.  Takes a :class:`KVCache` or a :class:`QuantKVCache`."""
+    B = x.shape[0]
+    L = cache.k.shape[1]
+    pos = cache.pos
+    quant = isinstance(cache, QuantKVCache)
+    slot = torch.remainder(pos, L)
+
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k_new = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    positions = pos.reshape(1).to(torch.int32)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k_new = apply_rope(k_new, positions, cfg.rope_theta)
+
+    if quant:
+        kq, ks = _quantize(k_new)
+        vq, vs = _quantize(v_new)
+        k_cache, v_cache = _write_slot(cache.k, kq, slot), _write_slot(cache.v, vq, slot)
+        ks_cache = _write_slot(cache.k_scale, ks, slot)
+        vs_cache = _write_slot(cache.v_scale, vs, slot)
+    else:
+        k_cache, v_cache = _write_slot(cache.k, k_new, slot), _write_slot(cache.v, v_new, slot)
+
+    KV, hd, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    R = H // KV
+    qg = q.reshape(B, KV, R, hd)
+    s = torch.einsum("bkrh,blkh->bkrl", qg.to(F32), k_cache.to(F32))
+    if quant:
+        s = s * ks_cache.to(F32).permute(0, 2, 1)[:, :, None, :]
+    s = s / float(np.sqrt(np.float32(hd)))
+    # slots < min(pos + 1, L) hold real tokens (a ring fills L)
+    valid = torch.arange(L, device=x.device) < torch.clamp(pos + 1, max=L)
+    s = torch.where(valid[None, None, None, :], s, -math.inf)
+    w = torch.softmax(s, dim=-1)
+    if quant:
+        w = w * vs_cache.to(F32).permute(0, 2, 1)[:, :, None, :]
+    o = torch.einsum("bkrl,blkh->bkrh", w, v_cache.to(F32))
+    o = o.reshape(B, 1, H, hd).to(x.dtype)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    if quant:
+        return out, QuantKVCache(k=k_cache, v=v_cache, k_scale=ks_cache, v_scale=vs_cache,
+                                 pos=pos + 1)
+    return out, KVCache(k=k_cache, v=v_cache, pos=pos + 1)

@@ -1,5 +1,6 @@
-"""Model assembly, the training half: config → (param defs, init,
-forward, loss_fn) — the counterpart of :mod:`repro.models.model`.
+"""Model assembly: config → (param defs, init, forward, loss_fn, and the
+serving entry points prefill, init_cache, decode_step) — the counterpart
+of :mod:`repro.models.model`.
 
 Layer stacks are grouped into homogeneous :class:`BlockSpec` groups
 (``cfg.layer_plan()``) with each group's parameters stacked on a leading
@@ -12,10 +13,12 @@ The LM loss is computed in sequence chunks of ``LOSS_CHUNK`` (one chunk
 when the chunk does not divide S), so the (B, S, V) logits exist one
 chunk at a time.
 
-This slice ports the dense decoder: the ``attn``/``swa`` mixers and the
-``mlp``/``none`` feed-forward.  MLA, Mamba, MoE, encoder–decoder and
-frontend configs, and ``prefill``, ``decode_step``, ``init_cache`` and
-``abstract``, raise NotImplementedError (``ROADMAP.md`` §1 item 8).
+The port holds the dense decoder: the ``attn``/``swa`` mixers and the
+``mlp``/``none`` feed-forward, for training (``init``, ``abstract``,
+``forward``, ``loss_fn``) and for serving (``prefill``, ``init_cache``,
+``decode_step`` on the KV and int8 caches of :mod:`.attention`).  MLA,
+Mamba, MoE, encoder–decoder and frontend configs, and the MLA and Mamba
+caches, raise NotImplementedError (``ROADMAP.md`` §1 item 8).
 """
 from __future__ import annotations
 
@@ -175,6 +178,33 @@ def _chunked_ce(cfg: ModelConfig, params, h, labels, mask):
 
 
 # ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def _cache_len(spec: BlockSpec, cfg: ModelConfig, length: int) -> int:
+    """A group's cache capacity: ``swa`` layers keep min(length, window)."""
+    if spec.mixer == "swa" and cfg.sliding_window:
+        return min(length, cfg.sliding_window)
+    return length
+
+
+def _group_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, length: int, dtype, device):
+    """One empty cache a layer of the group, stacked on a leading layer axis."""
+    if spec.mixer in ("attn", "swa"):
+        one = attn_lib.init_kv_cache(cfg, batch, _cache_len(spec, cfg, length), dtype, device)
+    elif spec.mixer in ("mla", "mamba"):
+        _later(f"the {spec.mixer!r} decode cache")
+    else:
+        raise ValueError(spec.mixer)
+    return tree_map(lambda a: a.expand(spec.count, *a.shape).clone(), one)
+
+
+def _stack_layers(caches: list):
+    """Per-layer caches of one group as one cache with a leading layer axis."""
+    return tree_map(lambda *xs: torch.stack(xs), caches[0], *caches[1:])
+
+
+# ---------------------------------------------------------------------------
 # public bundle
 # ---------------------------------------------------------------------------
 
@@ -185,9 +215,9 @@ class LanguageModel(NamedTuple):
     abstract: Callable        # () -> meta-device tree (shapes and dtypes only)
     loss_fn: Callable         # (params, batch) -> (loss, metrics)
     forward: Callable         # (params, batch) -> (hidden (B,S,D), aux, prefix)
-    prefill: Callable
-    decode_step: Callable
-    init_cache: Callable
+    prefill: Callable         # (params, batch, cache_len) -> (last_logits, cache)
+    decode_step: Callable     # (params, cache, token, extras) -> (logits, cache)
+    init_cache: Callable      # (batch, length, dtype) -> cache
     n_params: int
     device: torch.device
 
@@ -216,14 +246,66 @@ def build_model(cfg: ModelConfig, device="cuda") -> LanguageModel:
         loss = ce + cfg.router_aux_weight * aux
         return loss, {"ce": ce, "aux": aux}
 
-    def serving(*args, **kwargs):
-        _later("serving (prefill, decode_step, init_cache)")
+    def prefill(params, batch, cache_len: int):
+        """A whole prompt → (last-token logits (B, 1, V), decode cache)."""
+        tokens = batch["tokens"]
+        x = params["embed"][tokens.long()].to(adt)
+        S = x.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        pos_final = torch.full((), S, dtype=torch.int32, device=x.device)
+        layer_caches = []
+        for spec, gp in zip(cfg.layer_plan(), params["groups"]):
+            win = cfg.sliding_window if spec.mixer == "swa" else None
+            caches = []
+            for i in range(spec.count):
+                lp = tree_map(lambda a: a[i], gp)
+                h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+                o, (k, v) = attn_lib.gqa_apply(lp["mixer"], cfg, h, positions, window=win,
+                                               return_kv=True)
+                caches.append(attn_lib.cache_from_prefill(
+                    k, v, _cache_len(spec, cfg, cache_len), pos_final,
+                    quantize=cfg.kv_cache_dtype == "int8"))
+                x = x + o
+                h = rms_norm(x, lp["norm2"], cfg.norm_eps)
+                ff, _ = _apply_ff(spec, cfg, lp["ff"], h)
+                x = x + ff
+            layer_caches.append(_stack_layers(caches))
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return _lm_head(cfg, params, x[:, -1:, :]), {"layers": layer_caches}
+
+    def init_cache(batch: int, length: int, dtype=None):
+        """Empty caches of capacity ``length`` on the model's device."""
+        return {"layers": [_group_cache(spec, cfg, batch, length, dtype or adt, dev)
+                           for spec in cfg.layer_plan()]}
+
+    def decode_step(params, cache, token, extras=None):
+        """token: (B, 1) int → (logits (B, 1, V), cache')."""
+        x = params["embed"][token.long()].to(adt)
+        new_layers = []
+        for gi, (spec, gp) in enumerate(zip(cfg.layer_plan(), params["groups"])):
+            gcache = cache["layers"][gi]
+            caches = []
+            for i in range(spec.count):
+                lp = tree_map(lambda a: a[i], gp)
+                lc = tree_map(lambda a: a[i], gcache)
+                h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+                o, lc = attn_lib.gqa_decode_apply(lp["mixer"], cfg, h, lc)
+                x = x + o
+                h = rms_norm(x, lp["norm2"], cfg.norm_eps)
+                ff, _ = _apply_ff(spec, cfg, lp["ff"], h)
+                x = x + ff
+                caches.append(lc)
+            new_layers.append(_stack_layers(caches))
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        new = dict(cache)
+        new["layers"] = new_layers
+        return _lm_head(cfg, params, x), new
 
     def init(key):
         return init_params(key.to(dev), defs, pdt)
 
     return LanguageModel(
         cfg=cfg, defs=defs, init=init, abstract=lambda: meta_params(defs, pdt),
-        loss_fn=loss_fn, forward=forward, prefill=serving, decode_step=serving,
-        init_cache=serving, n_params=param_count(defs), device=dev,
+        loss_fn=loss_fn, forward=forward, prefill=prefill, decode_step=decode_step,
+        init_cache=init_cache, n_params=param_count(defs), device=dev,
     )

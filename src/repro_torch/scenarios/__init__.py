@@ -71,6 +71,8 @@ __all__ = [
     "scenario_coalition", "scenario_late_join", "scenario_lie_low_then_strike",
     "scenario_static", "WorkerProfile", "profile_iid", "profile_knobs",
     "profile_linear_skew", "profile_partial", "profile_stragglers", "worker_profile",
+    "TrainCampaignResult", "TrainRunStats", "build_train_campaign_fn", "run_train_campaign",
+    "summarize_train_campaign",
 ]
 
 # the campaign runner and its report import core.solver, which imports this
@@ -80,7 +82,10 @@ _LAZY = {**{name: "campaign" for name in (
     "run_campaign", "run_campaign_looped")},
     **{name: "report" for name in (
         "campaign_trace_events", "degraded_pairs", "filter_timelines", "summarize_campaign",
-        "theorem38_bound", "write_report")}}
+        "theorem38_bound", "write_report")},
+    **{name: "train_campaign" for name in (
+        "TrainCampaignResult", "TrainRunStats", "build_train_campaign_fn", "run_train_campaign",
+        "summarize_train_campaign")}}
 
 
 def __getattr__(name: str):

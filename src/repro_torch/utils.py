@@ -60,6 +60,40 @@ def tree_leaves(tree: PyTree, is_leaf: Callable | None = None) -> list:
     return [leaf for kid in kids for leaf in tree_leaves(kid, is_leaf)]
 
 
+def _path_names(node) -> list | None:
+    """A container's child names as ``jax.tree_util.keystr`` pieces of a
+    checkpoint key: a dict's keys (sorted), a NamedTuple's fields as
+    ``.name`` (jax's ``GetAttrKey``), a sequence's indices."""
+    if isinstance(node, dict):
+        return [str(k) for k in sorted(node)]
+    if hasattr(node, "_fields"):
+        return [f".{f}" for f in node._fields]
+    if isinstance(node, (list, tuple)):
+        return [str(i) for i in range(len(node))]
+    return None
+
+
+def tree_flatten_with_path(tree: PyTree) -> list[tuple[str, Any]]:
+    """``(key, leaf)`` pairs in :func:`tree_leaves` order, each key the
+    ``/``-joined path that the JAX package's checkpoint writes for the same
+    leaf (``jax.tree_util.tree_flatten_with_path``): ``{"b": [x]}`` gives
+    ``"b/0"``, a NamedTuple field ``.params``."""
+    out: list = []
+
+    def walk(node, prefix):
+        if node is None:
+            return
+        names = _path_names(node)
+        if names is None:
+            out.append(("/".join(prefix), node))
+            return
+        for name, kid in zip(names, _children(node)):
+            walk(kid, prefix + [name])
+
+    walk(tree, [])
+    return out
+
+
 def tree_unflatten(template: PyTree, leaves, is_leaf: Callable | None = None) -> PyTree:
     """``template``'s structure holding ``leaves`` (in :func:`tree_leaves`
     order) in place of its own."""

@@ -262,10 +262,17 @@ def test_other_families_raise_naming_the_roadmap(arch):
 
 
 def test_serving_raises_naming_the_roadmap(models):
+    """The dense decoder serves (``tests/test_torch_serve.py``); the MLA and
+    Mamba decode caches are what still raises."""
+    from repro_torch.configs.base import BlockSpec
+    from repro_torch.models.model import _group_cache
     tm = models["internlm2"][2]
-    for fn in (tm.prefill, tm.decode_step, tm.init_cache):
+    cache = tm.init_cache(2, 8)
+    assert [tuple(c.k.shape) for c in cache["layers"]] == [(2, 2, 8, 4, 16)]
+    for mixer in ("mla", "mamba"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn(None, None, None)
+            _group_cache(BlockSpec(mixer=mixer, ff="mlp", count=1), tm.cfg, 2, 8, torch.float32,
+                         "cpu")
 
 
 # ---------------------------------------------------------------- tree harness

@@ -343,8 +343,12 @@ def test_scan_and_loop_drivers_agree_and_trace(tmp_path):
     _, head = tlaunch.run_training("internlm2-1.8b", device="cpu", verbose=False,
                                    stop_after=3, **kw)
     np.testing.assert_equal(head, scan[:3])   # schedules sized by steps, not stop_after
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tlaunch.run_training("internlm2-1.8b", device="cpu", ckpt_dir=str(tmp_path), **kw)
+    # checkpoints are ported: ckpt_dir gets the final state and the history
+    _, ckpt = tlaunch.run_training("internlm2-1.8b", device="cpu", verbose=False,
+                                   ckpt_dir=str(tmp_path / "ckpt"), **kw)
+    np.testing.assert_equal(ckpt, scan)
+    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == ["ckpt_00000005.npz",
+                                                                     "history.json"]
     with pytest.raises(ValueError, match="label_flip"):
         tlaunch.run_training("internlm2-1.8b", device="cpu", attack="label_flip",
                              scenario="churn", **kw)
