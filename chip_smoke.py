@@ -156,12 +156,12 @@ and then no result line is printed):
    skewed (both paths), straggling and partial runs on the card against
    the CPU at d=4099, m=8, T=40 (decisions equal, ``x_avg`` within 1e-5);
 12. random_gaussian_main_path (after ``step_split``) — ``run_sgd`` at
-   the main path's shape (T = 64) under ``scenario_static("random_gaussian")``:
+   the main path's shape (T = 32) under ``scenario_static("random_gaussian")``:
    fused@f32 and fused@bf16 decide as dense@f32 at every step, every
    attacker filtered and no honest worker, ms/step and peak memory;
    ``generate="kernel"`` refuses id 2 with the reference's ValueError;
 12b. campaign_main_path — ``run_campaign`` at the main path's width
-   (m=32, d=2^20, T=32, α=0.25): static and churning sign_flip × seeds
+   (m=32, d=2^20, T=16, α=0.25): static and churning sign_flip × seeds
    0–3, two groups of R = 4 runs on one run axis, for the fused guard at
    f32 and bf16, the dense guard, krum and coordinate_median: each kernel
    launched exactly T times a group (not T·R); one row of each group
@@ -207,7 +207,7 @@ and then no result line is printed):
    as its run alone, and the flip under ``vmap`` is bit-equal to each
    run's own;
 13. the convex harness, after every phase above.  ``convex_step_alone``:
-   with nothing else on the card or the host, 200 steps of each of
+   with nothing else on the card or the host, STEP_ALONE_T (100) steps of each of
    mean, krum, coordinate_median, the dense, fused and dp_sketch guards
    (quickstart's problem) and the logistic run, and a campaign step of
    the fused guard over Table 1's 5 seeds on one run axis (against 5 ×
@@ -241,7 +241,8 @@ and then no result line is printed):
    10, n = 256, reg 1e-2, seed 2) under sign_flip through the fused guard
    at T = 2000 (gap below 3·αDV/√T, no honest worker filtered, decisions
    as the CPU's); ``solve_strongly_convex`` on the seed-1 quadratic (ε
-   2e-3, t_scale 0.05, 4000 steps an epoch at most; last gap below
+   2e-3, t_scale 0.05, 2000 steps an epoch at most, cut from the
+   reference test's 4000 (PERF.md §4); last gap below
    5e-3); both distinguishing experiments at m = 16, α = 0.3, 48 trials,
    T = 2 and 1024 (success as the CPU's, below 0.75 and above 0.9);
 16. table1 — ``repro_torch.experiments.table1`` (``benchmarks/
@@ -309,11 +310,42 @@ and then no result line is printed):
    teacher-forced forward; then at the reduced width the card's greedy
    tokens equal to the CPU's for the plain cache, the int8 cache and a
    starcoder2-3b window-32 ring that wraps (prompt 16, 40 steps);
-22. the script's total seconds, the kernels line (24 entries: twelve
+22. lm_train_ssm_full_width — mamba2-130m at every published width and
+   all 24 layers (d = 167,573,952), W = 8, α = 0.25, sign_flip,
+   per-worker batch 2 × 256 tokens (one published SSD chunk), T = 20, on
+   ``dp_sketch@bf16`` and ``fused@bf16``: each guard kernel of the path
+   launched T times and held to its plain version at that d, both
+   attackers filtered and no honest worker, every worker's gradient
+   finite at every step (the SSD mask of ``models/ssm.py``); ms a phase,
+   peak GB against a reckoning;
+23. moe_ssm_reduced — kimi-k2 and jamba at their reduced widths through
+   ``launch.train.run_training`` on the card and on the CPU (decisions
+   equal, losses within the launcher's drift), and the greedy tokens of
+   the reduced kimi-k2, jamba and mamba2-130m, the card's equal to the
+   CPU's;
+24. lm_serve_moe_full_width, lm_serve_hybrid_full_width — kimi-k2 (2
+   layers: the dense first and one of 384 experts, top 8, a shared one)
+   and jamba (8 layers, one period) at every published width, bf16,
+   weights drawn once each: ``generate`` at serving's sizes, no guard
+   kernel launched; init seconds, prefill ms, ms a token against every
+   weight read once, tokens/s, peak GB, the share of prefill's choices
+   dropped at the published capacity_factor; then the same weights with
+   the attention rescaled and C = T (capacity_factor = E) against a
+   teacher-forced forward: at most ROUTE_DIFF_BOUND of the positions
+   routed apart, and at the positions whose routes (and those a later
+   mixer carries in) agree within 5e-2 (kimi-k2) or SSM_SERVE_LOGIT_RTOL
+   (jamba, whose Mamba layers amplify rounding), and jamba again on f32
+   weights, where no route flips and every position is held;
+25. lm_serve_ssm_full_width — ``run_serving(reduced=False)`` of
+   mamba2-130m (its whole published configuration): ms a token against
+   its bound, and its logits against the teacher-forced forward in bf16
+   and f32 (0.25 / 1e-4 at every position, SSM_SERVE_LOGIT_RTOL);
+26. the script's total seconds, the kernels line (24 entries: twelve
    kernels, the generating two over a run axis among them, × f32/bf16;
    each also with ``lm_train_launches``, its launches in phases 17–18,
    ``lm_checkpoint_launches`` and ``lm_train_campaign_launches``, its
-   launches in phases 19 and 20), the card line and the result line.
+   launches in phases 19 and 20, and ``lm_moe_ssm_launches``, in phases
+   22–23), the card line and the result line.
 """
 from __future__ import annotations
 
@@ -321,6 +353,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import gc
 import json
 import math
 import multiprocessing
@@ -353,6 +386,7 @@ from repro_torch.distributed.trainer import build_train_step, init_train_state  
 from repro_torch.launch.serve import generate, run_serving  # noqa: E402
 from repro_torch.launch.train import fetch_metrics, run_training  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.model import _lm_head  # noqa: E402
 from repro_torch.optim import adamw, linear_warmup_cosine  # noqa: E402
 from repro_torch.core import aggregators, attacks  # noqa: E402
@@ -550,6 +584,15 @@ def counts(**launched) -> dict:
 
 
 # ---------------------------------------------------------------- phase 2
+
+def free_card() -> None:
+    """Collect the host's garbage before emptying the allocator's cache:
+    a reference cycle (a trainer's closures, an exception's frames) can
+    hold a run's state or a phase's weights until Python's collector
+    runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
 
 def sort_network_size(m: int) -> int:
     """The comparators of the register path's network on m wires
@@ -2433,7 +2476,7 @@ def profile_reference(dev) -> None:
 
 # ---------------------------------------------------------------- campaigns
 
-CAMPAIGN_T = 32
+CAMPAIGN_T = 16   # cut from 32 for the MoE and Mamba phases (PERF.md §4)
 CAMPAIGN_SEEDS = range(4)
 # variant -> the kernels one step of a group launches, once for its R runs
 CAMPAIGN_VARIANTS = {
@@ -2452,13 +2495,15 @@ RUNS_BIG_D = 2 ** 24 + 3    # R·m·d > 2^31 at R = 4, m = 32 (bf16)
 def campaign_grid(seeds=CAMPAIGN_SEEDS, churn: bool = True):
     scenarios = [("static", scenario_static("sign_flip"))]
     if churn:
-        scenarios.append(("churn", scenario_churn("sign_flip", period=16, stride=4)))
+        # one rotation at mid-run
+        scenarios.append(("churn", scenario_churn("sign_flip", period=CAMPAIGN_T // 2,
+                                                  stride=4)))
     return expand_grid(scenarios, [BASE["alpha"]], seeds)
 
 
 def campaign_main_path(dev) -> tuple[dict, dict]:
     """``run_campaign`` at the main path's width: 2 groups (static and
-    churning sign_flip) of R = 4 seeds, T = 32, each variant of
+    churning sign_flip) of R = 4 seeds, T = CAMPAIGN_T, each variant of
     CAMPAIGN_VARIANTS with the launch counts set to 0 just before it and
     read just after (each kernel T times a group, not T·R); one row of each
     group against its ``run_sgd`` alone (decisions equal, gaps within
@@ -2723,7 +2768,7 @@ def gen_campaign_kernels(dev) -> None:
 
 def campaign_gen_main_path(dev, fused_stats: dict, fused_peaks: dict) -> dict:
     """``run_campaign`` at campaign_main_path's grid (m = 32, d = 2^20,
-    T = 32, static and churning sign_flip × seeds 0–3) with the variants
+    T = CAMPAIGN_T, static and churning sign_flip × seeds 0–3) with the variants
     ``gen`` and ``gen@bf16``, the launch counts set to 0 just before each
     and read just after: ``fused_guard_gen`` and ``gen_xi`` T times a group
     and no other kernel; every row decides as the materialising variant's
@@ -2930,7 +2975,7 @@ def telemetry_phase(dev) -> None:
 
 
 def telemetry_campaign(dev) -> None:
-    """One armed campaign (fused and gen; m = 32, d = 2^16, T = 32, static
+    """One armed campaign (fused and gen; m = 32, d = 2^16, T = CAMPAIGN_T, static
     and churning sign_flip × seeds 0–3) drained into an ``EventLog``; the
     JSONL and the Chrome trace written under build/telemetry/ and read
     back."""
@@ -3132,9 +3177,12 @@ HARNESS_RUNS = {
     "logistic": ("logistic", dict(guard_backend="fused", T=2000, eta=0.1), FUSED),
 }
 CONVEX_RUNS = {**QUICKSTART_RUNS, **DETECTION_RUNS, **HARNESS_RUNS}
-# tests/test_convergence.py::TestScaling::test_epoch_solver_reaches_epsilon
+# tests/test_convergence.py::TestScaling::test_epoch_solver_reaches_epsilon,
+# its epochs cut from 4000 steps to 2000: the pool's longest task (306 s of
+# a 320 s pool at 4000) made room for the MoE and Mamba phases (PERF.md
+# §4); the last gap is still held below 5e-3 (it read 9.8e-6 at 4000)
 EPOCH_CFG = dict(m=16, alpha=0.25, epsilon=2e-3, attack="sign_flip", t_scale=0.05,
-                 max_t_per_epoch=4000)
+                 max_t_per_epoch=2000)
 EPOCH = "epoch_solver"
 # the lower bound's experiments as tests/test_lower_bound.py runs them
 LOWER_BOUND = {"linear": (distinguishing_experiment_linear, 0, dict(eps=0.05)),
@@ -3147,12 +3195,12 @@ GAP_RTOL, GAP_ATOL = 1e-3, 1e-7
 # the runs whose step is timed alone, on the card and on the CPU, and their T
 STEP_ALONE_RUNS = ("mean", "krum", "coordinate_median", "guard_backend=dense",
                    "guard_backend=fused", "guard_backend=dp_sketch", "logistic")
-STEP_ALONE_T = 200
+STEP_ALONE_T = 100   # cut from 200 for the MoE and Mamba phases (PERF.md §4)
 # the fused guard's step over Table 1's 5 seeds on one run axis
 CAMPAIGN_STEP = "campaign fused x5 seeds"
 # the pool of the convex runs: the epoch solver in one process, the rest
 # (the card runs, Table 1's, then the CPU references) in the others
-POOL_PROCESSES = 6
+POOL_PROCESSES = 7   # the card machine's 8 cores less this waiting process
 POOL_WAIT_S = 900
 # Table 1 (repro_torch.experiments.table1): the α = 0.25 section at the
 # paper's T, one task a variant; the same section at TABLE1_CHECK_T on the
@@ -3472,8 +3520,9 @@ def detection_latency(card: dict, cpu: dict) -> None:
                                                   for name in DETECTION_RUNS))
 
 
-# cut from T = 128 to keep the script inside its time with Table 1's runs
-RG_T = 64
+# cut from T = 128 to keep the script inside its time with Table 1's runs,
+# and from 64 for the MoE and Mamba phases (PERF.md §4)
+RG_T = 32
 RG_RUNS = (("fused@f32", dict(guard_backend="fused", stats_dtype="f32")),
            ("fused@bf16", dict(guard_backend="fused", stats_dtype="bf16")),
            ("dense@f32", dict(guard_backend="dense", stats_dtype="f32")))
@@ -3659,6 +3708,28 @@ def first_call_operands(names):
             setattr(ops, n, fn)
 
 
+@contextlib.contextmanager
+def finite_rows(on: bool):
+    """With ``on``, route ``ops.filtered_mean`` through a recorder that
+    appends, a call, whether its rows are all finite and calls through.
+    The test is one f32 sum of the rows (a NaN or an infinity anywhere
+    makes it non-finite; one pass and no temporary the rows' size) kept as
+    a device bool, so no step waits for it."""
+    saved = ops.filtered_mean
+    flags: list = []
+
+    def call(x, *args, **kwargs):
+        flags.append(torch.isfinite(torch.sum(x, dtype=torch.float32)))
+        return saved(x, *args, **kwargs)
+
+    if on:
+        ops.filtered_mean = call
+    try:
+        yield flags
+    finally:
+        ops.filtered_mean = saved
+
+
 def lm_kernel_checks(calls: dict, dt: str) -> dict:
     """Each kernel the run launched against its plain version (by column
     blocks: the rows have no room for f32 copies) on step 0's operands,
@@ -3743,15 +3814,20 @@ def lm_reckon_gb(backend: str, stats: str, n_params: int, d: int, W: int) -> dic
             "peak_gb": (static + max(stages.values())) / 1e9}
 
 
-def lm_run(model, backend: str, stats: str, V: float, T: int, dev) -> dict:
-    """T steps of the trainer at full width, built as ``run_training``
+def lm_run(model, backend: str, stats: str, V: float, T: int, dev, seq: int = LM_SEQ,
+           attack_kwargs: tuple = (), check_finite: bool = False) -> dict:
+    """T steps of the trainer at full width over sequences of ``seq``
+    tokens (sign_flip with ``attack_kwargs``), built as ``run_training``
     builds them; step 0's kernel operands are held against the plain
-    versions; returns the run's summary."""
+    versions, and with ``check_finite`` every step's rows into
+    ``filtered_mean`` (every worker's gradient, attacked or not, in each
+    backend) are checked finite; returns the run's summary."""
     cfg = model.cfg
-    stream = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=LM_SEQ, seed=0)
+    stream = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=seq, seed=0)
     opt = adamw(linear_warmup_cosine(LM_LR, warmup=max(T // 20, 1), total_steps=T),
                 grad_clip=1.0)
     scfg = SolverConfig(m=LM_W, T=T, eta=LM_LR, alpha=LM_ALPHA, attack="sign_flip",
+                        attack_kwargs=attack_kwargs,
                         mean_over_alive=True, guard_backend=backend, stats_dtype=stats,
                         guard_opts=(("sketch_dim", LM_SKETCH_K),) if backend == "dp_sketch"
                         else ())
@@ -3767,22 +3843,23 @@ def lm_run(model, backend: str, stats: str, V: float, T: int, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     metrics, checks = [], {}
-    for i in range(T):
-        batch = make_worker_batch(stream, LM_W, LM_BATCH, i, device=dev)
-        if i == 0:
-            with first_call_operands(LM_RUN_KERNELS[backend]) as calls:
+    with finite_rows(check_finite) as rows_finite:
+        for i in range(T):
+            batch = make_worker_batch(stream, LM_W, LM_BATCH, i, device=dev)
+            if i == 0:
+                with first_call_operands(LM_RUN_KERNELS[backend]) as calls:
+                    state, m = step(state, batch, rank, prng.fold_in(loop_key, i))
+                torch.cuda.synchronize()
+                checks = lm_kernel_checks(calls, "bf16")
+                del calls
+                # the peak is the steps' (the checks hold step 0's operands)
+                check_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                torch.cuda.reset_peak_memory_stats()
+            else:
+                timer.start()
                 state, m = step(state, batch, rank, prng.fold_in(loop_key, i))
-            torch.cuda.synchronize()
-            checks = lm_kernel_checks(calls, "bf16")
-            del calls
-            # the peak is the steps' (the checks hold step 0's operands)
-            check_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            torch.cuda.reset_peak_memory_stats()
-        else:
-            timer.start()
-            state, m = step(state, batch, rank, prng.fold_in(loop_key, i))
-            timer.stop()
-        metrics.append(m)
+                timer.stop()
+            metrics.append(m)
     torch.cuda.synchronize()
     launches = read_counts()
     split, steps = timer.totals()
@@ -3790,7 +3867,9 @@ def lm_run(model, backend: str, stats: str, V: float, T: int, dev) -> dict:
     peak_gb = max(phase_peak_gb.values())
     hist = fetch_metrics(metrics)
     del state, step, metrics
-    torch.cuda.empty_cache()
+    # the trainer's state sits in reference cycles (closures and frames of
+    # the step): without a collection the next run can start beside it
+    free_card()
     loss = [float(h["loss_good_workers"]) for h in hist]
     out = {"backend": f"{backend}@{stats}", "ms_per_step": statistics.mean(steps),
            "split_ms_per_step": {k: v / len(steps) for k, v in split.items()},
@@ -3801,6 +3880,8 @@ def lm_run(model, backend: str, stats: str, V: float, T: int, dev) -> dict:
            "byz_alive": [int(h["byz_alive"]) for h in hist],
            "good_filtered": [int(h["good_filtered"]) for h in hist],
            "loss_good_workers": loss, "v_est_step0": float(hist[0]["v_est"]),
+           "rows_finite_every_step": (bool(torch.stack(rows_finite).all()) and
+                                      len(rows_finite) == T) if check_finite else None,
            "kernels": checks}
     return out
 
@@ -3817,6 +3898,8 @@ def lm_checks(out: dict, backend: str, T: int, n_byz: int) -> None:
     require(out["byz_alive"][-1] == 0, f"lm {stats}: a Byzantine worker survived")
     require(out["n_alive"][-1] == LM_W - n_byz, f"lm {stats}: n_alive at the end")
     require(all(math.isfinite(v) for v in loss), f"lm {stats}: finite losses")
+    require(out["rows_finite_every_step"] is not False,
+            f"lm {stats}: every worker's gradient finite")
     require(statistics.mean(loss[-3:]) < statistics.mean(loss[:3]), f"lm {stats}: the loss falls")
 
 
@@ -4210,15 +4293,16 @@ def attention_rescaled(params: dict, cfg) -> dict:
     out = dict(params)
     out["groups"] = [
         {**gp, "mixer": {k: (w.float() * factor[k]).to(w.dtype) for k, w in gp["mixer"].items()}}
-        for gp in params["groups"]]
+        if "wq" in gp["mixer"] else gp for gp in params["groups"]]
     return out
 
 
-def serve_logit_check(model, params, res) -> dict:
+def serve_logit_check(model, params, res, rtols: dict | None = None) -> dict:
     """Prefill's last logits and each decode step's (``res.logits``) against
-    a teacher-forced ``forward`` over the prompt and ``res.tokens``."""
+    a teacher-forced ``forward`` over the prompt and ``res.tokens``, within
+    ``rtols`` (SERVE_LOGIT_RTOL by default) for the model's dtype."""
     cfg = model.cfg
-    rtol = SERVE_LOGIT_RTOL[cfg.activation_dtype]
+    rtol = (rtols or SERVE_LOGIT_RTOL)[cfg.activation_dtype]
     key = prng.PRNGKey(0, device=model.device)
     prompt = prng.randint(key, (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab_size)
     seq = torch.cat([prompt, res.tokens[:, :-1]], dim=1)
@@ -4344,6 +4428,373 @@ def lm_serve_full_width(dev) -> None:
     emit("lm_serve_full_width", seconds=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------- phases 22-25: MoE and
+# Mamba2/SSD
+
+SSM_ARCH = "mamba2-130m"
+SSM_D = 167_573_952       # its parameter count: all 24 layers at every published width
+SSM_SEQ = 256             # one published SSD chunk
+SSM_T = 20
+# (backend, stats, sign_flip's scale): dp_sketch@bf16 first, fused@bf16 at
+# its step-0 v_est.  The sketch guard runs sign_flip at twice its default
+# scale (−6g), as the reference's own train benchmark runs it
+# (benchmarks/bench_train.py, attack_scale=2): at the synthetic-LM
+# gradient geometry −3g sits inside the 1.5× slack its threshold carries
+# by design, and 20 steps filtered neither attacker on an H100 (PERF.md §5)
+SSM_RUNS = (("dp_sketch", "bf16", 6.0), ("fused", "bf16", 3.0))
+# (phase, arch, layers kept, parameters at that depth, the decode check's
+# dtypes): every width as published.  kimi-k2's f32 weights (80 GB) do
+# not fit the card; jamba's (53 GB) do, and in f32 no route flips, so
+# every position is held
+MOE_SERVE = (("lm_serve_moe_full_width", "kimi-k2-1t-a32b", 2, 19_934_645_248, ("bfloat16",)),
+             ("lm_serve_hybrid_full_width", "jamba-v0.1-52b", 8, 13_267_598_848,
+              ("bfloat16", "float32")))
+# The share of positions that some MoE layer routes to other experts in
+# the served pass than in the teacher-forced one (bf16, C = T in both):
+# the bound PERF.md §5 derives from bf16 rounding before the first chip
+# run (kimi-k2 ~6 %, jamba ~6 % predicted)
+ROUTE_DIFF_BOUND = 0.25
+MOE_SSM_REDUCED = ("kimi-k2-1t-a32b", "jamba-v0.1-52b")
+# The card's launcher losses against the CPU's: LM_LOSS_TOL's 1e-4 over
+# the first LM_LOSS_FIRST steps, and over all 40 the drift the JAX package
+# and the port show against each other on one CPU in the same run
+# (scripts/launcher_drift.py, decisions equal throughout): kimi-k2 1.0e-4,
+# within LM_LOSS_TOL; jamba 1.8e-3 at step 30 (its Mamba layers amplify
+# AdamW's f32 rounding more than the dense decoder's 3.3e-4), so 3e-3
+MOE_SSM_LOSS_TOL = {"kimi-k2-1t-a32b": LM_LOSS_TOL, "jamba-v0.1-52b": (1e-4, 3e-3)}
+# Decode against the teacher-forced forward where Mamba layers carry the
+# state (mamba2-130m, and jamba in f32).  The 24 Mamba layers at the
+# reference's init amplify rounding: on the CPU mamba2-130m's f32 forward
+# itself sits up to 2.4e-5 from the same function taken in f64, and the
+# decoded logits 2.1e-5 (scripts/check_ssm_decode.py), so f32 is held to
+# 1e-4; in bf16 decode and forward round in different places (the
+# recurrence keeps x, B, C and y in f32 where the chunked form rounds
+# them to bf16) and the CPU run read 0.13 at the 18th decoded token, so
+# bf16 is held to 0.25 and to its argmax where the top two lie apart.
+SSM_SERVE_LOGIT_RTOL = {"bfloat16": 0.25, "float32": 1e-4}
+
+
+def ssm_activation_gb(cfg, rows: int, seq: int) -> dict:
+    """The Mamba layers' activations the backward keeps, in GB, for
+    ``rows`` sequences of ``seq`` tokens (every worker's batch under the
+    trainer's vmap): a layer's Q×Q f32 scores a head, four of them (the
+    masked decay, its exp, the scores times it, the masked product), and
+    a token's twelve f32 vectors of d_inner (the conv outputs and their
+    silu, the SSD's f32 inputs, dtx, the two partial outputs and their
+    sum, the gate's silu, the norm's f32 input); then the f32 logits and
+    their gradient."""
+    Q = min(cfg.ssm_chunk, seq)
+    scores = 4 * rows * (seq // Q) * cfg.n_ssm_heads * Q * Q * 4.0
+    tokens = 12 * rows * seq * cfg.d_inner_ssm * 4.0
+    logits = 2 * rows * seq * cfg.vocab_size * 4.0
+    layers = cfg.n_layers * (scores + tokens)
+    return {"scores_gb": cfg.n_layers * scores / 1e9, "token_vectors_gb": cfg.n_layers * tokens
+            / 1e9, "logits_gb": logits / 1e9, "activations_gb": (layers + logits) / 1e9}
+
+
+def lm_train_ssm_full_width(dev) -> dict:
+    """mamba2-130m at every published width and all 24 layers (d =
+    167,573,952 parameters, padded to a multiple of 128 as the harness
+    pads), W = 8, α = 0.25, sign_flip, per-worker batch 2, seq 256 (one
+    published SSD chunk, whose Σdt passes 88: the reference's SSD backward
+    gives NaN there, the port's masked one does not), T = 20: dp_sketch@bf16,
+    then fused@bf16 at dp_sketch's step-0 v_est.  Each run launches every
+    guard kernel of its path T times (held to its plain version at this d
+    on step 0's operands), filters both attackers and no honest worker,
+    and has every worker's gradient finite at every step; ms a phase, peak
+    GB against a reckoning.  Returns the launches by (name, dtype)."""
+    t_phase = time.perf_counter()
+    free_card()
+    cfg = get_config(SSM_ARCH)
+    model = build_model(cfg, device=dev)
+    harness = params_harness(model)
+    require(model.n_params == SSM_D and harness.d == -(-SSM_D // 128) * 128,
+            f"mamba2-130m has d = {model.n_params} (pad {harness.d})")
+    launches: dict = {}
+    failures, V = [], 0.0
+    for backend, stats, scale in SSM_RUNS:
+        reckon = lm_reckon_gb(backend, stats, model.n_params, harness.d, LM_W)
+        acts = ssm_activation_gb(cfg, LM_W * LM_BATCH, SSM_SEQ)
+        reckon = dict(reckon, **acts, gradients_with_activations_gb=reckon["gradients_gb"]
+                      + acts["activations_gb"])
+        t0 = time.perf_counter()
+        res = lm_run(model, backend, stats, V, SSM_T, dev, seq=SSM_SEQ,
+                     attack_kwargs=(("scale", scale),), check_finite=True)
+        emit("lm_train_ssm_full_width", arch=SSM_ARCH, n_layers=cfg.n_layers, d=harness.d,
+             W=LM_W, alpha=LM_ALPHA, attack="sign_flip", attack_scale=scale, T=SSM_T,
+             batch=LM_BATCH,
+             seq_len=SSM_SEQ, ssm_chunk=cfg.ssm_chunk, V=V, reckoned=reckon,
+             seconds=time.perf_counter() - t0, card=card_line(), **res)
+        if backend == "dp_sketch":
+            V = res["v_est_step0"]
+        try:
+            lm_checks(res, backend, SSM_T, int(LM_ALPHA * LM_W))
+        except RuntimeError as err:   # both configurations run; all failures reported
+            failures.append(str(err))
+        for name, n in res["launches"].items():
+            if n:
+                launches[(name, "bf16")] = launches.get((name, "bf16"), 0) + n
+    del model
+    free_card()
+    require(not failures, "; ".join(failures))
+    emit("lm_train_ssm_full_width", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Route ``models.moe.moe_apply`` through a recorder that keeps, a
+    call, its tokens' expert sets ((B, S, K), sorted) and whether each
+    choice fit its expert's capacity ((K, B·S) bool), and calls through."""
+    saved = moe_lib.moe_apply
+    calls: list = []
+
+    def call(p, cfg, x):
+        xt = x.reshape(-1, x.shape[-1])
+        routes = moe_lib.route(p["router"], xt, cfg.top_k)
+        _, keep = moe_lib.dispatch(routes.top_e, cfg.n_experts,
+                                   moe_lib.capacity(cfg, xt.shape[0]))
+        calls.append((torch.sort(routes.top_e, dim=-1).values.reshape(*x.shape[:2], -1), keep))
+        return saved(p, cfg, x)
+
+    moe_lib.moe_apply = call
+    try:
+        yield calls
+    finally:
+        moe_lib.moe_apply = saved
+
+
+def moe_decode_check(model, params, res, served_calls: list, rtols: dict) -> dict:
+    """``generate``'s logits (``res``, its routes ``served_calls``) against
+    a teacher-forced ``forward`` over the prompt and ``res.tokens``, both
+    with C = T (``capacity_factor`` = E), so no choice drops in any pass.
+    A position is held when every MoE layer routed it to the same experts
+    in both passes, and, for a MoE layer that a later layer's mixer
+    follows, every earlier position of its sequence too (the mixer
+    carries them into it); the logits at held positions are within
+    ``rtols`` for the model's dtype, and their argmax equal where the top
+    two lie apart."""
+    cfg = model.cfg
+    rtol = rtols[cfg.activation_dtype]
+    key = prng.PRNGKey(0, device=model.device)
+    prompt = prng.randint(key, (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab_size)
+    seq = torch.cat([prompt, res.tokens[:, :-1]], dim=1)
+    with torch.no_grad(), recorded_routes() as forced_calls:
+        h, _, _ = model.forward(params, {"tokens": seq})
+        want = _lm_head(cfg, params, h[:, SERVE_PROMPT - 1:]).float()    # (B, T, V)
+    got = torch.cat(res.logits, dim=1).float()
+    moe_layers = [i for i in range(cfg.n_layers) if cfg.ff_for_layer(i) == "moe"]
+    n = len(moe_layers)
+    require(len(forced_calls) == n and len(served_calls) == n * SERVE_TOKENS,
+            f"{cfg.name}: MoE calls {len(forced_calls)}, {len(served_calls)}")
+    # the served pass: prefill's n calls, then n a decode step, in layer order
+    served = [torch.cat([c[0] for c in served_calls[j::n]], dim=1) for j in range(n)]
+    same = torch.stack([(a == b[0]).all(-1) for a, b in zip(served, forced_calls)])  # (n, B, S)
+    own = same.all(0)
+    carried = [same[j] for j, i in enumerate(moe_layers) if i < cfg.n_layers - 1]
+    prefix = (torch.cummin(torch.stack(carried).all(0).to(torch.int32), dim=1).values.bool()
+              if carried else torch.ones_like(own))
+    held = (own & prefix)[:, SERVE_PROMPT - 1:]                          # (B, T)
+    err = (got - want).norm(dim=-1) / want.norm(dim=-1)
+    top2 = torch.topk(want, 2, dim=-1).values
+    apart = held & (top2[..., 0] - top2[..., 1] > 2 * rtol * want.abs().amax(-1))
+    argmax_equal = torch.argmax(got, -1) == torch.argmax(want, -1)
+    return {"dtype": cfg.activation_dtype, "rtol": rtol, "capacity_factor": cfg.capacity_factor,
+            "moe_layers": moe_layers, "positions": int(own.numel()),
+            "route_differs_share": float(1.0 - own.float().mean()),
+            "route_differs_share_by_layer": [float(1.0 - s.float().mean()) for s in same],
+            "route_differs_bound": ROUTE_DIFF_BOUND,
+            "logit_positions": int(held.numel()), "logit_positions_held": int(held.sum()),
+            "logits_rel_err_max_held": float(err[held].max()) if held.any() else None,
+            "logits_rel_err_max": float(err.max()), "logits_rel_err_mean": float(err.mean()),
+            "argmax_apart": int(apart.sum()), "argmax_apart_equal": bool(argmax_equal[apart].all()),
+            "tokens_are_argmax": bool(torch.equal(res.tokens,
+                                                  torch.argmax(got, -1).to(torch.int32)))}
+
+
+def moe_check_passed(check: dict) -> bool:
+    rel = check["logits_rel_err_max_held"]
+    return (check["route_differs_share"] <= check["route_differs_bound"]
+            and (rel is None or rel <= check["rtol"]) and check["argmax_apart_equal"]
+            and check["tokens_are_argmax"])
+
+
+def moe_serve_full_width(dev, phase: str, arch: str, n_layers: int, n_params: int,
+                         check_dtypes: tuple) -> None:
+    """``arch`` at every published width with the depth cut to ``n_layers``
+    (bf16, weights from PRNGKey(0), drawn once): ``generate``
+    (``run_serving``'s loop) at batch 4, prompt 64, 32 tokens, cache 256
+    with no guard kernel launched; init seconds, prefill ms, ms a token
+    against every weight read once, tokens/s, peak GB, and the share of
+    prefill's choices dropped at the published capacity_factor; then the
+    decode check (``moe_decode_check``) on the same weights with the
+    attention rescaled (``attention_rescaled``) and C = T, and in each
+    other dtype of ``check_dtypes`` on weights drawn again in it; a model
+    with Mamba layers is held to SSM_SERVE_LOGIT_RTOL, else to
+    SERVE_LOGIT_RTOL.  The weights are freed at the end."""
+    t_phase = time.perf_counter()
+    free_card()
+    at_start_gb = torch.cuda.memory_allocated() / 1e9
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    rtols = (SSM_SERVE_LOGIT_RTOL if any(s.mixer == "mamba" for s in cfg.layer_plan())
+             else SERVE_LOGIT_RTOL)
+    model = build_model(cfg, device=dev)
+    require(model.n_params == n_params, f"{phase}: {model.n_params} parameters")
+    key = prng.PRNGKey(0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(key)
+    torch.cuda.synchronize()
+    init_s, init_peak_gb = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+    prompt = prng.randint(key, (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab_size)
+    reset_counts()
+    res = generate(model, params, prompt, gen_tokens=SERVE_TOKENS, cache_len=SERVE_CACHE)
+    launches = read_counts()
+    with torch.no_grad(), recorded_routes() as calls:
+        model.prefill(params, {"tokens": prompt}, cache_len=SERVE_CACHE)
+    keep = torch.cat([k.reshape(-1) for _, k in calls])
+    emit(phase, arch=arch, n_layers=n_layers, n_layers_published=get_config(arch).n_layers,
+         d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k,
+         n_shared_experts=cfg.n_shared_experts, layer_plan=[(s.mixer, s.ff, s.count)
+                                                            for s in cfg.layer_plan()],
+         n_params=model.n_params, dtype=cfg.param_dtype, batch=SERVE_BATCH,
+         prompt_len=SERVE_PROMPT, gen_tokens=SERVE_TOKENS, cache_len=SERVE_CACHE,
+         allocated_at_start_gb=at_start_gb, init_seconds=init_s, init_peak_gb=init_peak_gb,
+         prefill_ms=1e3 * res.prefill_s, ms_per_token=res.ms_per_token,
+         tokens_per_s=res.tokens_per_s, peak_gb=res.peak_bytes / 1e9,
+         # a token's least time: every bf16 weight read once
+         decode_bound_ms=1e3 * 2.0 * model.n_params / HBM_BYTES_PER_S, launches=launches,
+         capacity_factor=cfg.capacity_factor,
+         prefill_capacity=moe_lib.capacity(cfg, SERVE_BATCH * SERVE_PROMPT),
+         decode_capacity=moe_lib.capacity(cfg, SERVE_BATCH),
+         prefill_choices_dropped_share=float(1.0 - keep.float().mean()),
+         sample=res.tokens[0, :16].tolist(), card=card_line())
+    require(launches == counts(), f"{phase}: guard kernels launched {launches}")
+    require(res.tokens.shape == (SERVE_BATCH, SERVE_TOKENS), f"{phase}: greedy tokens")
+    del res, calls, model
+    for dtype in check_dtypes:
+        dcfg = dataclasses.replace(cfg, param_dtype=dtype, activation_dtype=dtype,
+                                   capacity_factor=float(cfg.n_experts))
+        model = build_model(dcfg, device=dev)
+        if dtype != cfg.param_dtype:
+            free_card()
+            params = model.init(key)
+        scaled = attention_rescaled(params, dcfg)
+        del params
+        reset_counts()
+        with recorded_routes() as served:
+            out = generate(model, scaled, prompt, gen_tokens=SERVE_TOKENS,
+                           cache_len=SERVE_CACHE, keep_logits=True)
+        check = moe_decode_check(model, scaled, out, served, rtols)
+        emit(phase, check="attention_rescaled_capacity_T", launches=read_counts(),
+             ms_per_token=out.ms_per_token, peak_gb=out.peak_bytes / 1e9, **check)
+        require(moe_check_passed(check),
+                f"{phase}: decode against the teacher-forced forward ({dtype})")
+        del scaled, out, served, model
+        params = None
+    free_card()
+    emit(phase, seconds=time.perf_counter() - t_phase)
+
+
+def ssm_serve_full_width(dev) -> None:
+    """``run_serving(reduced=False)`` of mamba2-130m, its whole published
+    configuration (24 layers, bf16, PRNGKey(0)): batch 4, prompt 64, 32
+    tokens, cache 256, no guard kernel launched; prefill ms, ms a token
+    against every weight read once, tokens/s, peak GB; then its logits
+    against the teacher-forced forward in bf16 (the same weights) and in
+    f32 (drawn again in f32, through ``generate``), every position within
+    SSM_SERVE_LOGIT_RTOL (no attention and no router: nothing to rescale
+    or to exclude)."""
+    t_phase = time.perf_counter()
+    free_card()
+    at_start_gb = torch.cuda.memory_allocated() / 1e9
+    reset_counts()
+    res = run_serving(SSM_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                      gen_tokens=SERVE_TOKENS, cache_len=SERVE_CACHE, seed=0, reduced=False,
+                      device=dev, keep_logits=True, verbose=False)
+    launches = read_counts()
+    cfg = get_config(SSM_ARCH)
+    key = prng.PRNGKey(0, device=dev)
+    prompt = prng.randint(key, (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab_size)
+    emit("lm_serve_ssm_full_width", arch=SSM_ARCH, n_layers=cfg.n_layers, n_params=SSM_D,
+         dtype=cfg.param_dtype, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+         gen_tokens=SERVE_TOKENS, cache_len=SERVE_CACHE, prefill_ms=1e3 * res.prefill_s,
+         ms_per_token=res.ms_per_token, tokens_per_s=res.tokens_per_s,
+         peak_gb=res.peak_bytes / 1e9, decode_bound_ms=1e3 * 2.0 * SSM_D / HBM_BYTES_PER_S,
+         allocated_at_start_gb=at_start_gb, launches=launches,
+         sample=res.tokens[0, :16].tolist(), card=card_line())
+    require(launches == counts(), f"lm_serve_ssm_full_width: guard kernels launched {launches}")
+    for dtype in ("bfloat16", "float32"):
+        dcfg = dataclasses.replace(cfg, param_dtype=dtype, activation_dtype=dtype)
+        model = build_model(dcfg, device=dev)
+        params = model.init(key)
+        require(model.n_params == SSM_D, f"mamba2-130m: {model.n_params} parameters")
+        if dtype == "float32":
+            res = generate(model, params, prompt, gen_tokens=SERVE_TOKENS,
+                           cache_len=SERVE_CACHE, keep_logits=True)
+        check = serve_logit_check(model, params, res, SSM_SERVE_LOGIT_RTOL)
+        emit("lm_serve_ssm_full_width", check="decode_against_forward", ms_per_token=
+             res.ms_per_token, peak_gb=res.peak_bytes / 1e9, **check)
+        require(serve_check_passed(check),
+                f"lm_serve_ssm_full_width: decode against the teacher-forced forward ({dtype})")
+        del model, params
+    del res
+    free_card()
+    emit("lm_serve_ssm_full_width", seconds=time.perf_counter() - t_phase)
+
+
+def moe_ssm_reduced(dev) -> dict:
+    """kimi-k2 and jamba at their reduced widths through ``launch.train.
+    run_training`` (the launcher phase's sizes) on the card and on the
+    CPU: decisions equal at every step, losses within MOE_SSM_LOSS_TOL; then
+    the greedy tokens of the three reduced configs (kimi-k2, jamba,
+    mamba2-130m; ``run_serving``'s sizes), the card's equal to the CPU's.
+    Returns the card runs' launches by (name, dtype)."""
+    t_phase = time.perf_counter()
+    steps = LM_LAUNCH["steps"]
+    keys = ("n_alive", "byz_alive", "good_filtered", "n_byz")
+    for arch in MOE_SSM_REDUCED:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        _, card = run_training(arch, device=dev, verbose=False, **LM_LAUNCH)
+        torch.cuda.synchronize()
+        card_s, launches = time.perf_counter() - t0, read_counts()
+        t0 = time.perf_counter()
+        _, cpu = run_training(arch, device="cpu", verbose=False, **LM_LAUNCH)
+        cpu_s = time.perf_counter() - t0
+        decisions_equal = all(a[k] == b[k] for a, b in zip(card, cpu) for k in keys)
+        rel = [abs(a["loss_good_workers"] - b["loss_good_workers"]) / abs(b["loss_good_workers"])
+               for a, b in zip(card, cpu)]
+        loss_rel, loss_rel_first = max(rel), max(rel[:LM_LOSS_FIRST])
+        tol = MOE_SSM_LOSS_TOL[arch]
+        emit("moe_ssm_reduced", arch=arch, **LM_LAUNCH, card_seconds=card_s, cpu_seconds=cpu_s,
+             launches=launches, decisions_equal=decisions_equal, loss_rel_max=loss_rel,
+             loss_rel_max_first_steps=loss_rel_first, loss_tol=tol,
+             n_alive=[int(r["n_alive"]) for r in card],
+             loss_first_last=[card[0]["loss_good_workers"], card[-1]["loss_good_workers"]])
+        require(launches == counts(filtered_mean=steps), f"{arch} launcher launches {launches}")
+        require(decisions_equal, f"{arch} launcher: decisions equal to the CPU's at every step")
+        require(loss_rel_first <= tol[0] and loss_rel <= tol[1],
+                f"{arch} launcher: losses within {tol} of the CPU's ({loss_rel_first}, "
+                f"{loss_rel})")
+    for arch in (*MOE_SSM_REDUCED, SSM_ARCH):
+        rcfg = get_config(arch).reduced()
+        reset_counts()
+        card = serve_reduced(rcfg, dev)
+        card_launches = read_counts()
+        cpu = serve_reduced(rcfg, "cpu")
+        equal = bool(torch.equal(card, cpu))
+        emit("moe_ssm_reduced", case="greedy_tokens", arch=arch, d_model=rcfg.d_model,
+             tokens=card.shape[1], tokens_equal_to_cpu=equal, launches=card_launches,
+             first_row=card[0, :16].tolist())
+        require(equal, f"{arch} reduced: the card's greedy tokens are the CPU's")
+        require(card_launches == counts(), f"{arch} reduced serving: launches")
+    emit("moe_ssm_reduced", seconds=time.perf_counter() - t_phase)
+    return {("filtered_mean", "f32"): steps * len(MOE_SSM_REDUCED)}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4412,6 +4863,12 @@ def main() -> int:
     ckpt_launches = lm_checkpoint(dev)
     tc_launches = lm_train_campaign(dev)
     lm_serve_full_width(dev)
+    moe_ssm_launches = lm_train_ssm_full_width(dev)
+    for key, n in moe_ssm_reduced(dev).items():
+        moe_ssm_launches[key] = moe_ssm_launches.get(key, 0) + n
+    for row in MOE_SERVE:
+        moe_serve_full_width(dev, *row)
+    ssm_serve_full_width(dev)
     for e in entries:
         # the LM phases' launches of this kernel at this dtype (their own
         # runs, counted from 0 before each); serving launches none
@@ -4419,6 +4876,7 @@ def main() -> int:
         e["lm_train_launches"] = lm_launches.get((name, dt), 0)
         e["lm_checkpoint_launches"] = ckpt_launches.get((name, dt), 0)
         e["lm_train_campaign_launches"] = tc_launches.get((name, dt), 0)
+        e["lm_moe_ssm_launches"] = moe_ssm_launches.get((name, dt), 0)
 
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

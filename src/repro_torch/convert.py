@@ -21,6 +21,7 @@ from repro_torch.data import problems
 from repro_torch.distributed.byzantine_dp import DPGuardState
 from repro_torch.distributed.trainer import TrainState
 from repro_torch.models.attention import KVCache, QuantKVCache
+from repro_torch.models.ssm import MambaCache
 from repro_torch.scenarios.adversary import AdvState
 from repro_torch.scenarios.faults import FaultPlan
 from repro_torch.scenarios.spec import Scenario, WorkerProfile
@@ -229,12 +230,13 @@ def train_state_to_numpy(state: TrainState) -> dict:
 
 def kv_cache_from_numpy(cache, device="cuda") -> dict:
     """The port's decode cache from the JAX package's (``{"layers": [one
-    KVCache or QuantKVCache a layer group, leaves stacked on the group's
-    layer axis]}`` through ``numpy.asarray`` leaf by leaf): a group with
-    ``k_scale`` becomes a ``QuantKVCache``; bf16 keys and values keep their
-    bits."""
+    KVCache, QuantKVCache or MambaCache a layer group, leaves stacked on the
+    group's layer axis]}`` through ``numpy.asarray`` leaf by leaf): a group
+    with ``k_scale`` becomes a ``QuantKVCache``, one with ``conv_x`` a
+    ``MambaCache``; bf16 leaves keep their bits."""
     def group(c):
-        kind = QuantKVCache if hasattr(c, "k_scale") else KVCache
+        kind = (QuantKVCache if hasattr(c, "k_scale") else
+                MambaCache if hasattr(c, "conv_x") else KVCache)
         return kind(*(tensor_from_numpy(getattr(c, f), device) for f in kind._fields))
 
     return {"layers": [group(c) for c in cache["layers"]]}

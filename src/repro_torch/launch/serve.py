@@ -6,8 +6,10 @@ and the weights ``model.init`` of the same key, as in the JAX package, so
 a seed gives the JAX package's greedy tokens.  ``--trace PATH`` writes
 the ``serve/prefill`` and ``serve/decode`` spans and a
 ``serve/throughput`` counter as JSONL through :mod:`repro_torch.obs`.
-The port serves the dense decoder (``attn``/``swa`` mixers); other
-families raise NotImplementedError (``ROADMAP.md`` §1 item 8).
+The port serves the dense decoders, the MoE decoder (kimi-k2), the pure
+SSM (mamba2) and the hybrid (jamba) on KV, int8 and Mamba caches; MLA,
+the encoder-decoder and the frontends raise NotImplementedError
+(``ROADMAP.md`` §1 item 8).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b --tokens 32
 """

@@ -59,18 +59,41 @@ def _fan_in(shape: tuple) -> int:
     return int(shape[-2]) if len(shape) >= 2 else int(shape[-1])
 
 
-def init_param(key: torch.Tensor, d: ParamDef, dtype: torch.dtype) -> torch.Tensor:
+# elements of a leaf drawn at once.  A larger leaf (kimi-k2's stacked
+# experts hold 5.6e9) is drawn piece by piece over its flat counter range,
+# each piece written into the leaf in the parameter dtype, so the draw's
+# int64 and f64 temporaries are one piece's; the bits are the whole draw's.
+INIT_PIECE = 1 << 25
+
+
+def init_param(key: torch.Tensor, d: ParamDef, dtype: torch.dtype,
+               piece: int = INIT_PIECE) -> torch.Tensor:
     """One leaf on ``key``'s device: zeros, ones, ``scale·normal`` (embed)
     or ``scale/√fan_in · truncated_normal(−2, 2)``; the fan-in of a stacked
-    leaf is ``shape[-2]`` of the stacked shape, as in the JAX package."""
+    leaf is ``shape[-2]`` of the stacked shape, as in the JAX package.  A
+    leaf of more than ``piece`` elements is drawn in pieces of ``piece``."""
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=key.device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=key.device)
     if d.init == "embed":
-        return (d.scale * prng.normal(key, d.shape)).to(dtype)
-    std = float(np.float32(d.scale / np.sqrt(max(_fan_in(d.shape), 1))))
-    return (std * prng.truncated_normal(key, -2.0, 2.0, d.shape)).to(dtype)
+        def draw(shape, offset=0):
+            return (d.scale * prng.normal(key, shape, offset=offset)).to(dtype)
+    else:
+        std = float(np.float32(d.scale / np.sqrt(max(_fan_in(d.shape), 1))))
+
+        def draw(shape, offset=0):
+            return (std * prng.truncated_normal(key, -2.0, 2.0, shape, offset=offset)).to(dtype)
+    n = math.prod(d.shape)
+    if n <= piece:
+        # one draw, out of place (a campaign draws its runs' leaves under vmap)
+        return draw(d.shape)
+    out = torch.empty(d.shape, dtype=dtype, device=key.device)
+    flat = out.view(-1)
+    for lo in range(0, n, piece):
+        hi = min(lo + piece, n)
+        flat[lo:hi] = draw((hi - lo,), lo)
+    return out
 
 
 def init_params(key: torch.Tensor, defs: Any, dtype: torch.dtype) -> Any:

@@ -13,12 +13,15 @@ The LM loss is computed in sequence chunks of ``LOSS_CHUNK`` (one chunk
 when the chunk does not divide S), so the (B, S, V) logits exist one
 chunk at a time.
 
-The port holds the dense decoder: the ``attn``/``swa`` mixers and the
-``mlp``/``none`` feed-forward, for training (``init``, ``abstract``,
-``forward``, ``loss_fn``) and for serving (``prefill``, ``init_cache``,
-``decode_step`` on the KV and int8 caches of :mod:`.attention`).  MLA,
-Mamba, MoE, encoder–decoder and frontend configs, and the MLA and Mamba
-caches, raise NotImplementedError (``ROADMAP.md`` §1 item 8).
+The port holds the ``attn``/``swa`` (:mod:`.attention`) and ``mamba``
+(:mod:`.ssm`) mixers and the ``mlp``, ``moe`` (:mod:`.moe`) and ``none``
+feed-forwards, so the dense decoders, the MoE decoder (kimi-k2), the pure
+SSM (mamba2) and the hybrid (jamba) run for training (``init``,
+``abstract``, ``forward``, ``loss_fn``; the MoE layers' aux loss summed
+over layers into ``router_aux_weight·aux``) and for serving (``prefill``,
+``init_cache``, ``decode_step`` on the KV, int8 and Mamba caches; serving
+drops the aux).  MLA, encoder–decoder and frontend configs, and the MLA
+cache, raise NotImplementedError (``ROADMAP.md`` §1 item 8).
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (
     ParamDef,
     init_params,
@@ -39,7 +44,7 @@ from repro_torch.models.common import (
     resolve_dtype,
     rms_norm,
 )
-from repro_torch.utils import tree_map
+from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 
 F32 = torch.float32
 LOSS_CHUNK = 512  # sequence chunk of the CE loss
@@ -61,8 +66,10 @@ def _norm_def(d: int) -> ParamDef:
 def _mixer_defs(spec: BlockSpec, cfg: ModelConfig) -> dict:
     if spec.mixer in ("attn", "swa"):
         return attn_lib.attn_defs(cfg)
-    if spec.mixer in ("mla", "mamba"):
-        _later(f"the {spec.mixer!r} mixer")
+    if spec.mixer == "mamba":
+        return ssm_lib.mamba_defs(cfg)
+    if spec.mixer == "mla":
+        _later("the 'mla' mixer")
     raise ValueError(spec.mixer)
 
 
@@ -70,7 +77,7 @@ def _ff_defs(spec: BlockSpec, cfg: ModelConfig) -> dict:
     if spec.ff == "mlp":
         return mlp_defs(cfg.d_model, cfg.d_ff)
     if spec.ff == "moe":
-        _later("the 'moe' feed-forward")
+        return moe_lib.moe_defs(cfg)
     if spec.ff == "none":
         return {}
     raise ValueError(spec.ff)
@@ -119,12 +126,17 @@ def _apply_mixer(spec: BlockSpec, cfg: ModelConfig, p: dict, x, positions):
         return attn_lib.gqa_apply(p, cfg, x, positions, window=None)
     if spec.mixer == "swa":
         return attn_lib.gqa_apply(p, cfg, x, positions, window=cfg.sliding_window)
+    if spec.mixer == "mamba":
+        return ssm_lib.mamba_apply(p, cfg, x)
     raise ValueError(spec.mixer)
 
 
 def _apply_ff(spec: BlockSpec, cfg: ModelConfig, p: dict, x):
+    """The block's feed-forward and its aux loss (the MoE router's, else 0)."""
     if spec.ff == "mlp":
         return mlp_apply(p, x), 0.0
+    if spec.ff == "moe":
+        return moe_lib.moe_apply(p, cfg, x)
     return torch.zeros_like(x), 0.0
 
 
@@ -137,13 +149,21 @@ def _block_apply(spec: BlockSpec, cfg: ModelConfig, p: dict, x, positions):
     return x + ff, aux
 
 
+def _unstack(tree, n: int) -> list:
+    """A group's stacked leaves as ``n`` per-layer trees, by ``torch.unbind``:
+    its backward stacks the layers' gradients in one op, where indexing layer
+    by layer would add ``n`` zero-padded full-size gradients a leaf (the same
+    values either way)."""
+    parts = [torch.unbind(a, 0) for a in tree_leaves(tree)]
+    return [tree_unflatten(tree, [p[i] for p in parts]) for i in range(n)]
+
+
 def _run_groups(cfg: ModelConfig, groups_params, x, positions):
     """Each homogeneous group, layer by layer along its stacked axis.
     Returns (x, aux) with aux an f32 0-d tensor."""
     aux_total = torch.zeros((), dtype=F32, device=x.device)
     for spec, gp in zip(cfg.layer_plan(), groups_params):
-        for i in range(spec.count):
-            lp = tree_map(lambda a: a[i], gp)
+        for lp in _unstack(gp, spec.count):
             x, a = _block_apply(spec, cfg, lp, x, positions)
             aux_total = aux_total + a
     return x, aux_total
@@ -192,8 +212,10 @@ def _group_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, length: int, dty
     """One empty cache a layer of the group, stacked on a leading layer axis."""
     if spec.mixer in ("attn", "swa"):
         one = attn_lib.init_kv_cache(cfg, batch, _cache_len(spec, cfg, length), dtype, device)
-    elif spec.mixer in ("mla", "mamba"):
-        _later(f"the {spec.mixer!r} decode cache")
+    elif spec.mixer == "mamba":
+        one = ssm_lib.init_mamba_cache(cfg, batch, dtype, device)
+    elif spec.mixer == "mla":
+        _later("the 'mla' decode cache")
     else:
         raise ValueError(spec.mixer)
     return tree_map(lambda a: a.expand(spec.count, *a.shape).clone(), one)
@@ -223,8 +245,8 @@ class LanguageModel(NamedTuple):
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> LanguageModel:
-    """The dense decoder of ``cfg`` on ``device`` (the card unless the
-    caller asks for the CPU): ``init(key)`` draws the parameters there."""
+    """The model of ``cfg`` on ``device`` (the card unless the caller asks
+    for the CPU): ``init(key)`` draws the parameters there."""
     defs = model_defs(cfg)
     dev = resolve_device(device)
     pdt = resolve_dtype(cfg.param_dtype)
@@ -257,14 +279,17 @@ def build_model(cfg: ModelConfig, device="cuda") -> LanguageModel:
         for spec, gp in zip(cfg.layer_plan(), params["groups"]):
             win = cfg.sliding_window if spec.mixer == "swa" else None
             caches = []
-            for i in range(spec.count):
-                lp = tree_map(lambda a: a[i], gp)
+            for lp in _unstack(gp, spec.count):
                 h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-                o, (k, v) = attn_lib.gqa_apply(lp["mixer"], cfg, h, positions, window=win,
-                                               return_kv=True)
-                caches.append(attn_lib.cache_from_prefill(
-                    k, v, _cache_len(spec, cfg, cache_len), pos_final,
-                    quantize=cfg.kv_cache_dtype == "int8"))
+                if spec.mixer == "mamba":
+                    o, lc = ssm_lib.mamba_apply(lp["mixer"], cfg, h, return_state=True)
+                else:
+                    o, (k, v) = attn_lib.gqa_apply(lp["mixer"], cfg, h, positions, window=win,
+                                                   return_kv=True)
+                    lc = attn_lib.cache_from_prefill(
+                        k, v, _cache_len(spec, cfg, cache_len), pos_final,
+                        quantize=cfg.kv_cache_dtype == "int8")
+                caches.append(lc)
                 x = x + o
                 h = rms_norm(x, lp["norm2"], cfg.norm_eps)
                 ff, _ = _apply_ff(spec, cfg, lp["ff"], h)
@@ -285,11 +310,12 @@ def build_model(cfg: ModelConfig, device="cuda") -> LanguageModel:
         for gi, (spec, gp) in enumerate(zip(cfg.layer_plan(), params["groups"])):
             gcache = cache["layers"][gi]
             caches = []
-            for i in range(spec.count):
-                lp = tree_map(lambda a: a[i], gp)
-                lc = tree_map(lambda a: a[i], gcache)
+            for lp, lc in zip(_unstack(gp, spec.count), _unstack(gcache, spec.count)):
                 h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-                o, lc = attn_lib.gqa_decode_apply(lp["mixer"], cfg, h, lc)
+                if spec.mixer == "mamba":
+                    o, lc = ssm_lib.mamba_decode_apply(lp["mixer"], cfg, h, lc)
+                else:
+                    o, lc = attn_lib.gqa_decode_apply(lp["mixer"], cfg, h, lc)
                 x = x + o
                 h = rms_norm(x, lp["norm2"], cfg.norm_eps)
                 ff, _ = _apply_ff(spec, cfg, lp["ff"], h)

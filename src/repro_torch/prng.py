@@ -5,6 +5,9 @@
 
 A key is an ``int64[2]`` tensor holding two uint32 words.  ``split`` is
 threefry on iota counters: ``split(key, n)[i] = threefry2x32(k0, k1, 0, i)``.
+A draw's flat element index i is the counter pair ``(i >> 32, i & 0xFFFFFFFF)``,
+as jax's ``iota_2x32_shape`` makes it, so a leaf of 2³² elements or more
+draws fresh bits past element 2³² - 1.
 ``permutation(key, m)`` shuffles ``arange(m)`` by sorting it on fresh 32-bit
 random keys, once per shuffle round (one round for any m below ~1600);
 the round's keys are ``b0 ^ b1`` of threefry on ``(0, arange(m))`` under
@@ -17,6 +20,11 @@ with ``erf_inv`` Giles' single-precision polynomial as XLA evaluates it
 
 ``truncated_normal`` is ``√2·erf_inv`` of a uniform between the bounds'
 erf, clamped inside the bounds.
+
+``uniform``, ``normal`` and ``truncated_normal`` take an ``offset``: the
+draw is then elements ``offset, offset + 1, …`` of a flat draw from the same
+key, so a large leaf can be drawn piece by piece with the whole draw's bits
+(:func:`repro_torch.models.common.init_param`).
 
 ``split``, ``uniform``, ``randint``, ``normal`` and ``bernoulli`` also take
 a batch of keys, an ``(..., 2)`` tensor, and then draw once per key, as
@@ -75,21 +83,24 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
 _BITS_CHUNK = 1 << 25
 
 
-def _random_bits32(key: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.random.bits(key, (n,), uint32)``: ``b0 ^ b1`` of threefry on
-    the counters (0, i); ``(..., n)`` for a batch of keys."""
+def _random_bits32(key: torch.Tensor, n: int, offset: int = 0) -> torch.Tensor:
+    """``jax.random.bits(key, (offset + n,), uint32)[offset:]``: ``b0 ^ b1``
+    of threefry on the counter words ``(i >> 32, i & MASK32)``; ``(..., n)``
+    for a batch of keys."""
     k0, k1 = _words(key)
+
+    def draw(lo: int, hi: int) -> torch.Tensor:
+        counters = torch.arange(lo, hi, dtype=torch.int64, device=key.device)
+        b0, b1 = threefry2x32(k0, k1, counters >> 32, counters & MASK32)
+        return b0 ^ b1
+
     if n > _BITS_CHUNK:
         out = torch.empty(key.shape[:-1] + (n,), dtype=torch.int64, device=key.device)
         for lo in range(0, n, _BITS_CHUNK):
-            counters = torch.arange(lo, min(lo + _BITS_CHUNK, n), dtype=torch.int64,
-                                    device=key.device)
-            b0, b1 = threefry2x32(k0, k1, torch.zeros_like(counters), counters)
-            out[..., lo:lo + counters.shape[0]] = b0 ^ b1
+            hi = min(lo + _BITS_CHUNK, n)
+            out[..., lo:hi] = draw(offset + lo, offset + hi)
         return out
-    counters = torch.arange(n, dtype=torch.int64, device=key.device)
-    b0, b1 = threefry2x32(k0, k1, torch.zeros_like(counters), counters)
-    return b0 ^ b1
+    return draw(offset, offset + n)
 
 
 def permutation(key: torch.Tensor, m: int) -> torch.Tensor:
@@ -105,15 +116,15 @@ def permutation(key: torch.Tensor, m: int) -> torch.Tensor:
     return x
 
 
-def _bits(key: torch.Tensor, shape) -> torch.Tensor:
+def _bits(key: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int64 words, after the
-    keys' batch shape."""
+    keys' batch shape (from flat element ``offset`` on)."""
     shape = tuple(int(n) for n in shape)
-    return _random_bits32(key, math.prod(shape)).reshape(key.shape[:-1] + shape)
+    return _random_bits32(key, math.prod(shape), offset).reshape(key.shape[:-1] + shape)
 
 
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
+            maxval: float = 1.0, *, offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
     23 bits as the mantissa of a float in [1, 2), minus 1, times the f32
     span ``maxval − minval`` plus ``minval`` in one fused multiply-add (XLA
@@ -121,7 +132,7 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     # the float with those 23 mantissa bits in [1, 2), minus 1, is k·2⁻²³
     # for the 23-bit k: exact in f32 either way, and a product where a bit
     # view would be (vmap has no rule for a dtype view in every torch)
-    floats = (_bits(key, shape) >> 9).to(torch.float64) * (2.0 ** -23)
+    floats = (_bits(key, shape, offset) >> 9).to(torch.float64) * (2.0 ** -23)
     lo32 = np.float32(minval)
     span = float(np.float32(maxval) - lo32)
     # an f32 product is exact in f64, so the f64 sum rounded to f32 is the
@@ -179,17 +190,18 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
-def normal(key: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
+def normal(key: torch.Tensor, shape=(), dtype=torch.float32, *,
+           offset: int = 0) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: √2·erf_inv(u) for u
     uniform on (nextafter(−1, 0), 1).  Only float32 is ported: jax draws
     another dtype from other bits."""
     if dtype != torch.float32:
         raise ValueError(f"normal draws float32 only, got {dtype}")
-    return _SQRT2 * erf_inv(uniform(key, shape, _NORMAL_LO, 1.0))
+    return _SQRT2 * erf_inv(uniform(key, shape, _NORMAL_LO, 1.0, offset=offset))
 
 
 def truncated_normal(key: torch.Tensor, lower: float, upper: float,
-                     shape=()) -> torch.Tensor:
+                     shape=(), *, offset: int = 0) -> torch.Tensor:
     """``jax.random.truncated_normal(key, lower, upper, shape, float32)``:
     u uniform on [erf(lower/√2), erf(upper/√2)), then √2·erf_inv(u),
     clamped to [nextafter(lower, +inf), nextafter(upper, −inf)].  The bounds'
@@ -200,7 +212,7 @@ def truncated_normal(key: torch.Tensor, lower: float, upper: float,
     sqrt2 = np.float32(np.sqrt(2.0))
     a = float(np.float32(math.erf(float(lo / sqrt2))))
     b = float(np.float32(math.erf(float(hi / sqrt2))))
-    out = _SQRT2 * erf_inv(uniform(key, shape, a, b))
+    out = _SQRT2 * erf_inv(uniform(key, shape, a, b, offset=offset))
     return torch.clamp(out, float(np.nextafter(lo, np.float32(np.inf))),
                        float(np.nextafter(hi, np.float32(-np.inf))))
 

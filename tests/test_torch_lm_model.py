@@ -254,25 +254,27 @@ def test_loss_chunks_only_when_the_chunk_divides_s(monkeypatch):
         _close(loss, jloss)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mamba2-130m", "kimi-k2-1t-a32b",
-                                  "jamba-v0.1-52b", "seamless-m4t-large-v2", "internvl2-76b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "seamless-m4t-large-v2",
+                                  "internvl2-76b"])
 def test_other_families_raise_naming_the_roadmap(arch):
+    """MLA, the encoder-decoder and the frontends; mamba2, kimi-k2 and jamba
+    build (``tests/test_torch_moe.py``, ``tests/test_torch_ssm.py``)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tbuild(tconfigs.get_config(arch).reduced(), device="cpu")
 
 
 def test_serving_raises_naming_the_roadmap(models):
-    """The dense decoder serves (``tests/test_torch_serve.py``); the MLA and
-    Mamba decode caches are what still raises."""
+    """The dense decoder serves (``tests/test_torch_serve.py``), and the
+    Mamba cache with it (``tests/test_torch_ssm.py``); the MLA decode cache
+    is what still raises."""
     from repro_torch.configs.base import BlockSpec
     from repro_torch.models.model import _group_cache
     tm = models["internlm2"][2]
     cache = tm.init_cache(2, 8)
     assert [tuple(c.k.shape) for c in cache["layers"]] == [(2, 2, 8, 4, 16)]
-    for mixer in ("mla", "mamba"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            _group_cache(BlockSpec(mixer=mixer, ff="mlp", count=1), tm.cfg, 2, 8, torch.float32,
-                         "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        _group_cache(BlockSpec(mixer="mla", ff="mlp", count=1), tm.cfg, 2, 8, torch.float32,
+                     "cpu")
 
 
 # ---------------------------------------------------------------- tree harness

@@ -1,7 +1,8 @@
 """The port's serving path (``models.attention``'s KV caches and decode,
 ``models.model``'s ``prefill``/``init_cache``/``decode_step``,
 ``distributed.trainer.build_serve_step``, ``launch.serve`` and
-``convert``'s cache carriers) against the JAX package's, on the CPU.
+``convert``'s cache carriers) for the dense decoder against the JAX
+package's, on the CPU (the Mamba cache: ``tests/test_torch_ssm.py``).
 
 Sizes: internlm2-1.8b ``reduced(max_d_model=64)`` (2 layers, vocab 512;
 its caches in f32, the reduced config's activation dtype, and int8), and
@@ -174,12 +175,18 @@ def test_quantize_and_ring_packing_match_jax():
 
 
 def test_mla_and_mamba_caches_raise_naming_the_roadmap():
+    """The MLA cache still raises; the Mamba cache, which raised before it
+    was ported, is two zero MambaCaches stacked on the group's layer axis
+    (held to the JAX package's in ``tests/test_torch_ssm.py``)."""
     from repro_torch.configs.base import BlockSpec
     cfg = get_config("internlm2-1.8b").reduced()
-    for mixer in ("mla", "mamba"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            _group_cache(BlockSpec(mixer=mixer, ff="mlp", count=2), cfg, 1, 8, torch.float32,
-                         "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        _group_cache(BlockSpec(mixer="mla", ff="mlp", count=2), cfg, 1, 8, torch.float32, "cpu")
+    mcfg = get_config("mamba2-130m").reduced()
+    cache = _group_cache(BlockSpec(mixer="mamba", ff="none", count=2), mcfg, 1, 8,
+                         torch.float32, "cpu")
+    assert type(cache).__name__ == "MambaCache" and cache.state.shape[:2] == (2, 1)
+    assert cache.state.dtype == torch.float32 and not any(bool(t.any()) for t in cache)
 
 
 def test_run_serving_tokens_are_jaxs(tmp_path, capsys):
