@@ -334,18 +334,54 @@ and then no result line is printed):
    teacher-forced forward: at most ROUTE_DIFF_BOUND of the positions
    routed apart, and at the positions whose routes (and those a later
    mixer carries in) agree within 5e-2 (kimi-k2) or SSM_SERVE_LOGIT_RTOL
-   (jamba, whose Mamba layers amplify rounding), and jamba again on f32
-   weights, where no route flips and every position is held;
+   (jamba, whose Mamba layers amplify rounding), and jamba again on the
+   same weights cast to f32, where no route flips and every position is
+   held;
 25. lm_serve_ssm_full_width — ``run_serving(reduced=False)`` of
    mamba2-130m (its whole published configuration): ms a token against
    its bound, and its logits against the teacher-forced forward in bf16
    and f32 (0.25 / 1e-4 at every position, SSM_SERVE_LOGIT_RTOL);
-26. the script's total seconds, the kernels line (24 entries: twelve
+26. lm_train_mla_full_width — deepseek-v2-lite at every published width
+   cut to its dense first layer (MLA: kv_lora 512, RoPE 64, 16 heads of
+   128; FFN 10,944; d = 500,439,040), W = 8, α = 0.25, sign_flip, 2 × 128
+   tokens a worker, T = 20, on ``dp_sketch@bf16`` (at twice the scale) and
+   ``fused@bf16``: each guard kernel of the path launched T times and held
+   to its plain version at that d, both attackers filtered and no honest
+   worker, every gradient finite; ms a phase, peak GB against a reckoning;
+27. mla_encdec_reduced — deepseek-v2-lite, seamless-m4t-large-v2 and
+   internvl2-76b at reduced widths through ``run_training`` (40 steps, the
+   frontends' frames drawn a step; seamless resumed from a step 0 with its
+   attention rescaled) on the card and on the CPU (decisions equal at
+   every step, losses within the launcher's drift) and ``run_serving``
+   (seamless through ``generate`` on rescaled weights; the card's greedy
+   tokens the CPU's);
+28. lm_serve_mla_full_width — deepseek-v2-lite whole (27 layers, 15.7·10⁹
+   bf16 parameters): ``generate`` at serving's sizes, no guard kernel
+   launched; init s, prefill ms, ms a token against every weight read
+   once, peak GB, prefill's dropped choices; the decode check with the
+   attention rescaled and C = T on the same weights cut to 8 layers and
+   cast to f32 (every check of the MoE phases);
+29. lm_serve_encdec_full_width — ``run_serving(reduced=False)`` of
+   seamless-m4t-large-v2 (24 + 24 layers, 4,096 frames of 1,024 a request,
+   2.04·10⁹ parameters), then its decode against a teacher-forced forward
+   over the same frames with the attention rescaled (the encoder's and the
+   cross attention's too), in bf16 and f32, within SERVE_LOGIT_RTOL;
+30. lm_serve_vlm_full_width — internvl2-76b at every published width cut
+   to 2 layers (3.84·10⁹ parameters, 256 patches of 3,200 before the
+   prompt), the same checks with the frontend prefix in the positions;
+31. chaos — ``repro_torch.chaos`` at the JAX harness's ``--mini`` shape on
+   the card (crash cases through launcher subprocesses, ``nonfinite``'s
+   campaign in process with its launches counted): every case ok, the
+   crash cases bit-identical to the uninterrupted run; the report under
+   ``build/``;
+32. the script's total seconds, the kernels line (24 entries: twelve
    kernels, the generating two over a run axis among them, × f32/bf16;
    each also with ``lm_train_launches``, its launches in phases 17–18,
    ``lm_checkpoint_launches`` and ``lm_train_campaign_launches``, its
-   launches in phases 19 and 20, and ``lm_moe_ssm_launches``, in phases
-   22–23), the card line and the result line.
+   launches in phases 19 and 20, ``lm_moe_ssm_launches``, in phases
+   22–23, ``lm_mla_encdec_launches``, in phases 26–27, and
+   ``chaos_launches``, nonfinite's in phase 31), the card line and the
+   result line.  After each phase a ``clock`` line gives its seconds.
 """
 from __future__ import annotations
 
@@ -363,6 +399,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -377,13 +414,13 @@ import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import prng  # noqa: E402
+from repro_torch import chaos, prng  # noqa: E402
 from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.tree_harness import params_harness  # noqa: E402
 from repro_torch.data.synthetic import SyntheticTokens, make_worker_batch  # noqa: E402
 from repro_torch.distributed.trainer import build_train_step, init_train_state  # noqa: E402
-from repro_torch.launch.serve import generate, run_serving  # noqa: E402
+from repro_torch.launch.serve import generate, run_serving, serve_frontend  # noqa: E402
 from repro_torch.launch.train import fetch_metrics, run_training  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
@@ -4279,6 +4316,31 @@ SERVE_LOGIT_RTOL = {"bfloat16": 5e-2, "float32": 1e-5}
 SERVE_RING = dict(window=32, prompt=16, steps=40)   # a swa ring that wraps
 
 
+def params_in_f32_(params: dict, cfg=None) -> dict:
+    """``params`` (bf16) cast to f32 in place, each leaf's bf16 storage
+    freed as its f32 copy is made, so that a draw of more than a third of
+    the card passes; the caller holds no other reference to the leaves.
+    With ``cfg``, each decoder group is first cut to its count in
+    ``cfg.layer_plan()``: a model drawn deeper, checked at cfg's depth.
+    The decode checks' f32 passes take the bf16 draw so, not a second one."""
+    def cast(node: dict | list, n: int | None) -> None:
+        for k in (list(node) if isinstance(node, dict) else range(len(node))):
+            v = node[k]
+            if isinstance(v, torch.Tensor):
+                v = v if n is None else v[:n]
+                node[k] = v.float() if v.is_floating_point() else v.clone()
+            else:
+                cast(v, n)
+
+    if cfg is not None:
+        plan = cfg.layer_plan()
+        del params["groups"][len(plan):]
+        for g, spec in zip(params["groups"], plan):
+            cast(g, spec.count)
+    cast(params, None)
+    return params
+
+
 def attention_rescaled(params: dict, cfg) -> dict:
     """The weights with each attention projection scaled to 1/√(its
     contracted fan-in).  The reference's init takes a stacked (L, d, H, hd)
@@ -4286,35 +4348,64 @@ def attention_rescaled(params: dict, cfg) -> dict:
     internlm2-1.8b's widths), which leaves the attention near one-hot at
     full width: one rounding apart in any layer flips a head's choice, and
     by layer 24 the logits of two equal computations in two orders
-    decorrelate.  Rescaled, the same weights hold a decode check."""
-    H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
-    factor = {"wq": math.sqrt(H / d), "wk": math.sqrt(KV / d), "wv": math.sqrt(KV / d),
-              "wo": 1.0 / math.sqrt(H)}
+    decorrelate.  Rescaled, the same weights hold a decode check.  The same
+    holds for MLA's leaves (wq or w_uq, w_uk, w_uv over the latent, wo),
+    the decoder's cross attention (as many KV heads as heads) and the
+    encoder's self attention."""
+    H, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+
+    def factors(kv: int) -> dict:
+        out = {"wq": math.sqrt(H / d), "wk": math.sqrt(kv / d), "wv": math.sqrt(kv / d),
+               "wo": 1.0 / math.sqrt(H)}
+        if cfg.kv_lora_rank:
+            out.update(w_uk=math.sqrt(H / cfg.kv_lora_rank), w_uv=math.sqrt(H / cfg.kv_lora_rank))
+        if cfg.q_lora_rank:
+            out["w_uq"] = math.sqrt(H / cfg.q_lora_rank)
+        return out
+
+    def scaled(mixer: dict, factor: dict) -> dict:
+        if "wo" not in mixer:      # a Mamba mixer: nothing to rescale
+            return mixer
+        return {k: (w.float() * factor[k]).to(w.dtype) if k in factor else w
+                for k, w in mixer.items()}
+
+    def group(gp: dict, kv: int) -> dict:
+        out = {**gp, "mixer": scaled(gp["mixer"], factors(kv))}
+        if "cross" in gp:
+            out["cross"] = scaled(gp["cross"], factors(H))
+        return out
+
     out = dict(params)
-    out["groups"] = [
-        {**gp, "mixer": {k: (w.float() * factor[k]).to(w.dtype) for k, w in gp["mixer"].items()}}
-        if "wq" in gp["mixer"] else gp for gp in params["groups"]]
+    out["groups"] = [group(gp, cfg.n_kv_heads) for gp in params["groups"]]
+    if "enc" in params:
+        out["enc"] = {**params["enc"], "group": group(params["enc"]["group"], cfg.n_kv_heads)}
     return out
 
 
-def serve_logit_check(model, params, res, rtols: dict | None = None) -> dict:
+def serve_logit_check(model, params, res, rtols: dict | None = None,
+                      frontend: torch.Tensor | None = None) -> dict:
     """Prefill's last logits and each decode step's (``res.logits``) against
-    a teacher-forced ``forward`` over the prompt and ``res.tokens``, within
-    ``rtols`` (SERVE_LOGIT_RTOL by default) for the model's dtype."""
+    a teacher-forced ``forward`` over the prompt and ``res.tokens`` (after
+    ``frontend``'s prefix, or over its encoded frames, where the model
+    takes one), within ``rtols`` (SERVE_LOGIT_RTOL by default) for the
+    model's dtype."""
     cfg = model.cfg
     rtol = (rtols or SERVE_LOGIT_RTOL)[cfg.activation_dtype]
     key = prng.PRNGKey(0, device=model.device)
     prompt = prng.randint(key, (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab_size)
-    seq = torch.cat([prompt, res.tokens[:, :-1]], dim=1)
+    batch = {"tokens": torch.cat([prompt, res.tokens[:, :-1]], dim=1)}
+    if frontend is not None:
+        batch["frontend"] = frontend
     with torch.no_grad():
-        h, _, _ = model.forward(params, {"tokens": seq})
-        want = _lm_head(cfg, params, h[:, SERVE_PROMPT - 1:]).float()   # (B, T, V)
+        h, _, prefix = model.forward(params, batch)
+        want = _lm_head(cfg, params, h[:, prefix + SERVE_PROMPT - 1:]).float()   # (B, T, V)
+        del h
     got = torch.cat(res.logits, dim=1).float()
     err = (got - want).norm(dim=-1) / want.norm(dim=-1)                 # (B, T)
     top2 = torch.topk(want, 2, dim=-1).values
     held = top2[..., 0] - top2[..., 1] > 2 * rtol * want.abs().amax(-1)
     argmax_equal = torch.argmax(got, -1) == torch.argmax(want, -1)
-    return {"dtype": cfg.activation_dtype, "rtol": rtol,
+    return {"dtype": cfg.activation_dtype, "rtol": rtol, "prefix": prefix,
             "logits_rel_err_max": float(err.max()), "logits_rel_err_mean": float(err.mean()),
             "rel_err_max_by_step": [round(float(e), 6) for e in err.amax(0)],
             "argmax_held": int(held.sum()), "argmax_held_equal": bool(argmax_equal[held].all()),
@@ -4354,7 +4445,7 @@ def lm_serve_full_width(dev) -> None:
     forward (printed: with the reference's init they decorrelate by layer
     24, see attention_rescaled).  The held check: the same weights with
     the attention rescaled, through ``generate`` (run_serving's loop), in
-    bf16 and in f32, each within SERVE_LOGIT_RTOL of the teacher-forced
+    bf16 and in f32 (``params_in_f32_``), each within SERVE_LOGIT_RTOL of the teacher-forced
     forward at every position.  Then at the reduced width the card's
     greedy tokens against the CPU's for the plain cache, the int8 cache and
     a sliding-window ring that wraps."""
@@ -4389,9 +4480,8 @@ def lm_serve_full_width(dev) -> None:
         if dtype == "float32":
             cfg = dataclasses.replace(cfg, param_dtype=dtype, activation_dtype=dtype)
             model = build_model(cfg, device=dev)
-            params = model.init(key)
+            params = params_in_f32_(params)
         scaled = attention_rescaled(params, cfg)
-        del params
         reset_counts()
         out = generate(model, scaled, prompt, gen_tokens=SERVE_TOKENS, cache_len=SERVE_CACHE,
                        keep_logits=True)
@@ -4403,7 +4493,7 @@ def lm_serve_full_width(dev) -> None:
         require(serve_check_passed(check) and launches == counts(),
                 f"lm_serve_full_width: decode against the teacher-forced forward ({dtype})")
         del scaled, out
-    del model
+    del model, params
     torch.cuda.empty_cache()
 
     reduced = get_config(LM_ARCH).reduced()
@@ -4629,7 +4719,7 @@ def moe_serve_full_width(dev, phase: str, arch: str, n_layers: int, n_params: in
     prefill's choices dropped at the published capacity_factor; then the
     decode check (``moe_decode_check``) on the same weights with the
     attention rescaled (``attention_rescaled``) and C = T, and in each
-    other dtype of ``check_dtypes`` on weights drawn again in it; a model
+    f32 where ``check_dtypes`` has it (``params_in_f32_``); a model
     with Mamba layers is held to SSM_SERVE_LOGIT_RTOL, else to
     SERVE_LOGIT_RTOL.  The weights are freed at the end."""
     t_phase = time.perf_counter()
@@ -4679,9 +4769,8 @@ def moe_serve_full_width(dev, phase: str, arch: str, n_layers: int, n_params: in
         model = build_model(dcfg, device=dev)
         if dtype != cfg.param_dtype:
             free_card()
-            params = model.init(key)
+            params = params_in_f32_(params)
         scaled = attention_rescaled(params, dcfg)
-        del params
         reset_counts()
         with recorded_routes() as served:
             out = generate(model, scaled, prompt, gen_tokens=SERVE_TOKENS,
@@ -4692,7 +4781,7 @@ def moe_serve_full_width(dev, phase: str, arch: str, n_layers: int, n_params: in
         require(moe_check_passed(check),
                 f"{phase}: decode against the teacher-forced forward ({dtype})")
         del scaled, out, served, model
-        params = None
+    del params
     free_card()
     emit(phase, seconds=time.perf_counter() - t_phase)
 
@@ -4795,8 +4884,434 @@ def moe_ssm_reduced(dev) -> dict:
     return {("filtered_mean", "f32"): steps * len(MOE_SSM_REDUCED)}
 
 
+# ---------------------------------------------------------------- phases 26-31: MLA, the
+# encoder-decoder and the frontends, the chaos harness
+
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_LAYERS = 1            # its dense first layer; every width as published
+MLA_D = 500_439_040       # its parameter count at that depth, a multiple of 128
+MLA_T = 20
+# (backend, stats, sign_flip's scale): dp_sketch@bf16 at twice the scale,
+# as SSM_RUNS runs it, then fused@bf16 at its step-0 v_est
+MLA_RUNS = (("dp_sketch", "bf16", 6.0), ("fused", "bf16", 3.0))
+ENCDEC_REDUCED = ("deepseek-v2-lite-16b", "seamless-m4t-large-v2", "internvl2-76b")
+# The card's launcher runs against the CPU's over LM_LAUNCH's 40 steps:
+# decisions equal at every step, losses within LM_LOSS_TOL.  At the
+# reference's init the JAX package and the port on one CPU drift apart
+# by 3.9e-4 for deepseek (1.4e-6 over the first 10 steps), but by 6.4e-3
+# for internvl2 and 9.7e-3 for seamless, whose decisions part: their
+# reduced attention is near one-hot (ROADMAP.md §3).  From the same step 0
+# with the attention rescaled (``rescaled_start``) the two drift 2.3e-7
+# and 2.2e-7, decisions equal (scripts/launcher_drift.py --arch ...
+# --steps 40 [--rescaled]), so those two run from there
+ENCDEC_RESCALED_START = ("seamless-m4t-large-v2", "internvl2-76b")
+# and seamless is served on rescaled weights (``serve_rescaled``)
+ENCDEC_RESCALED_SERVE = ("seamless-m4t-large-v2",)
+# Greedy tokens, card against CPU: a row's tokens may part only at a
+# position where the CPU's top two logits lie within the arch's tie rtol
+# of each other (relative to the top one), and wherever the two passes
+# still share their inputs their logits agree within its logit rtol: twice
+# what the CPU's own f32 logits sit from the same decode taken in f64
+# (scripts/check_serve_conditioning.py: deepseek 6.0e-5, internvl2 9.4e-5,
+# seamless on rescaled weights 8.4e-7, where its top two lie at least
+# 1.6e-3 apart; at the reference's init 8.8e-3)
+GREEDY_RTOL = {"deepseek-v2-lite-16b": (1e-3, 2e-4), "internvl2-76b": (1e-3, 2e-4),
+               "seamless-m4t-large-v2": (1e-3, 2e-6)}   # (tie, logits)
+
+
+def greedy_compare(card, cpu, tie_rtol: float) -> dict:
+    """``run_serving`` results (logits kept) of one config on the card and
+    on the CPU: per row the first position where the tokens part, whether
+    the CPU's top two logits tie there (within ``tie_rtol``), and the
+    logits' largest relative difference over the positions whose inputs
+    both passes share (up to and including the first parting)."""
+    got_t, want_t = card.tokens.cpu(), cpu.tokens
+    got, want = torch.cat(card.logits, 1).float().cpu(), torch.cat(cpu.logits, 1).float()
+    top = torch.topk(want, 2, dim=-1).values
+    tie = top[..., 0] - top[..., 1] <= tie_rtol * top[..., 0].abs()            # (B, T)
+    err = (got - want).norm(dim=-1) / want.norm(dim=-1)                      # (B, T)
+    B, T = want_t.shape
+    parted = [next((t for t in range(T) if got_t[b, t] != want_t[b, t]), T) for b in range(B)]
+    shared = torch.tensor([[t <= parted[b] for t in range(T)] for b in range(B)])
+    return {"tokens_equal_to_cpu": bool(torch.equal(got_t, want_t)), "parted_at": parted,
+            "parted_at_a_tie": all(p == T or bool(tie[b, p]) for b, p in enumerate(parted)),
+            "cpu_ties": int(tie.sum()), "logits_rel_err_shared": float(err[shared].max())}
+MLA_SERVE_PARAMS = 15_706_470_400   # all 27 layers at every published width
+# the decode check's depth, in f32: the dense first layer and 7 of the 26
+# MoE layers (its 15.7e9 f32 weights would take 63 GB beside the check's
+# own).  In bf16 at all 27 layers MoE routing flips compound until too few
+# positions are routed alike to hold (PERF.md §5), so bf16 is not checked
+MLA_F32_LAYERS, MLA_F32_PARAMS = 8, 4_594_370_560
+# (phase, arch, layers kept, parameters at that depth, through run_serving)
+FRONTEND_SERVE = (("lm_serve_encdec_full_width", "seamless-m4t-large-v2", 24, 2_035_832_832,
+                   True),
+                  ("lm_serve_vlm_full_width", "internvl2-76b", 2, 3_838_877_696, False))
+CHAOS_SIZES = dict(steps=24, d_model=64)   # the JAX harness's --mini shape
+CHAOS_REPORT = Path(__file__).resolve().parent / "build" / "chaos_report.json"
+CHAOS_CRASH = ("kill_resume", "truncate", "corrupt")
+# the kernels nonfinite's campaign launches on its guard rows (sanitize on)
+CHAOS_KERNELS = ("fused_guard_sanitize", "filtered_mean_sanitize", "countsketch",
+                 "coordinate_median")
+
+
+def lm_train_mla_full_width(dev) -> dict:
+    """deepseek-v2-lite at every published width, cut to its dense first
+    layer (MLA with kv_lora 512, RoPE 64, 16 heads of 128, FFN 10,944; d =
+    500,439,040), W = 8, α = 0.25, sign_flip, per-worker batch 2 × 128
+    tokens, T = 20: dp_sketch@bf16 (at twice the scale), then fused@bf16 at
+    its step-0 v_est.  Each guard kernel of the path launched T times and
+    held to its plain version at this d on step 0's operands, both
+    attackers filtered and no honest worker, every worker's gradient finite
+    at every step; ms a phase, peak GB against ``lm_reckon_gb``.  Returns
+    the launches by (name, dtype)."""
+    t_phase = time.perf_counter()
+    free_card()
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
+    model = build_model(cfg, device=dev)
+    harness = params_harness(model)
+    require(model.n_params == MLA_D and harness.d == MLA_D,
+            f"deepseek-v2-lite at 1 layer has d = {model.n_params} (pad {harness.d})")
+    launches: dict = {}
+    failures, V = [], 0.0
+    for backend, stats, scale in MLA_RUNS:
+        reckon = lm_reckon_gb(backend, stats, model.n_params, harness.d, LM_W)
+        t0 = time.perf_counter()
+        res = lm_run(model, backend, stats, V, MLA_T, dev, attack_kwargs=(("scale", scale),),
+                     check_finite=True)
+        emit("lm_train_mla_full_width", arch=MLA_ARCH, n_layers=MLA_LAYERS,
+             layer_plan=[(s.mixer, s.ff, s.count) for s in cfg.layer_plan()],
+             kv_lora_rank=cfg.kv_lora_rank, rope_head_dim=cfg.rope_head_dim,
+             n_heads=cfg.n_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff, d=harness.d, W=LM_W,
+             alpha=LM_ALPHA, attack="sign_flip", attack_scale=scale, T=MLA_T, batch=LM_BATCH,
+             seq_len=LM_SEQ, V=V, reckoned=reckon, seconds=time.perf_counter() - t0,
+             card=card_line(), **res)
+        if backend == "dp_sketch":
+            V = res["v_est_step0"]
+        try:
+            lm_checks(res, backend, MLA_T, int(LM_ALPHA * LM_W))
+        except RuntimeError as err:   # both configurations run; all failures reported
+            failures.append(str(err))
+        for name, n in res["launches"].items():
+            if n:
+                launches[(name, "bf16")] = launches.get((name, "bf16"), 0) + n
+    del model
+    free_card()
+    require(not failures, "; ".join(failures))
+    emit("lm_train_mla_full_width", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def rescaled_start(arch: str, dirs: tuple, **launch) -> None:
+    """``run_training``'s step-0 state of ``arch`` at ``launch``'s sizes
+    (drawn on the CPU), with the attention rescaled (``attention_rescaled``)
+    and the A-statistic's anchor taken from the rescaled weights, saved as
+    step 0 in each of ``dirs``: ``run_training(resume=True)`` from one of
+    them starts there."""
+    with tempfile.TemporaryDirectory() as tmp:
+        state, _ = run_training(arch, device="cpu", verbose=False, stop_after=0, ckpt_dir=tmp,
+                                **launch)
+    cfg = get_config(arch).reduced(max_d_model=launch["d_model"])
+    scaled = attention_rescaled(state.params, cfg)
+    harness = params_harness(build_model(cfg, device="cpu"))
+    state = state._replace(params=scaled, anchor=harness.ravel(scaled))
+    for d in dirs:
+        save_checkpoint(str(d), 0, state)
+
+
+def serve_rescaled(arch: str, device) -> object:
+    """``run_serving``'s draw for ``arch`` reduced (weights, prompt and
+    frontend from PRNGKey(0); batch 4, prompt 64, 32 tokens, cache 256)
+    through ``generate`` on ``device`` with the attention rescaled, logits
+    kept."""
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, device=device)
+    key = prng.PRNGKey(0, device=device)
+    params = model.init(key)
+    prompt = prng.randint(key, (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab_size)
+    return generate(model, attention_rescaled(params, cfg), prompt, gen_tokens=SERVE_TOKENS,
+                    cache_len=SERVE_CACHE, keep_logits=True,
+                    frontend=serve_frontend(cfg, key, SERVE_BATCH))
+
+
+def mla_encdec_reduced(dev) -> dict:
+    """deepseek-v2-lite, seamless-m4t-large-v2 and internvl2-76b at their
+    reduced widths through ``launch.train.run_training`` (the launcher
+    phase's sizes and 40 steps; the frontends' frames drawn a step and
+    mapped over the workers; ENCDEC_RESCALED_START resumed from
+    ``rescaled_start``) on the card and on the CPU: decisions equal at
+    every step, losses within LM_LOSS_TOL; then each one's greedy tokens
+    through ``run_serving`` (its sizes, the frontend from the same key;
+    ENCDEC_RESCALED_SERVE through ``serve_rescaled``), the card's the CPU's
+    up to a near tie (``greedy_compare``).  Returns the card runs' launches
+    by (name, dtype)."""
+    t_phase = time.perf_counter()
+    steps = LM_LAUNCH["steps"]
+    keys = ("n_alive", "byz_alive", "good_filtered", "n_byz")
+    for arch in ENCDEC_REDUCED:
+        with tempfile.TemporaryDirectory() as tmp:
+            start = {"card": {}, "cpu": {}}
+            if arch in ENCDEC_RESCALED_START:
+                start = {k: dict(ckpt_dir=os.path.join(tmp, k), resume=True) for k in start}
+                rescaled_start(arch, tuple(v["ckpt_dir"] for v in start.values()), **LM_LAUNCH)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            _, card = run_training(arch, device=dev, verbose=False, **LM_LAUNCH, **start["card"])
+            torch.cuda.synchronize()
+            card_s, launches = time.perf_counter() - t0, read_counts()
+            t0 = time.perf_counter()
+            _, cpu = run_training(arch, device="cpu", verbose=False, **LM_LAUNCH, **start["cpu"])
+            cpu_s = time.perf_counter() - t0
+        rel = [abs(a["loss_good_workers"] - b["loss_good_workers"]) / abs(b["loss_good_workers"])
+               for a, b in zip(card, cpu)]
+        loss_rel, loss_rel_first = max(rel), max(rel[:LM_LOSS_FIRST])
+        same = [all(a[k] == b[k] for k in keys) for a, b in zip(card, cpu)]
+        decisions_equal = len(card) == len(cpu) == steps and all(same)
+        tol = LM_LOSS_TOL
+        emit("mla_encdec_reduced", arch=arch, **LM_LAUNCH,
+             rescaled=arch in ENCDEC_RESCALED_START,
+             card_seconds=card_s, cpu_seconds=cpu_s, launches=launches,
+             decisions_equal=decisions_equal, loss_rel_max=loss_rel,
+             loss_rel_max_first_steps=loss_rel_first, loss_tol=tol,
+             loss_rel=[float(f"{r:.2e}") for r in rel], decisions_equal_by_step=same,
+             n_alive=[int(r["n_alive"]) for r in card],
+             loss_first_last=[card[0]["loss_good_workers"], card[-1]["loss_good_workers"]])
+        require(launches == counts(filtered_mean=steps), f"{arch} launcher launches {launches}")
+        require(decisions_equal, f"{arch} launcher: decisions equal to the CPU's at every step")
+        require(loss_rel_first <= tol[0] and loss_rel <= tol[1],
+                f"{arch} launcher: losses within {tol} of the CPU's ({loss_rel_first}, "
+                f"{loss_rel})")
+    for arch in ENCDEC_REDUCED:
+        reset_counts()
+        if arch in ENCDEC_RESCALED_SERVE:
+            card = serve_rescaled(arch, dev)
+            card_launches = read_counts()
+            cpu = serve_rescaled(arch, "cpu")
+        else:
+            card = run_serving(arch, device=dev, verbose=False, keep_logits=True)
+            card_launches = read_counts()
+            cpu = run_serving(arch, device="cpu", verbose=False, keep_logits=True)
+        tie_rtol, logit_rtol = GREEDY_RTOL[arch]
+        cmp = greedy_compare(card, cpu, tie_rtol)
+        emit("mla_encdec_reduced", case="greedy_tokens", arch=arch, tokens=card.tokens.shape[1],
+             rescaled=arch in ENCDEC_RESCALED_SERVE, launches=card_launches,
+             first_row=card.tokens[0, :16].tolist(), tie_rtol=tie_rtol, logit_rtol=logit_rtol,
+             **cmp)
+        require(cmp["parted_at_a_tie"] and cmp["logits_rel_err_shared"] <= logit_rtol,
+                f"{arch} reduced: the card's greedy tokens are the CPU's up to a tie")
+        require(card_launches == counts(), f"{arch} reduced serving: launches")
+    emit("mla_encdec_reduced", seconds=time.perf_counter() - t_phase)
+    return {("filtered_mean", "f32"): steps * len(ENCDEC_REDUCED)}
+
+
+def lm_serve_mla_full_width(dev) -> None:
+    """deepseek-v2-lite whole (27 layers: MLA throughout, the dense first
+    layer and 26 of 64 routed experts top 6 with 2 shared; 15.7e9 bf16
+    parameters from PRNGKey(0), drawn once): ``generate`` (run_serving's
+    loop) at batch 4, prompt 64, 32 tokens, cache 256, no guard kernel
+    launched; init seconds, prefill ms, ms a token against every weight
+    read once, tokens/s, peak GB, the share of prefill's choices dropped at
+    the published capacity_factor.  Then the decode check
+    (``moe_decode_check``: the attention rescaled, C = T) on the same
+    weights cut to MLA_F32_LAYERS and cast to f32 (``params_in_f32_``),
+    where every check of ``moe_check_passed`` holds: in bf16 at 27 layers
+    routing flips compound until too few positions are routed alike to
+    hold (PERF.md §5)."""
+    t_phase = time.perf_counter()
+    free_card()
+    at_start_gb = torch.cuda.memory_allocated() / 1e9
+    cfg = get_config(MLA_ARCH)
+    model = build_model(cfg, device=dev)
+    require(model.n_params == MLA_SERVE_PARAMS, f"deepseek-v2-lite: {model.n_params} parameters")
+    key = prng.PRNGKey(0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(key)
+    torch.cuda.synchronize()
+    init_s, init_peak_gb = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+    prompt = prng.randint(key, (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab_size)
+    reset_counts()
+    res = generate(model, params, prompt, gen_tokens=SERVE_TOKENS, cache_len=SERVE_CACHE)
+    launches = read_counts()
+    with torch.no_grad(), recorded_routes() as calls:
+        model.prefill(params, {"tokens": prompt}, cache_len=SERVE_CACHE)
+    keep = torch.cat([k.reshape(-1) for _, k in calls])
+    cache_mb = (cfg.n_layers * SERVE_BATCH * SERVE_CACHE * (cfg.kv_lora_rank + cfg.rope_head_dim)
+                * 2 / 1e6)
+    emit("lm_serve_mla_full_width", arch=MLA_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         kv_lora_rank=cfg.kv_lora_rank, rope_head_dim=cfg.rope_head_dim,
+         n_experts=cfg.n_experts, top_k=cfg.top_k, n_shared_experts=cfg.n_shared_experts,
+         layer_plan=[(s.mixer, s.ff, s.count) for s in cfg.layer_plan()],
+         n_params=model.n_params, dtype=cfg.param_dtype, batch=SERVE_BATCH,
+         prompt_len=SERVE_PROMPT, gen_tokens=SERVE_TOKENS, cache_len=SERVE_CACHE,
+         mla_cache_mb=cache_mb, allocated_at_start_gb=at_start_gb, init_seconds=init_s,
+         init_peak_gb=init_peak_gb, prefill_ms=1e3 * res.prefill_s,
+         ms_per_token=res.ms_per_token, tokens_per_s=res.tokens_per_s,
+         peak_gb=res.peak_bytes / 1e9,
+         # a token's least time: every bf16 weight read once
+         decode_bound_ms=1e3 * 2.0 * model.n_params / HBM_BYTES_PER_S, launches=launches,
+         capacity_factor=cfg.capacity_factor,
+         prefill_capacity=moe_lib.capacity(cfg, SERVE_BATCH * SERVE_PROMPT),
+         decode_capacity=moe_lib.capacity(cfg, SERVE_BATCH),
+         prefill_choices_dropped_share=float(1.0 - keep.float().mean()),
+         sample=res.tokens[0, :16].tolist(), card=card_line())
+    require(launches == counts(), f"lm_serve_mla_full_width: guard kernels launched {launches}")
+    require(res.tokens.shape == (SERVE_BATCH, SERVE_TOKENS), "lm_serve_mla_full_width: tokens")
+    del res, calls, model
+    dcfg = dataclasses.replace(cfg, param_dtype="float32", activation_dtype="float32",
+                               n_layers=MLA_F32_LAYERS, capacity_factor=float(cfg.n_experts))
+    model = build_model(dcfg, device=dev)
+    free_card()
+    params = params_in_f32_(params, dcfg)
+    require(model.n_params == MLA_F32_PARAMS, f"f32 check: {model.n_params} parameters")
+    scaled = attention_rescaled(params, dcfg)
+    del params
+    reset_counts()
+    with recorded_routes() as served:
+        out = generate(model, scaled, prompt, gen_tokens=SERVE_TOKENS, cache_len=SERVE_CACHE,
+                       keep_logits=True)
+    check = moe_decode_check(model, scaled, out, served, SERVE_LOGIT_RTOL)
+    emit("lm_serve_mla_full_width", check="attention_rescaled_capacity_T",
+         n_layers=MLA_F32_LAYERS, n_params=model.n_params, launches=read_counts(),
+         ms_per_token=out.ms_per_token, peak_gb=out.peak_bytes / 1e9, **check)
+    del scaled, out, served, model
+    free_card()
+    require(moe_check_passed(check),
+            "lm_serve_mla_full_width: decode against the teacher-forced forward (float32, "
+            f"{MLA_F32_LAYERS} layers)")
+    emit("lm_serve_mla_full_width", seconds=time.perf_counter() - t_phase)
+
+
+def frontend_serve_full_width(dev, phase: str, arch: str, n_layers: int, n_params: int,
+                              whole: bool) -> None:
+    """``arch`` at every published width (its depth cut to ``n_layers``
+    where ``whole`` is False), bf16, weights, prompt and the f32 frontend
+    from PRNGKey(0): ``run_serving(reduced=False)`` where ``whole``, else
+    ``generate`` (its loop) on ``serve_frontend``'s frames, at batch 4,
+    prompt 64, 32 tokens, cache 256, no guard kernel launched; prefill ms,
+    ms a token against every weight read once, tokens/s, peak GB.  Then the
+    decode check: the same weights with the attention rescaled (the
+    encoder's, the cross attention's), through ``generate`` into caches
+    that hold the frontend's prefix, the prompt and every token (at
+    serving's 256 slots internvl2's 256 patches and 64 prompt tokens
+    already wrap the ring, so decode no longer sees the first patches,
+    as in the JAX package: ROADMAP.md §3), against a teacher-forced
+    forward over the same frames, in bf16 and in f32 (``params_in_f32_``), every
+    position within SERVE_LOGIT_RTOL."""
+    t_phase = time.perf_counter()
+    free_card()
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    key = prng.PRNGKey(0, device=dev)
+    frontend = serve_frontend(cfg, key, SERVE_BATCH)
+    reset_counts()
+    if whole:
+        require(n_layers == get_config(arch).n_layers, f"{phase}: whole means every layer")
+        res = run_serving(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                          gen_tokens=SERVE_TOKENS, cache_len=SERVE_CACHE, seed=0, reduced=False,
+                          device=dev, verbose=False)
+        launches = read_counts()
+        model = build_model(cfg, device=dev)
+        params = model.init(key)
+    else:
+        model = build_model(cfg, device=dev)
+        params = model.init(key)
+        prompt = prng.randint(key, (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab_size)
+        reset_counts()
+        res = generate(model, params, prompt, gen_tokens=SERVE_TOKENS, cache_len=SERVE_CACHE,
+                       frontend=frontend)
+        launches = read_counts()
+    fseq = cfg.enc_seq_len if cfg.enc_dec else cfg.frontend_seq
+    emit(phase, arch=arch, n_layers=n_layers, n_layers_published=get_config(arch).n_layers,
+         n_enc_layers=cfg.n_enc_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+         n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff, vocab_size=cfg.vocab_size,
+         frontend=cfg.frontend, frontend_seq=fseq, frontend_dim=cfg.frontend_dim,
+         n_params=model.n_params, dtype=cfg.param_dtype, batch=SERVE_BATCH,
+         prompt_len=SERVE_PROMPT, gen_tokens=SERVE_TOKENS, cache_len=SERVE_CACHE,
+         prefill_ms=1e3 * res.prefill_s, ms_per_token=res.ms_per_token,
+         tokens_per_s=res.tokens_per_s, peak_gb=res.peak_bytes / 1e9,
+         decode_bound_ms=1e3 * 2.0 * model.n_params / HBM_BYTES_PER_S, launches=launches,
+         sample=res.tokens[0, :16].tolist(), card=card_line())
+    require(model.n_params == n_params, f"{phase}: {model.n_params} parameters")
+    require(launches == counts(), f"{phase}: guard kernels launched {launches}")
+    require(res.tokens.shape == (SERVE_BATCH, SERVE_TOKENS), f"{phase}: greedy tokens")
+    del res
+    prompt = prng.randint(key, (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab_size)
+    prefix = 0 if cfg.enc_dec else cfg.frontend_seq
+    check_cache = max(SERVE_CACHE, prefix + SERVE_PROMPT + SERVE_TOKENS)
+    failures = []
+    for dtype in ("bfloat16", "float32"):
+        if dtype == "float32":
+            cfg = dataclasses.replace(cfg, param_dtype=dtype, activation_dtype=dtype)
+            model = build_model(cfg, device=dev)
+            free_card()
+            params = params_in_f32_(params)
+        scaled = attention_rescaled(params, cfg)
+        reset_counts()
+        out = generate(model, scaled, prompt, gen_tokens=SERVE_TOKENS, cache_len=check_cache,
+                       keep_logits=True, frontend=frontend)
+        launches = read_counts()
+        check = serve_logit_check(model, scaled, out, frontend=frontend)
+        emit(phase, check="attention_rescaled", cache_len=check_cache,
+             ms_per_token=out.ms_per_token,
+             peak_gb=out.peak_bytes / 1e9, launches=launches, **check)
+        if not (serve_check_passed(check) and launches == counts()):
+            failures.append(f"decode against the teacher-forced forward ({dtype})")
+        del scaled, out
+    del model, params
+    free_card()
+    require(not failures, f"{phase}: " + "; ".join(failures))
+    emit(phase, seconds=time.perf_counter() - t_phase)
+
+
+def chaos_phase(dev) -> dict:
+    """``repro_torch.chaos`` at the JAX harness's ``--mini`` shape (24
+    steps, mamba2-130m reduced to d_model 64, W = 4, dp_exact) on the card:
+    the crash cases through ``python -m repro_torch.launch.train``
+    subprocesses, ``nonfinite``'s campaign in this process with the launch
+    counts set to 0 just before and read just after; the report under
+    ``build/``.  Every case ok, the crash cases bit-identical to the
+    uninterrupted run, each of nonfinite's kernels launched.  Returns its
+    launches by (name, dtype)."""
+    t_phase = time.perf_counter()
+    free_card()
+    reset_counts()
+    report = chaos.run_chaos(device=str(dev.type), verbose=False, **CHAOS_SIZES)
+    launches = read_counts()
+    CHAOS_REPORT.parent.mkdir(parents=True, exist_ok=True)
+    CHAOS_REPORT.write_text(json.dumps(report, indent=2))
+    for name, case in report["cases"].items():
+        emit("chaos", case=name, ok=case["ok"], wall_s=case.get("wall_s"),
+             bit_identical=case.get("bit_identical"), flushed_step=case.get("flushed_step"),
+             note=case.get("note"), detail=case.get("detail", "")[-500:] or None,
+             **({k: case[k] for k in ("cells_checked", "non_finite_cells", "victims_filtered")}
+                if name == "nonfinite" else {}))
+    emit("chaos", report=str(CHAOS_REPORT.relative_to(Path(__file__).resolve().parent)),
+         ok=report["ok"], wall_s=report.get("wall_s"), nonfinite_launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    require(report["ok"], f"chaos: cases {[n for n, c in report['cases'].items() if not c['ok']]}")
+    cases = report["cases"]
+    require(all(cases[n].get("bit_identical") for n in CHAOS_CRASH) and (
+        cases["sigterm"].get("bit_identical") or "note" in cases["sigterm"]),
+        "chaos: the crash cases bit-identical to the uninterrupted run")
+    require(all(launches[n] > 0 for n in CHAOS_KERNELS),
+            f"chaos: nonfinite's kernels launched {launches}")
+    return {(name, "f32"): n for name, n in launches.items() if n}
+
+
+_LAST_MARK = [time.perf_counter()]
+
+
+def clock(after: str) -> None:
+    """One line with the seconds since the previous mark: the phase (or
+    group of phases) ``after`` names, which just ended."""
+    now = time.perf_counter()
+    emit("clock", after=after, seconds=now - _LAST_MARK[0])
+    _LAST_MARK[0] = now
+
+
 def main() -> int:
-    t_start = time.perf_counter()
+    t_start = _LAST_MARK[0] = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -4814,61 +5329,124 @@ def main() -> int:
          ptxas={stem: [ln.strip() for ln in _build.build_log(stem).splitlines()
                        if "registers" in ln or "spill" in ln] for stem in libs},
          sort_network=sort_network_report(), countsketch=countsketch_report())
+    clock("build")
     errs = check_kernels(dev)
+    clock("check_kernels")
     check_order_kernels(dev, errs)
+    clock("check_order_kernels")
     check_sanitize_kernels(dev, errs)
+    clock("check_sanitize_kernels")
     small_width_kernels(dev)
+    clock("small_width_kernels")
     launches, off = main_path(dev)
+    clock("main_path")
     q_launches = quarantine_main_path(dev, off)
+    clock("quarantine_main_path")
     small_reference(dev)
+    clock("small_reference")
     base_launches = baselines(dev)
+    clock("baselines")
     baselines_reference(dev)
+    clock("baselines_reference")
     q_series = quarantine(dev)
+    clock("quarantine")
     quarantine_baselines(dev)
+    clock("quarantine_baselines")
     quarantine_reference(dev)
+    clock("quarantine_reference")
     check_countsketch(dev, errs)
+    clock("check_countsketch")
     dp_launches = dp_main_path(dev)
+    clock("dp_main_path")
     dp_oracle(dev)
+    clock("dp_oracle")
     dp_quarantine(dev)
+    clock("dp_quarantine")
     dp_reference(dev)
+    clock("dp_reference")
     check_gen_kernels(dev, errs)
+    clock("check_gen_kernels")
     gen_launches = gen_main_path(dev)
+    clock("gen_main_path")
     gen_reference(dev)
+    clock("gen_reference")
     workers(dev)
+    clock("workers")
     workers_main_path(dev)
+    clock("workers_main_path")
     gram_main(dev)
+    clock("gram_main")
     entries = time_kernels(dev, errs, launches, base_launches, q_launches, dp_launches,
                            gen_launches, gen_bounds(dev))
+    clock("time_kernels")
     step_split(dev)
+    clock("step_split")
     random_gaussian_main_path(dev)
+    clock("random_gaussian_main_path")
     profile_main_path(dev)
+    clock("profile_main_path")
     fault_main_path(dev, q_series)
+    clock("fault_main_path")
     profile_reference(dev)
+    clock("profile_reference")
     campaign_stats, campaign_peaks = campaign_main_path(dev)
+    clock("campaign_main_path")
     gen_campaign_kernels(dev)
+    clock("gen_campaign_kernels")
     gen_campaign_launches = campaign_gen_main_path(dev, campaign_stats, campaign_peaks)
+    clock("campaign_gen_main_path")
     entries += gen_runs_entries(dev, gen_campaign_launches)
+    clock("gen_runs_entries")
     require(len(entries) == 2 * len(KERNELS), f"{len(entries)} kernel entries")
     telemetry_phase(dev)
+    clock("telemetry_phase")
     bitflip_campaign(dev)
+    clock("bitflip_campaign")
     lower = convex_step_alone(dev)
+    clock("convex_step_alone")
     convex, cpu = convex_pool()
+    clock("convex_pool")
     quickstart(convex, cpu)
+    clock("quickstart")
     detection_latency(convex, cpu)
+    clock("detection_latency")
     convex_harness(convex, cpu, lower)
+    clock("convex_harness")
     table1_phase(convex, cpu)
+    clock("table1_phase")
     lm_launches = lm_train_launcher(dev)
+    clock("lm_train_launcher")
     for key, n in lm_train_full_width(dev).items():
         lm_launches[key] = lm_launches.get(key, 0) + n
+    clock("lm_train_full_width")
     ckpt_launches = lm_checkpoint(dev)
+    clock("lm_checkpoint")
     tc_launches = lm_train_campaign(dev)
+    clock("lm_train_campaign")
     lm_serve_full_width(dev)
+    clock("lm_serve_full_width")
     moe_ssm_launches = lm_train_ssm_full_width(dev)
+    clock("lm_train_ssm_full_width")
     for key, n in moe_ssm_reduced(dev).items():
         moe_ssm_launches[key] = moe_ssm_launches.get(key, 0) + n
+    clock("moe_ssm_reduced")
     for row in MOE_SERVE:
         moe_serve_full_width(dev, *row)
+    clock("moe_serve_full_width")
     ssm_serve_full_width(dev)
+    clock("ssm_serve_full_width")
+    mla_launches = lm_train_mla_full_width(dev)
+    clock("lm_train_mla_full_width")
+    for key, n in mla_encdec_reduced(dev).items():
+        mla_launches[key] = mla_launches.get(key, 0) + n
+    clock("mla_encdec_reduced")
+    lm_serve_mla_full_width(dev)
+    clock("lm_serve_mla_full_width")
+    for row in FRONTEND_SERVE:
+        frontend_serve_full_width(dev, *row)
+    clock("frontend_serve_full_width")
+    chaos_launches = chaos_phase(dev)
+    clock("chaos_phase")
     for e in entries:
         # the LM phases' launches of this kernel at this dtype (their own
         # runs, counted from 0 before each); serving launches none
@@ -4877,6 +5455,8 @@ def main() -> int:
         e["lm_checkpoint_launches"] = ckpt_launches.get((name, dt), 0)
         e["lm_train_campaign_launches"] = tc_launches.get((name, dt), 0)
         e["lm_moe_ssm_launches"] = moe_ssm_launches.get((name, dt), 0)
+        e["lm_mla_encdec_launches"] = mla_launches.get((name, dt), 0)
+        e["chaos_launches"] = chaos_launches.get((name, dt), 0)
 
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -20,7 +20,7 @@ from repro_torch.core.solver import Problem
 from repro_torch.data import problems
 from repro_torch.distributed.byzantine_dp import DPGuardState
 from repro_torch.distributed.trainer import TrainState
-from repro_torch.models.attention import KVCache, QuantKVCache
+from repro_torch.models.attention import KVCache, MLACache, QuantKVCache
 from repro_torch.models.ssm import MambaCache
 from repro_torch.scenarios.adversary import AdvState
 from repro_torch.scenarios.faults import FaultPlan
@@ -230,20 +230,30 @@ def train_state_to_numpy(state: TrainState) -> dict:
 
 def kv_cache_from_numpy(cache, device="cuda") -> dict:
     """The port's decode cache from the JAX package's (``{"layers": [one
-    KVCache, QuantKVCache or MambaCache a layer group, leaves stacked on the
-    group's layer axis]}`` through ``numpy.asarray`` leaf by leaf): a group
-    with ``k_scale`` becomes a ``QuantKVCache``, one with ``conv_x`` a
-    ``MambaCache``; bf16 leaves keep their bits."""
+    KVCache, QuantKVCache, MLACache or MambaCache a layer group, leaves
+    stacked on the group's layer axis]}``, and an encoder-decoder's
+    ``"memory_kv"``, a (k, v) pair a group, through ``numpy.asarray`` leaf
+    by leaf): a group with ``k_scale`` becomes a ``QuantKVCache``, one with
+    ``ckv`` an ``MLACache``, one with ``conv_x`` a ``MambaCache``; bf16
+    leaves keep their bits."""
     def group(c):
         kind = (QuantKVCache if hasattr(c, "k_scale") else
+                MLACache if hasattr(c, "ckv") else
                 MambaCache if hasattr(c, "conv_x") else KVCache)
         return kind(*(tensor_from_numpy(getattr(c, f), device) for f in kind._fields))
 
-    return {"layers": [group(c) for c in cache["layers"]]}
+    out = {"layers": [group(c) for c in cache["layers"]]}
+    if "memory_kv" in cache:
+        out["memory_kv"] = [tuple(tensor_from_numpy(a, device) for a in pair)
+                            for pair in cache["memory_kv"]]
+    return out
 
 
 def kv_cache_to_numpy(cache: dict) -> dict:
-    """The cache's groups as dicts of numpy arrays by field (bf16 upcast to
-    f32, exactly)."""
-    return {"layers": [{f: _f32_numpy(getattr(c, f)) for f in c._fields}
-                       for c in cache["layers"]]}
+    """The cache's groups as dicts of numpy arrays by field, and the
+    ``memory_kv`` pairs as pairs of arrays (bf16 upcast to f32, exactly)."""
+    out = {"layers": [{f: _f32_numpy(getattr(c, f)) for f in c._fields}
+                      for c in cache["layers"]]}
+    if "memory_kv" in cache:
+        out["memory_kv"] = [tuple(_f32_numpy(a) for a in pair) for pair in cache["memory_kv"]]
+    return out

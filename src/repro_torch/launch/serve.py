@@ -1,15 +1,16 @@
 """Serving driver: batched prefill and greedy decode (the counterpart of
 :mod:`repro.launch.serve`), on the card unless ``--device cpu``.
 
-The prompt is ``prng.randint`` of ``PRNGKey(seed)`` over the vocabulary
-and the weights ``model.init`` of the same key, as in the JAX package, so
-a seed gives the JAX package's greedy tokens.  ``--trace PATH`` writes
+The prompt is ``prng.randint`` of ``PRNGKey(seed)`` over the vocabulary,
+the weights ``model.init`` of the same key and, for a model with a
+frontend, its frames ``0.02·normal`` of that key in f32, as in the JAX
+package, so a seed gives the JAX package's greedy tokens.  ``--trace PATH`` writes
 the ``serve/prefill`` and ``serve/decode`` spans and a
 ``serve/throughput`` counter as JSONL through :mod:`repro_torch.obs`.
-The port serves the dense decoders, the MoE decoder (kimi-k2), the pure
-SSM (mamba2) and the hybrid (jamba) on KV, int8 and Mamba caches; MLA,
-the encoder-decoder and the frontends raise NotImplementedError
-(``ROADMAP.md`` §1 item 8).
+Every config serves: the dense decoders, MLA and MoE (deepseek-v2-lite,
+kimi-k2), the pure SSM (mamba2), the hybrid (jamba), the encoder-decoder
+(seamless) and the frontend decoder (internvl2), on KV, int8, MLA and
+Mamba caches.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b --tokens 32
 """
@@ -44,10 +45,11 @@ def _sync(dev: torch.device) -> None:
 
 
 def generate(model, params, prompt: torch.Tensor, *, gen_tokens: int, cache_len: int,
-             elog: EventLog | None = None, keep_logits: bool = False) -> ServeResult:
-    """Prefill ``prompt`` (B, S) into caches of ``cache_len`` and decode
-    greedily up to ``gen_tokens`` tokens; ``keep_logits`` keeps each
-    token's logits."""
+             elog: EventLog | None = None, keep_logits: bool = False,
+             frontend: torch.Tensor | None = None) -> ServeResult:
+    """Prefill ``prompt`` (B, S), after ``frontend`` (B, F, fd) where the
+    model takes one, into caches of ``cache_len`` and decode greedily up to
+    ``gen_tokens`` tokens; ``keep_logits`` keeps each token's logits."""
     dev = prompt.device
     batch, prompt_len = prompt.shape
     cuda = dev.type == "cuda"
@@ -57,7 +59,10 @@ def generate(model, params, prompt: torch.Tensor, *, gen_tokens: int, cache_len:
     kept = []
     t0 = time.perf_counter()
     with trace_span("serve/prefill", log=elog, batch=batch, prompt_len=prompt_len):
-        logits, cache = model.prefill(params, {"tokens": prompt}, cache_len=cache_len)
+        batch_in = {"tokens": prompt}
+        if frontend is not None:
+            batch_in["frontend"] = frontend
+        logits, cache = model.prefill(params, batch_in, cache_len=cache_len)
         tok = greedy_tokens(logits)
         _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -85,6 +90,16 @@ def generate(model, params, prompt: torch.Tensor, *, gen_tokens: int, cache_len:
         peak_bytes=int(torch.cuda.max_memory_allocated(dev)) if cuda else None)
 
 
+def serve_frontend(cfg, key: torch.Tensor, batch: int) -> torch.Tensor | None:
+    """A served request's stubbed frontend: ``0.02·normal(key)`` in f32,
+    (batch, enc_seq_len, frontend_dim) for an encoder-decoder, (batch,
+    frontend_seq, frontend_dim) for a frontend decoder, else None."""
+    if cfg.frontend == "none" and not cfg.enc_dec:
+        return None
+    fseq = cfg.enc_seq_len if cfg.enc_dec else cfg.frontend_seq
+    return 0.02 * prng.normal(key, (batch, fseq, cfg.frontend_dim))
+
+
 def run_serving(arch: str, *, batch: int = 4, prompt_len: int = 64, gen_tokens: int = 32,
                 cache_len: int = 256, seed: int = 0, reduced: bool = True,
                 trace: str | None = None, device="cuda", keep_logits: bool = False,
@@ -100,11 +115,12 @@ def run_serving(arch: str, *, batch: int = 4, prompt_len: int = 64, gen_tokens: 
     key = prng.PRNGKey(seed, device=dev)
     params = model.init(key)
     prompt = prng.randint(key, (batch, prompt_len), 0, cfg.vocab_size)
+    frontend = serve_frontend(cfg, key, batch)
     elog = EventLog(tool="repro_torch.launch.serve", arch=arch, batch=batch,
                     prompt_len=prompt_len, gen_tokens=gen_tokens,
                     cache_len=cache_len) if trace else None
     res = generate(model, params, prompt, gen_tokens=gen_tokens, cache_len=cache_len,
-                   elog=elog, keep_logits=keep_logits)
+                   elog=elog, keep_logits=keep_logits, frontend=frontend)
     if verbose:
         print(f"{arch}: prefill({batch}x{prompt_len}) {res.prefill_s:.2f}s, "
               f"decode {gen_tokens} tokens {res.decode_s:.2f}s "

@@ -18,8 +18,10 @@ chunk's end, the contract of the JAX package's ``lax.scan`` chunk;
 ``loop`` moves them every step.  Both run the same step function.
 
 PRNG: ``split(PRNGKey(seed), 4)`` fans the seed into init / mask / data /
-loop keys; step i's attack key is ``fold_in(loop_key, i)`` and the
-Byzantine ranks are ``byz_rank(mask_key, W)``, as in the JAX package.
+loop keys; step i's attack key is ``fold_in(loop_key, i)``, a model with a
+frontend draws step i's frames from ``fold_in(data_key, i)`` in the
+activation dtype (:func:`frontend_batch`), and the Byzantine ranks are
+``byz_rank(mask_key, W)``, as in the JAX package.
 
 Checkpoints: ``ckpt_dir`` gets a final checkpoint of the whole
 ``TrainState`` (labelled with its own step) and ``history.json``;
@@ -54,6 +56,7 @@ from repro_torch.core.solver import SolverConfig, byz_rank
 from repro_torch.data.synthetic import SyntheticTokens, make_worker_batch
 from repro_torch.distributed.trainer import build_train_step, init_train_state
 from repro_torch.models import build_model
+from repro_torch.models.common import resolve_dtype
 from repro_torch.obs import EventLog, TelemetryConfig, trace_span
 from repro_torch.optim import adamw, linear_warmup_cosine
 
@@ -104,6 +107,17 @@ def fetch_metrics(ms: list[dict]) -> list[dict]:
         out[j][name] = val if shape else val[()]
         ofs += n
     return out
+
+
+def frontend_batch(cfg, key: torch.Tensor, lead: tuple) -> torch.Tensor:
+    """The stubbed frontend's embeddings, ``0.02·normal`` of ``key`` in the
+    activation dtype: (*lead, enc_seq_len or frontend_seq, frontend_dim)
+    (the encoder's frames for an encoder-decoder, else the patches put
+    before the tokens), as the JAX package draws them."""
+    dtype = resolve_dtype(cfg.activation_dtype)
+    fseq = cfg.enc_seq_len if cfg.enc_dec else cfg.frontend_seq
+    draw = prng.normal(key, (*lead, fseq, cfg.frontend_dim), dtype)
+    return torch.tensor(0.02, dtype=dtype, device=key.device) * draw
 
 
 def run_training(
@@ -180,10 +194,16 @@ def run_training(
     run_label = f"train/{arch}"
     n_prior = len(history)
 
-    def one_step(st, i):
+    def make_batch(i):
         batch = make_worker_batch(stream, workers, per_worker_batch, i, poison_mask=poison,
                                   device=dev)
-        return train_step(st, batch, rank, prng.fold_in(loop_key, i))
+        if cfg.frontend != "none":
+            batch["frontend"] = frontend_batch(cfg, prng.fold_in(data_key, i),
+                                               (workers, per_worker_batch))
+        return batch
+
+    def one_step(st, i):
+        return train_step(st, make_batch(i), rank, prng.fold_in(loop_key, i))
 
     def flush_recs(ms: list[dict], lo: int):
         """Host-side split of one transfer: ``tel/`` forensics go to the

@@ -1,6 +1,7 @@
-"""Attention mixers: GQA and sliding-window GQA for training and
-prefill, and their decode caches (the counterpart of
-:mod:`repro.models.attention` for the dense decoder).
+"""Attention mixers: GQA, sliding-window GQA and MLA (DeepSeek's latent
+KV) for training and prefill, the encoder's bidirectional attention and
+the decoder's cross attention, and the decode caches (the counterpart of
+:mod:`repro.models.attention`).
 
 Attention is chunked over KV blocks with an online softmax (the
 flash-attention recurrence in plain PyTorch): the (S, S) score matrix never
@@ -12,8 +13,10 @@ and for a −inf running maximum.
 Decode keeps a preallocated cache: :class:`KVCache` (the activations'
 dtype) or :class:`QuantKVCache` (int8 values, f16 absmax scales a slot
 and head), written as a ring (slot = pos % L) and read by a one-query
-attention.  MLA, the encoder and cross attention wait for a later slice
-(``ROADMAP.md`` §1 item 8).
+attention.  MLA's :class:`MLACache` keeps the latent and the shared RoPE
+key a token, and its decode scores in the absorbed form (q·W_uk against
+the latent); its mask keeps the slots ``<= pos % L``, where GQA's keeps
+``< min(pos + 1, L)``, as in the JAX package (``ROADMAP.md`` §3).
 """
 from __future__ import annotations
 
@@ -37,6 +40,23 @@ def attn_defs(cfg: ModelConfig) -> dict:
         "wv": ParamDef((d, kv, hd), ("embed", "kv_heads", None)),
         "wo": ParamDef((h, hd, d), ("heads", None, "embed")),
     }
+
+
+def mla_defs(cfg: ModelConfig) -> dict:
+    d, h, hd, r = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    lk = cfg.kv_lora_rank
+    defs = {
+        "w_dkv": ParamDef((d, lk + r), ("embed", None)),      # latent + rope key
+        "w_uk": ParamDef((lk, h, hd), (None, "heads", None)),
+        "w_uv": ParamDef((lk, h, hd), (None, "heads", None)),
+        "wo": ParamDef((h, hd, d), ("heads", None, "embed")),
+    }
+    if cfg.q_lora_rank:
+        defs["w_dq"] = ParamDef((d, cfg.q_lora_rank), ("embed", None))
+        defs["w_uq"] = ParamDef((cfg.q_lora_rank, h, hd + r), (None, "heads", None))
+    else:
+        defs["wq"] = ParamDef((d, h, hd + r), ("embed", "heads", None))
+    return defs
 
 
 def _chunk_pad(x: torch.Tensor, chunk: int, axis: int):
@@ -121,6 +141,39 @@ def gqa_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tenso
     if return_kv:
         return out, (k, v)
     return out
+
+
+def encoder_attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                       positions: torch.Tensor) -> torch.Tensor:
+    """Bidirectional self-attention (the encoder of an encoder-decoder),
+    RoPE on q and k."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = chunked_attention(q, k, v, positions, positions, causal=False, chunk=cfg.attn_chunk)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def cross_attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, memory_k: torch.Tensor,
+                     memory_v: torch.Tensor) -> torch.Tensor:
+    """The decoder's attention over the encoder's projected keys and values
+    (B, Sm, KV, hd): no RoPE, every position 0, not causal."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    pos_q = torch.zeros((x.shape[1],), dtype=torch.int32, device=x.device)
+    pos_k = torch.zeros((memory_k.shape[1],), dtype=torch.int32, device=x.device)
+    o = chunked_attention(q, memory_k, memory_v, pos_q, pos_k, causal=False,
+                          chunk=cfg.attn_chunk)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def project_memory(p: dict, memory: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's output → the cross attention's keys and values (once a
+    request)."""
+    k = torch.einsum("bsd,dhk->bshk", memory, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", memory, p["wv"])
+    return k, v
 
 
 # ---------------------------------------------------------------------------
@@ -248,3 +301,106 @@ def gqa_decode_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, cache,
         return out, QuantKVCache(k=k_cache, v=v_cache, k_scale=ks_cache, v_scale=vs_cache,
                                  pos=pos + 1)
     return out, KVCache(k=k_cache, v=v_cache, pos=pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# MLA (train / prefill / decode)
+# ---------------------------------------------------------------------------
+
+def _mla_q(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.q_lora_rank:
+        cq = torch.einsum("bsd,dr->bsr", x, p["w_dq"])
+        return torch.einsum("bsr,rhk->bshk", cq, p["w_uq"])
+    return torch.einsum("bsd,dhk->bshk", x, p["wq"])
+
+
+def mla_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+              return_kv: bool = False):
+    """Training and prefill: the latent expanded into per-head keys and
+    values, the shared RoPE key broadcast to every head, then the chunked
+    attention (q and k of head dim hd + r, v of hd).  With ``return_kv``
+    also the latent (B, S, lk) and the RoPE'd shared key (B, S, r)."""
+    hd, r, lk = cfg.head_dim, cfg.rope_head_dim, cfg.kv_lora_rank
+    q = _mla_q(p, cfg, x)                                       # (B,S,H,hd+r)
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    ckv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])            # (B,S,lk+r)
+    c, k_rope = ckv[..., :lk], ckv[..., lk:]
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)   # (B,S,1,r)
+    k_nope = torch.einsum("bsr,rhk->bshk", c, p["w_uk"])        # (B,S,H,hd)
+    v = torch.einsum("bsr,rhk->bshk", c, p["w_uv"])             # (B,S,H,hd)
+
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3], r)], dim=-1)
+    o = chunked_attention(qf, kf, v, positions, positions, causal=True, chunk=cfg.attn_chunk)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    if return_kv:
+        return out, (c, k_rope[:, :, 0, :])
+    return out
+
+
+class MLACache(NamedTuple):
+    ckv: torch.Tensor     # (B, L, lk) — the latent
+    k_rope: torch.Tensor  # (B, L, r)  — the RoPE'd shared key
+    pos: torch.Tensor     # () int32
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, length: int, dtype: torch.dtype,
+                   device="cpu") -> MLACache:
+    return MLACache(
+        ckv=torch.zeros((batch, length, cfg.kv_lora_rank), dtype=dtype, device=device),
+        k_rope=torch.zeros((batch, length, cfg.rope_head_dim), dtype=dtype, device=device),
+        pos=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def mla_cache_from_prefill(c: torch.Tensor, k_rope: torch.Tensor, length: int,
+                           pos: torch.Tensor) -> MLACache:
+    """Prefill's latent and RoPE key (B, S, ·) as a cache of capacity
+    ``length``; past it the last ``length`` tokens, rolled by S % length."""
+    S = c.shape[1]
+    if S <= length:
+        pad = (0, 0, 0, length - S)
+        return MLACache(ckv=torch.nn.functional.pad(c, pad),
+                        k_rope=torch.nn.functional.pad(k_rope, pad), pos=pos)
+    off = S % length
+    return MLACache(ckv=torch.roll(c[:, -length:], off, dims=1),
+                    k_rope=torch.roll(k_rope[:, -length:], off, dims=1), pos=pos)
+
+
+def mla_decode_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                     cache: MLACache) -> tuple[torch.Tensor, MLACache]:
+    """One-token decode in the absorbed form: q·W_uk (f32) scores against
+    the latent cache plus q_rope against the RoPE-key cache, over √(hd + r);
+    the slots ``<= pos % L`` are kept (the JAX package's mask, which drops
+    the older slots after the newest once the cache wraps); the weighted
+    latent goes back through W_uv in f32 and is cast to x's dtype before
+    ``wo``."""
+    hd, r, lk = cfg.head_dim, cfg.rope_head_dim, cfg.kv_lora_rank
+    L = cache.ckv.shape[1]
+    pos = cache.pos
+    slot = torch.remainder(pos, L)
+    positions = pos.reshape(1).to(torch.int32)
+
+    q = _mla_q(p, cfg, x)[:, 0]                                 # (B,H,hd+r)
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    q_rope = apply_rope(q_rope[:, None], positions, cfg.rope_theta)[:, 0]
+
+    ckv_new = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])        # (B,1,lk+r)
+    c_new, kr_new = ckv_new[..., :lk], ckv_new[..., lk:]
+    kr_new = apply_rope(kr_new[:, :, None], positions, cfg.rope_theta)[:, :, 0]
+
+    ckv_cache = _write_slot(cache.ckv, c_new, slot)
+    kr_cache = _write_slot(cache.k_rope, kr_new, slot)
+
+    q_eff = torch.einsum("bhk,rhk->bhr", q_nope.to(F32), p["w_uk"].to(F32))   # (B,H,lk)
+    s = torch.einsum("bhr,blr->bhl", q_eff, ckv_cache.to(F32))
+    s = s + torch.einsum("bhk,blk->bhl", q_rope.to(F32), kr_cache.to(F32))
+    s = s / float(np.sqrt(np.float32(hd + r)))
+    valid = torch.arange(L, device=x.device) <= slot
+    s = torch.where(valid[None, None], s, -math.inf)
+    w = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhl,blr->bhr", w, ckv_cache.to(F32))                # (B,H,lk)
+    o = torch.einsum("bhr,rhk->bhk", o_lat, p["w_uv"].to(F32))                # (B,H,hd)
+    out = torch.einsum("bshk,hkd->bsd", o[:, None].to(x.dtype), p["wo"])
+    return out, MLACache(ckv=ckv_cache, k_rope=kr_cache, pos=pos + 1)

@@ -13,18 +13,22 @@ The LM loss is computed in sequence chunks of ``LOSS_CHUNK`` (one chunk
 when the chunk does not divide S), so the (B, S, V) logits exist one
 chunk at a time.
 
-The port holds the ``attn``/``swa`` (:mod:`.attention`) and ``mamba``
-(:mod:`.ssm`) mixers and the ``mlp``, ``moe`` (:mod:`.moe`) and ``none``
-feed-forwards, so the dense decoders, the MoE decoder (kimi-k2), the pure
-SSM (mamba2) and the hybrid (jamba) run for training (``init``,
-``abstract``, ``forward``, ``loss_fn``; the MoE layers' aux loss summed
-over layers into ``router_aux_weight·aux``) and for serving (``prefill``,
-``init_cache``, ``decode_step`` on the KV, int8 and Mamba caches; serving
-drops the aux).  MLA, encoder–decoder and frontend configs, and the MLA
-cache, raise NotImplementedError (``ROADMAP.md`` §1 item 8).
+The port holds every mixer (``attn``/``swa``/``mla``: :mod:`.attention`;
+``mamba``: :mod:`.ssm`) and feed-forward (``mlp``, ``moe``: :mod:`.moe`,
+``none``), the encoder-decoder (a bidirectional encoder over the
+frontend's frames, cross attention in every decoder block against the
+encoder's output projected a layer) and the frontends without an encoder
+(the frames projected and put before the tokens; ``forward`` returns that
+prefix and ``loss_fn`` drops it), so every config of
+:mod:`repro_torch.configs` runs for training (``init``, ``abstract``,
+``forward``, ``loss_fn``; the MoE layers' aux loss summed over layers into
+``router_aux_weight·aux``) and for serving (``prefill``, ``init_cache``,
+``decode_step`` on the KV, int8, MLA and Mamba caches, with the
+cross-attention memory in ``cache["memory_kv"]``; serving drops the aux).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -48,11 +52,6 @@ from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 
 F32 = torch.float32
 LOSS_CHUNK = 512  # sequence chunk of the CE loss
-_LATER = "is not ported yet (ROADMAP.md §1 item 8)"
-
-
-def _later(what: str):
-    raise NotImplementedError(f"repro_torch.models: {what} {_LATER}")
 
 
 # ---------------------------------------------------------------------------
@@ -66,10 +65,10 @@ def _norm_def(d: int) -> ParamDef:
 def _mixer_defs(spec: BlockSpec, cfg: ModelConfig) -> dict:
     if spec.mixer in ("attn", "swa"):
         return attn_lib.attn_defs(cfg)
+    if spec.mixer == "mla":
+        return attn_lib.mla_defs(cfg)
     if spec.mixer == "mamba":
         return ssm_lib.mamba_defs(cfg)
-    if spec.mixer == "mla":
-        _later("the 'mla' mixer")
     raise ValueError(spec.mixer)
 
 
@@ -83,37 +82,42 @@ def _ff_defs(spec: BlockSpec, cfg: ModelConfig) -> dict:
     raise ValueError(spec.ff)
 
 
-def _block_defs(spec: BlockSpec, cfg: ModelConfig) -> dict:
-    return {
+def _block_defs(spec: BlockSpec, cfg: ModelConfig, cross: bool) -> dict:
+    d = {
         "norm1": _norm_def(cfg.d_model),
         "mixer": _mixer_defs(spec, cfg),
         "norm2": _norm_def(cfg.d_model),
         "ff": _ff_defs(spec, cfg),
     }
+    if cross:
+        d["cross_norm"] = _norm_def(cfg.d_model)
+        d["cross"] = attn_lib.attn_defs(dataclasses.replace(cfg, n_kv_heads=cfg.n_heads))
+    return d
 
 
 def _stack_defs(defs: dict, n: int) -> dict:
     return tree_map(lambda d: d.with_leading(n), defs, is_leaf=lambda x: isinstance(x, ParamDef))
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.enc_dec:
-        _later("the encoder-decoder model")
-    if cfg.frontend != "none":
-        _later(f"the {cfg.frontend!r} frontend")
-
-
 def model_defs(cfg: ModelConfig) -> dict:
     """Full ParamDef tree for the model."""
-    _check_supported(cfg)
     defs: dict[str, Any] = {
         "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed_table"), init="embed"),
         "final_norm": _norm_def(cfg.d_model),
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
-    defs["groups"] = [_stack_defs(_block_defs(spec, cfg), spec.count)
+    defs["groups"] = [_stack_defs(_block_defs(spec, cfg, cross=cfg.enc_dec), spec.count)
                       for spec in cfg.layer_plan()]
+    if cfg.frontend != "none" and not cfg.enc_dec:
+        defs["frontend_proj"] = ParamDef((cfg.frontend_dim, cfg.d_model), (None, "embed"))
+    if cfg.enc_dec:
+        enc_spec = BlockSpec(mixer="attn", ff="mlp", count=cfg.n_enc_layers)
+        defs["enc"] = {
+            "proj": ParamDef((cfg.frontend_dim or cfg.d_model, cfg.d_model), (None, "embed")),
+            "group": _stack_defs(_block_defs(enc_spec, cfg, cross=False), cfg.n_enc_layers),
+            "norm": _norm_def(cfg.d_model),
+        }
     return defs
 
 
@@ -126,6 +130,8 @@ def _apply_mixer(spec: BlockSpec, cfg: ModelConfig, p: dict, x, positions):
         return attn_lib.gqa_apply(p, cfg, x, positions, window=None)
     if spec.mixer == "swa":
         return attn_lib.gqa_apply(p, cfg, x, positions, window=cfg.sliding_window)
+    if spec.mixer == "mla":
+        return attn_lib.mla_apply(p, cfg, x, positions)
     if spec.mixer == "mamba":
         return ssm_lib.mamba_apply(p, cfg, x)
     raise ValueError(spec.mixer)
@@ -140,10 +146,14 @@ def _apply_ff(spec: BlockSpec, cfg: ModelConfig, p: dict, x):
     return torch.zeros_like(x), 0.0
 
 
-def _block_apply(spec: BlockSpec, cfg: ModelConfig, p: dict, x, positions):
-    """One transformer block (pre-norm residual).  Returns (x, aux)."""
+def _block_apply(spec: BlockSpec, cfg: ModelConfig, p: dict, x, positions, memory_kv=None):
+    """One transformer block (pre-norm residual), with the cross attention
+    over ``memory_kv`` after the mixer when given.  Returns (x, aux)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     x = x + _apply_mixer(spec, cfg, p["mixer"], h, positions)
+    if memory_kv is not None:
+        h = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+        x = x + attn_lib.cross_attn_apply(p["cross"], cfg, h, *memory_kv)
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     ff, aux = _apply_ff(spec, cfg, p["ff"], h)
     return x + ff, aux
@@ -158,15 +168,30 @@ def _unstack(tree, n: int) -> list:
     return [tree_unflatten(tree, [p[i] for p in parts]) for i in range(n)]
 
 
-def _run_groups(cfg: ModelConfig, groups_params, x, positions):
-    """Each homogeneous group, layer by layer along its stacked axis.
-    Returns (x, aux) with aux an f32 0-d tensor."""
+def _run_groups(cfg: ModelConfig, groups_params, x, positions, memory=None):
+    """Each homogeneous group, layer by layer along its stacked axis; with
+    the encoder's ``memory`` each layer projects it for its cross
+    attention.  Returns (x, aux) with aux an f32 0-d tensor."""
     aux_total = torch.zeros((), dtype=F32, device=x.device)
     for spec, gp in zip(cfg.layer_plan(), groups_params):
         for lp in _unstack(gp, spec.count):
-            x, a = _block_apply(spec, cfg, lp, x, positions)
+            mem_kv = None if memory is None else attn_lib.project_memory(lp["cross"], memory)
+            x, a = _block_apply(spec, cfg, lp, x, positions, mem_kv)
             aux_total = aux_total + a
     return x, aux_total
+
+
+def _run_encoder(cfg: ModelConfig, enc_params, frames):
+    """The bidirectional encoder over the frontend's frames: (B, Sm, F) →
+    (B, Sm, D)."""
+    x = torch.einsum("bsf,fd->bsd", frames, enc_params["proj"]).to(frames.dtype)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    for lp in _unstack(enc_params["group"], cfg.n_enc_layers):
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        x = x + attn_lib.encoder_attn_apply(lp["mixer"], cfg, h, positions)
+        h = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = x + mlp_apply(lp["ff"], h)
+    return rms_norm(x, enc_params["norm"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -212,10 +237,10 @@ def _group_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, length: int, dty
     """One empty cache a layer of the group, stacked on a leading layer axis."""
     if spec.mixer in ("attn", "swa"):
         one = attn_lib.init_kv_cache(cfg, batch, _cache_len(spec, cfg, length), dtype, device)
+    elif spec.mixer == "mla":
+        one = attn_lib.init_mla_cache(cfg, batch, length, dtype, device)
     elif spec.mixer == "mamba":
         one = ssm_lib.init_mamba_cache(cfg, batch, dtype, device)
-    elif spec.mixer == "mla":
-        _later("the 'mla' decode cache")
     else:
         raise ValueError(spec.mixer)
     return tree_map(lambda a: a.expand(spec.count, *a.shape).clone(), one)
@@ -252,16 +277,31 @@ def build_model(cfg: ModelConfig, device="cuda") -> LanguageModel:
     pdt = resolve_dtype(cfg.param_dtype)
     adt = resolve_dtype(cfg.activation_dtype)
 
+    def embed_inputs(params, batch):
+        """The tokens' embeddings, after the frontend's projected frames when
+        the model has a frontend and no encoder; and that prefix's length."""
+        x = params["embed"][batch["tokens"].long()].to(adt)
+        if cfg.frontend != "none" and not cfg.enc_dec:
+            fe = batch["frontend"].to(adt)                                  # (B, F, fd)
+            fx = torch.einsum("bfe,ed->bfd", fe, params["frontend_proj"]).to(adt)
+            return torch.cat([fx, x], dim=1), fe.shape[1]
+        return x, 0
+
+    def encode(params, batch):
+        return (_run_encoder(cfg, params["enc"], batch["frontend"].to(adt)) if cfg.enc_dec
+                else None)
+
     def forward(params, batch):
-        tokens = batch["tokens"]
-        x = params["embed"][tokens.long()].to(adt)
+        x, prefix = embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-        x, aux = _run_groups(cfg, params["groups"], x, positions)
-        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux, 0
+        x, aux = _run_groups(cfg, params["groups"], x, positions, memory=encode(params, batch))
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux, prefix
 
     def loss_fn(params, batch):
-        h, aux, _ = forward(params, batch)
+        h, aux, prefix = forward(params, batch)
         labels = batch["labels"]
+        if prefix:
+            h = h[:, prefix:]
         mask = batch.get("loss_mask")
         mask = torch.ones_like(labels, dtype=F32) if mask is None else mask.to(F32)
         ce = _chunked_ce(cfg, params, h, labels, mask)
@@ -269,20 +309,25 @@ def build_model(cfg: ModelConfig, device="cuda") -> LanguageModel:
         return loss, {"ce": ce, "aux": aux}
 
     def prefill(params, batch, cache_len: int):
-        """A whole prompt → (last-token logits (B, 1, V), decode cache)."""
-        tokens = batch["tokens"]
-        x = params["embed"][tokens.long()].to(adt)
+        """A whole prompt (with its frontend, when the model has one) →
+        (last-token logits (B, 1, V), decode cache)."""
+        x, _ = embed_inputs(params, batch)
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         pos_final = torch.full((), S, dtype=torch.int32, device=x.device)
-        layer_caches = []
+        memory = encode(params, batch)
+        layer_caches, memory_kvs = [], []
         for spec, gp in zip(cfg.layer_plan(), params["groups"]):
             win = cfg.sliding_window if spec.mixer == "swa" else None
-            caches = []
+            caches, mems = [], []
             for lp in _unstack(gp, spec.count):
                 h = rms_norm(x, lp["norm1"], cfg.norm_eps)
                 if spec.mixer == "mamba":
                     o, lc = ssm_lib.mamba_apply(lp["mixer"], cfg, h, return_state=True)
+                elif spec.mixer == "mla":
+                    o, (c, kr) = attn_lib.mla_apply(lp["mixer"], cfg, h, positions,
+                                                    return_kv=True)
+                    lc = attn_lib.mla_cache_from_prefill(c, kr, cache_len, pos_final)
                 else:
                     o, (k, v) = attn_lib.gqa_apply(lp["mixer"], cfg, h, positions, window=win,
                                                    return_kv=True)
@@ -291,17 +336,37 @@ def build_model(cfg: ModelConfig, device="cuda") -> LanguageModel:
                         quantize=cfg.kv_cache_dtype == "int8")
                 caches.append(lc)
                 x = x + o
+                if memory is not None:
+                    hh = rms_norm(x, lp["cross_norm"], cfg.norm_eps)
+                    mem_kv = attn_lib.project_memory(lp["cross"], memory)
+                    x = x + attn_lib.cross_attn_apply(lp["cross"], cfg, hh, *mem_kv)
+                    mems.append(mem_kv)
                 h = rms_norm(x, lp["norm2"], cfg.norm_eps)
                 ff, _ = _apply_ff(spec, cfg, lp["ff"], h)
                 x = x + ff
             layer_caches.append(_stack_layers(caches))
+            if memory is not None:
+                memory_kvs.append(tuple(torch.stack(t) for t in zip(*mems)))
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return _lm_head(cfg, params, x[:, -1:, :]), {"layers": layer_caches}
+        cache = {"layers": layer_caches}
+        if cfg.enc_dec:
+            cache["memory_kv"] = memory_kvs
+        return _lm_head(cfg, params, x[:, -1:, :]), cache
 
     def init_cache(batch: int, length: int, dtype=None):
-        """Empty caches of capacity ``length`` on the model's device."""
-        return {"layers": [_group_cache(spec, cfg, batch, length, dtype or adt, dev)
-                           for spec in cfg.layer_plan()]}
+        """Empty caches of capacity ``length`` on the model's device; an
+        encoder-decoder's also holds a zero cross-attention memory of
+        ``enc_seq_len`` a layer (all heads)."""
+        dtype = dtype or adt
+        cache = {"layers": [_group_cache(spec, cfg, batch, length, dtype, dev)
+                            for spec in cfg.layer_plan()]}
+        if cfg.enc_dec:
+            shape = (batch, cfg.enc_seq_len, cfg.n_heads, cfg.head_dim)
+            cache["memory_kv"] = [
+                tuple(torch.zeros((spec.count, *shape), dtype=dtype, device=dev)
+                      for _ in range(2))
+                for spec in cfg.layer_plan()]
+        return cache
 
     def decode_step(params, cache, token, extras=None):
         """token: (B, 1) int → (logits (B, 1, V), cache')."""
@@ -309,14 +374,22 @@ def build_model(cfg: ModelConfig, device="cuda") -> LanguageModel:
         new_layers = []
         for gi, (spec, gp) in enumerate(zip(cfg.layer_plan(), params["groups"])):
             gcache = cache["layers"][gi]
+            mems = ([tuple(pair) for pair in zip(*(torch.unbind(t, 0)
+                                                  for t in cache["memory_kv"][gi]))]
+                    if cfg.enc_dec else [None] * spec.count)
             caches = []
-            for lp, lc in zip(_unstack(gp, spec.count), _unstack(gcache, spec.count)):
+            for lp, lc, mem in zip(_unstack(gp, spec.count), _unstack(gcache, spec.count), mems):
                 h = rms_norm(x, lp["norm1"], cfg.norm_eps)
                 if spec.mixer == "mamba":
                     o, lc = ssm_lib.mamba_decode_apply(lp["mixer"], cfg, h, lc)
+                elif spec.mixer == "mla":
+                    o, lc = attn_lib.mla_decode_apply(lp["mixer"], cfg, h, lc)
                 else:
                     o, lc = attn_lib.gqa_decode_apply(lp["mixer"], cfg, h, lc)
                 x = x + o
+                if mem is not None:
+                    hh = rms_norm(x, lp["cross_norm"], cfg.norm_eps)
+                    x = x + attn_lib.cross_attn_apply(lp["cross"], cfg, hh, *mem)
                 h = rms_norm(x, lp["norm2"], cfg.norm_eps)
                 ff, _ = _apply_ff(spec, cfg, lp["ff"], h)
                 x = x + ff

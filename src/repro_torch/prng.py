@@ -16,7 +16,8 @@ data)``.  ``uniform`` and ``randint`` draw ``b0 ^ b1`` of threefry on the
 flat element index, as ``jax.random.bits`` does for 32-bit words.
 ``normal`` is ``√2·erf_inv(u)`` of a uniform u on (nextafter(−1, 0), 1),
 with ``erf_inv`` Giles' single-precision polynomial as XLA evaluates it
-(:func:`erf_inv`); ``bernoulli`` is ``uniform < p``.
+(:func:`erf_inv`), in float32 or bfloat16 (whose uniform jax draws from 8
+bits); ``bernoulli`` is ``uniform < p``.
 
 ``truncated_normal`` is ``√2·erf_inv`` of a uniform between the bounds'
 erf, clamped inside the bounds.
@@ -190,13 +191,33 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
+_BF16_NORMAL_LO = -0.99609375          # nextafter(−1, 0) in bfloat16
+_BF16_SQRT2 = 1.4140625                # √2 rounded to bfloat16
+
+
+def _normal_bf16(key: torch.Tensor, shape, offset: int) -> torch.Tensor:
+    """``jax.random.normal(key, shape, bfloat16)``.  jax draws a bf16
+    uniform from 8 bits (its 7 mantissa bits are fewer than 8): the low
+    byte of ``b0 ^ b1``, shifted right by one, as the mantissa of a bf16 in
+    [1, 2), minus 1, times the bf16 span 2.0 (1 − nextafter(−1, 0) rounded)
+    plus nextafter(−1, 0); every such u, (4k − 255)/256, is exact in bf16.
+    ``erf_inv`` is taken in f32 and rounded to bf16, then the product with
+    bf16 √2 is rounded to bf16, where XLA rounds them."""
+    k = (_bits(key, shape, offset) & 0xFF) >> 1
+    u = torch.clamp(k.to(torch.float32) * (2.0 ** -6) + _BF16_NORMAL_LO, min=_BF16_NORMAL_LO)
+    e = erf_inv(u).to(torch.bfloat16).to(torch.float32)
+    return (e * _BF16_SQRT2).to(torch.bfloat16)
+
+
 def normal(key: torch.Tensor, shape=(), dtype=torch.float32, *,
            offset: int = 0) -> torch.Tensor:
-    """``jax.random.normal(key, shape, float32)``: √2·erf_inv(u) for u
-    uniform on (nextafter(−1, 0), 1).  Only float32 is ported: jax draws
-    another dtype from other bits."""
+    """``jax.random.normal(key, shape, dtype)`` for float32 and bfloat16:
+    √2·erf_inv(u) for u uniform on (nextafter(−1, 0), 1) in that dtype
+    (bf16: :func:`_normal_bf16`)."""
+    if dtype == torch.bfloat16:
+        return _normal_bf16(key, shape, offset)
     if dtype != torch.float32:
-        raise ValueError(f"normal draws float32 only, got {dtype}")
+        raise ValueError(f"normal draws float32 or bfloat16, got {dtype}")
     return _SQRT2 * erf_inv(uniform(key, shape, _NORMAL_LO, 1.0, offset=offset))
 
 

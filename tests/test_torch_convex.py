@@ -131,8 +131,12 @@ def test_batched_split_uniform_randint_match_vmap():
 
 
 def test_normal_refuses_other_dtypes():
+    """float32 and, since the frontends' frames need it, bfloat16 are drawn
+    (bf16 held to jax's in ``tests/test_torch_encdec.py``); any other dtype
+    is refused."""
     with pytest.raises(ValueError, match="float32"):
-        prng.normal(prng.PRNGKey(0), (3,), torch.bfloat16)
+        prng.normal(prng.PRNGKey(0), (3,), torch.float16)
+    assert prng.normal(prng.PRNGKey(0), (3,), torch.bfloat16).dtype == torch.bfloat16
 
 
 # ---------------------------------------------------------------- attacks

@@ -1078,3 +1078,48 @@ def test_full_width_serve_decodes_as_the_forward_at_one_layer(cuda_device):
     err = (got - want).norm(dim=-1) / want.norm(dim=-1)
     assert float(err.max()) <= 5e-2
     assert torch.equal(res.tokens, torch.argmax(got, -1).to(torch.int32))
+
+
+@pytest.mark.cuda
+def test_mla_decode_and_the_encoder_on_the_card_match_the_cpu(cuda_device):
+    """MLA's absorbed decode over a cache that wraps, and seamless's
+    encoder and cross attention, at deepseek-v2-lite's and
+    seamless-m4t-large-v2's reduced widths (f32), on the card against the
+    same calls on the CPU: within 1e-5 relative (the same f32 products,
+    summed in another order)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as tattn
+    from repro_torch.models.common import init_params
+
+    def close(got, want, tol=1e-5):
+        got, want = got.cpu().double(), want.double()
+        assert float((got - want).norm()) <= tol * float(want.norm()) + tol
+
+    gen = torch.Generator().manual_seed(0)
+    cfg = get_config("deepseek-v2-lite-16b").reduced()
+    p = init_params(prng.PRNGKey(1), tattn.mla_defs(cfg), torch.float32)
+    pc = {k: v.to(cuda_device) for k, v in p.items()}
+    x = torch.randn(2, 9, cfg.d_model, generator=gen)
+    pos = torch.arange(9, dtype=torch.int32)
+    _, (c, kr) = tattn.mla_apply(p, cfg, x, pos, return_kv=True)
+    cache = tattn.mla_cache_from_prefill(c, kr, 6, torch.tensor(9, dtype=torch.int32))
+    ccache = tattn.MLACache(*(t.to(cuda_device) for t in cache))
+    for _ in range(4):
+        xt = torch.randn(2, 1, cfg.d_model, generator=gen)
+        want, cache = tattn.mla_decode_apply(p, cfg, xt, cache)
+        got, ccache = tattn.mla_decode_apply(pc, cfg, xt.to(cuda_device), ccache)
+        close(got, want)
+        close(ccache.ckv, cache.ckv)
+    ecfg = get_config("seamless-m4t-large-v2").reduced()
+    ep = init_params(prng.PRNGKey(2), tattn.attn_defs(ecfg), torch.float32)
+    epc = {k: v.to(cuda_device) for k, v in ep.items()}
+    mem = torch.randn(2, ecfg.enc_seq_len, ecfg.d_model, generator=gen)
+    mpos = torch.arange(ecfg.enc_seq_len, dtype=torch.int32)
+    enc = tattn.encoder_attn_apply(ep, ecfg, mem, mpos)
+    cenc = tattn.encoder_attn_apply(epc, ecfg, mem.to(cuda_device), mpos.to(cuda_device))
+    close(cenc, enc)
+    q = torch.randn(2, 5, ecfg.d_model, generator=gen)
+    k, v = tattn.project_memory(ep, enc)
+    ck, cv = tattn.project_memory(epc, cenc)
+    close(tattn.cross_attn_apply(epc, ecfg, q.to(cuda_device), ck, cv),
+          tattn.cross_attn_apply(ep, ecfg, q, k, v))

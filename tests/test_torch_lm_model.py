@@ -257,24 +257,30 @@ def test_loss_chunks_only_when_the_chunk_divides_s(monkeypatch):
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "seamless-m4t-large-v2",
                                   "internvl2-76b"])
 def test_other_families_raise_naming_the_roadmap(arch):
-    """MLA, the encoder-decoder and the frontends; mamba2, kimi-k2 and jamba
-    build (``tests/test_torch_moe.py``, ``tests/test_torch_ssm.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tbuild(tconfigs.get_config(arch).reduced(), device="cpu")
+    """MLA, the encoder-decoder and the frontends, the last families that
+    raised, build now with the JAX package's parameter count and leaf
+    shapes (held to it in ``tests/test_torch_mla.py`` and
+    ``tests/test_torch_encdec.py``)."""
+    jm = jbuild(jconfigs.get_config(arch).reduced())
+    tm = tbuild(tconfigs.get_config(arch).reduced(), device="cpu")
+    assert tm.n_params == jm.n_params
+    assert [tuple(a.shape) for a in utils.tree_leaves(tm.abstract())] == \
+        [tuple(a.shape) for a in jax.tree_util.tree_leaves(jm.abstract())]
 
 
 def test_serving_raises_naming_the_roadmap(models):
     """The dense decoder serves (``tests/test_torch_serve.py``), and the
-    Mamba cache with it (``tests/test_torch_ssm.py``); the MLA decode cache
-    is what still raises."""
+    Mamba cache with it (``tests/test_torch_ssm.py``); the MLA decode cache,
+    the last that raised, is built now."""
     from repro_torch.configs.base import BlockSpec
     from repro_torch.models.model import _group_cache
     tm = models["internlm2"][2]
     cache = tm.init_cache(2, 8)
     assert [tuple(c.k.shape) for c in cache["layers"]] == [(2, 2, 8, 4, 16)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _group_cache(BlockSpec(mixer="mla", ff="mlp", count=1), tm.cfg, 2, 8, torch.float32,
-                     "cpu")
+    dcfg = tconfigs.get_config("deepseek-v2-lite-16b").reduced()
+    mla = _group_cache(BlockSpec(mixer="mla", ff="mlp", count=1), dcfg, 2, 8, torch.float32,
+                       "cpu")
+    assert tuple(mla.ckv.shape) == (1, 2, 8, dcfg.kv_lora_rank)
 
 
 # ---------------------------------------------------------------- tree harness

@@ -338,10 +338,13 @@ def test_kimi_train_step_matches_jax(kimi):
 
 
 def test_mla_and_the_other_families_still_raise():
-    """deepseek-v2-lite (MLA) is what still raises among the MoE configs."""
+    """deepseek-v2-lite (MLA), the last MoE config that raised, builds now
+    (its MLA held to the JAX package's in ``tests/test_torch_mla.py``): MLA
+    mixers over a dense first layer and routed layers, with and without
+    MLA, and nothing raises."""
     cfg = get_config("deepseek-v2-lite-16b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tbuild(cfg, device="cpu")
-    # without MLA its routed layers build
+    tm = tbuild(cfg, device="cpu")
+    assert [(s.mixer, s.ff) for s in tm.cfg.layer_plan()] == [("mla", "mlp"), ("mla", "moe")]
+    assert tm.n_params == jbuild(jget_config("deepseek-v2-lite-16b").reduced()).n_params
     tm = tbuild(dataclasses.replace(cfg, use_mla=False), device="cpu")
     assert any(s.ff == "moe" for s in tm.cfg.layer_plan())

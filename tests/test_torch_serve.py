@@ -175,13 +175,18 @@ def test_quantize_and_ring_packing_match_jax():
 
 
 def test_mla_and_mamba_caches_raise_naming_the_roadmap():
-    """The MLA cache still raises; the Mamba cache, which raised before it
-    was ported, is two zero MambaCaches stacked on the group's layer axis
-    (held to the JAX package's in ``tests/test_torch_ssm.py``)."""
+    """Neither cache raises any more: the MLA cache is two zero MLACaches
+    stacked on the group's layer axis (held to the JAX package's in
+    ``tests/test_torch_mla.py``), and so is the Mamba cache (in
+    ``tests/test_torch_ssm.py``)."""
     from repro_torch.configs.base import BlockSpec
-    cfg = get_config("internlm2-1.8b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _group_cache(BlockSpec(mixer="mla", ff="mlp", count=2), cfg, 1, 8, torch.float32, "cpu")
+    dcfg = get_config("deepseek-v2-lite-16b").reduced()
+    cache = _group_cache(BlockSpec(mixer="mla", ff="mlp", count=2), dcfg, 1, 8, torch.float32,
+                         "cpu")
+    assert type(cache).__name__ == "MLACache"
+    assert tuple(cache.ckv.shape) == (2, 1, 8, dcfg.kv_lora_rank)
+    assert tuple(cache.k_rope.shape) == (2, 1, 8, dcfg.rope_head_dim)
+    assert not any(bool(t.any()) for t in cache)
     mcfg = get_config("mamba2-130m").reduced()
     cache = _group_cache(BlockSpec(mixer="mamba", ff="none", count=2), mcfg, 1, 8,
                          torch.float32, "cpu")
